@@ -1,10 +1,12 @@
 """``model.second`` config message -> (VoxelNet, VoxelNetConfig, feature
 map size), as the JAX package's ``builder/second_builder.py::build`` does
-for the fields the pillar serving path reads."""
+for the fields the serving paths read."""
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
+from ..models import middle_plans
 from ..models.voxelnet import VoxelNet, VoxelNetConfig
 from .config_io import as_list, f32
 
@@ -17,33 +19,95 @@ def feature_map_size_from(model_cfg: dict, grid_size) -> Tuple[int, int, int]:
     return (1, gy // df, gx // df)
 
 
+def _ints(d: dict, key: str) -> Tuple[int, ...]:
+    return tuple(int(v) for v in as_list(d.get(key)))
+
+
+def _sparse_window_kwargs(mid: dict) -> dict:
+    """Per-block (subm, strided) window / subwindow pairs + the
+    grouped-tap flag from the ``middle_feature_extractor`` message.  They
+    tune the TPU kernels; the port reads and checks them as the JAX
+    builder does, and its CUDA kernels ignore them.  Empty fields keep
+    the VoxelNetConfig defaults."""
+    out = {}
+    for field, key in (("sparse_pallas_window", "pallas_window"),
+                       ("sparse_keymatch_subwindow", "keymatch_subwindow")):
+        subm, strided = _ints(mid, f"{key}_subm"), _ints(mid,
+                                                         f"{key}_strided")
+        if subm and strided:
+            if len(subm) != len(strided):
+                raise ValueError(
+                    f"{key}_subm has {len(subm)} entries but {key}_strided "
+                    f"has {len(strided)} — one pair per middle block")
+            out[field] = tuple(zip(subm, strided))
+    if mid.get("keymatch_group_taps", False):
+        out["sparse_keymatch_group"] = True
+    return out
+
+
 def build_config(model_cfg: dict, voxel_grid, target_assigner
                  ) -> VoxelNetConfig:
     """Config dicts -> :class:`VoxelNetConfig` (any middle; building the
-    model is what refuses the non-pillar ones)."""
+    model is what refuses the ones that are not ported)."""
     vfe = model_cfg.get("voxel_feature_extractor", {})
     mid = model_cfg.get("middle_feature_extractor", {})
     rpn = model_cfg.get("rpn", {})
 
-    def ints(d, key):
-        return tuple(int(v) for v in as_list(d.get(key)))
+    grid_size = tuple(int(g) for g in voxel_grid.grid_size)
+    middle_name = mid.get("module_class_name") or ""
+    middle_filters = (_ints(mid, "num_filters_down1")
+                      + _ints(mid, "num_filters_down2")) or (16, 32, 64)
+    nb = len(middle_filters)
+    is_sparse = middle_name.startswith(("SpMiddle", "SparseMiddle"))
+    # exact lineage layer plan when the name has one and the grid is deep
+    # enough for it; tiny test grids fall back to the parameterized stack
+    middle_blocks = (middle_plans.lookup(
+        middle_name, (grid_size[2], grid_size[1], grid_size[0]))
+        if is_sparse else None)
+    if is_sparse:
+        # z halves every block; xy downsample spread so the total equals
+        # the configured downsample_factor
+        df = int(mid.get("downsample_factor", 0)) or 8
+        n_xy = max(int(math.log2(df)), 0)
+        middle_xy = tuple(2 if i < n_xy else 1 for i in range(nb))
+        if middle_blocks is not None:
+            df_plan = middle_plans.xy_downsample(middle_blocks)
+            if df != df_plan:
+                print(f"WARNING: config downsample_factor {df} != lineage "
+                      f"plan {middle_name} xy downsample {df_plan}; anchors "
+                      f"use the config value")
+    else:
+        middle_xy = (1,) * (nb - 1) + (2,)
 
     return VoxelNetConfig(
         num_class=len(target_assigner.classes),
         vfe_name=vfe.get("module_class_name") or "SimpleVoxel",
-        vfe_num_filters=ints(vfe, "num_filters") or (64,),
+        vfe_num_filters=_ints(vfe, "num_filters") or (64,),
         num_input_features=int(model_cfg.get("num_point_features", 0)) or 4,
         with_distance=bool(vfe.get("with_distance", False)),
         voxel_size=tuple(voxel_grid.voxel_size),
         pc_range=tuple(voxel_grid.point_cloud_range),
-        grid_size=tuple(int(g) for g in voxel_grid.grid_size),
-        middle_name=mid.get("module_class_name") or "PointPillarsScatter",
-        rpn_layer_nums=ints(rpn, "layer_nums") or (3, 5, 5),
-        rpn_layer_strides=ints(rpn, "layer_strides") or (2, 2, 2),
-        rpn_num_filters=ints(rpn, "num_filters") or (128, 128, 256),
+        grid_size=grid_size,
+        middle_name=middle_name or "PointPillarsScatter",
+        sparse_use_pallas_gemm=bool(
+            model_cfg.get("use_pallas_sparse_gemm", False)),
+        sparse_keymatch=bool(model_cfg.get("use_keymatch_sparse_gemm",
+                                           False)),
+        sparse_out_caps=_ints(mid, "out_site_caps") or None,
+        sparse_dense_tail_blocks=int(mid.get("dense_tail_blocks", 0)),
+        **_sparse_window_kwargs(mid),
+        middle_num_filters=middle_filters,
+        middle_layers_per_block=(2,) * nb,
+        middle_z_strides=(2,) * nb,
+        middle_xy_strides=middle_xy,
+        middle_blocks=middle_blocks,
+        middle_zpad=middle_plans.Z_PAD if middle_blocks is not None else 0,
+        rpn_layer_nums=_ints(rpn, "layer_nums") or (3, 5, 5),
+        rpn_layer_strides=_ints(rpn, "layer_strides") or (2, 2, 2),
+        rpn_num_filters=_ints(rpn, "num_filters") or (128, 128, 256),
         rpn_upsample_strides=(tuple(f32(v) for v in as_list(
             rpn.get("upsample_strides"))) or (1, 2, 4)),
-        rpn_num_upsample_filters=(ints(rpn, "num_upsample_filters")
+        rpn_num_upsample_filters=(_ints(rpn, "num_upsample_filters")
                                   or (256, 256, 256)),
         num_anchor_per_loc=target_assigner.num_anchors_per_location,
         box_code_size=target_assigner.box_code_size,

@@ -1,12 +1,14 @@
-"""VoxelNet for the pillar branch + ``predict`` (decode, top-k, rotated
+"""VoxelNet (VFE -> middle -> RPN) + ``predict`` (decode, top-k, rotated
 NMS, centre suppression).
 
 The port of the JAX package's ``models/voxelnet.py``: its own copy of
-``VoxelNetConfig`` (the fields the pillar serving path reads), the
-``VoxelNet`` pillar branch (PillarFeatureNet -> PointPillarsScatter ->
-RPN) and ``predict`` (:452).  Training (``compute_loss``), the SECOND
-sparse middle, the yaw-quality head, ``PillarFeatureNetRadius``,
-``with_distance``, fractional upsample strides, softmax class scores
+``VoxelNetConfig`` (the fields the serving paths read), the ``VoxelNet``
+pillar branch (PillarFeatureNet -> PointPillarsScatter -> RPN) and sparse
+branch (SimpleVoxel -> SparseMiddle -> RPN), ``num_middle_blocks``,
+``middle_plan`` and ``predict`` (:452).  Training (``compute_loss``), the
+other VFEs, ``DenseMiddle``, host rulebooks, bfloat16 compute, the
+yaw-quality head, ``PillarFeatureNetRadius``, ``with_distance``,
+fractional upsample strides, softmax class scores
 (``encode_background_as_zeros`` false) and a model without the direction
 classifier wait for later slices and raise ``NotImplementedError``; the
 flat and ``segment_scan`` PFN modes are not ported (``forward`` takes
@@ -16,20 +18,60 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from ..ops import box_ops, nms
+from ..ops import sparse_conv as sc
+from .middle import SparseMiddle
 from .pointpillars import PillarFeatureNet, PointPillarsScatter
 from .rpn import RPN
+from .voxel_encoder import SimpleVoxel
+
+# every lineage SpMiddle* spelling builds the sparse stack; the exact
+# per-variant layer plan comes from models/middle_plans.py (wired in by
+# second_builder as cfg.middle_blocks)
+SPARSE_MIDDLE_NAMES = (
+    "SparseMiddle", "SpMiddleFHD", "SpMiddleFHDV2", "SpMiddleFHDLite",
+    "SpMiddleD4HD", "SpMiddleD4HDLite", "SpMiddleD8HD", "SpMiddle2K",
+    "SpMiddle2KMerged")
+
+
+def num_middle_blocks(cfg: "VoxelNetConfig") -> int:
+    """Block count of the sparse middle stack (explicit plan wins)."""
+    if cfg.middle_blocks is not None:
+        return len(cfg.middle_blocks)
+    return len(cfg.middle_num_filters)
+
+
+def _sparse_grid(cfg: "VoxelNetConfig") -> Tuple[int, int, int]:
+    return (cfg.grid_size[2] + cfg.middle_zpad, cfg.grid_size[1],
+            cfg.grid_size[0])
+
+
+def middle_plan(cfg: "VoxelNetConfig", v_cap: int):
+    """Sparse middle-stack block plan for a config, or None if the middle
+    extractor is not the sparse stack."""
+    if cfg.middle_name not in SPARSE_MIDDLE_NAMES:
+        return None
+    if cfg.middle_blocks is not None:
+        specs = tuple(sc.BlockSpec(*b) for b in cfg.middle_blocks)
+        return sc.plan_from_specs(_sparse_grid(cfg), v_cap, specs,
+                                  cfg.sparse_capacity_shrink,
+                                  out_caps=cfg.sparse_out_caps)
+    return sc.make_plan(_sparse_grid(cfg), v_cap, cfg.middle_num_filters,
+                        cfg.middle_layers_per_block, cfg.middle_z_strides,
+                        cfg.middle_xy_strides, cfg.sparse_capacity_shrink,
+                        out_caps=cfg.sparse_out_caps)
+
 
 @dataclasses.dataclass(frozen=True)
 class VoxelNetConfig:
     """Static model config: the fields of the JAX package's
-    ``VoxelNetConfig`` that the pillar serving path reads (same names,
-    same defaults)."""
+    ``VoxelNetConfig`` that the serving paths read (same names, same
+    defaults)."""
 
     num_class: int = 1
     # VFE
@@ -43,6 +85,16 @@ class VoxelNetConfig:
     grid_size: Tuple[int, int, int] = (352, 400, 1)  # (gx, gy, gz)
     # middle
     middle_name: str = "PointPillarsScatter"
+    middle_num_filters: Tuple[int, ...] = (16, 32, 64)
+    middle_layers_per_block: Tuple[int, ...] = (2, 2, 2)
+    middle_z_strides: Tuple[int, ...] = (2, 2, 2)
+    middle_xy_strides: Tuple[int, ...] = (1, 1, 2)
+    # exact lineage layer plan (tuple of BlockSpec tuples; overrides the
+    # four parameterized fields above)
+    middle_blocks: Optional[Tuple[Tuple, ...]] = None
+    # extra z cells added to the sparse grid (the lineage
+    # sparse_shape = grid + [1, 0, 0] convention)
+    middle_zpad: int = 0
     # RPN
     rpn_layer_nums: Tuple[int, ...] = (3, 5, 5)
     rpn_layer_strides: Tuple[int, ...] = (2, 2, 2)
@@ -57,6 +109,21 @@ class VoxelNetConfig:
     direction_offset: float = 0.0
     use_yaw_quality_head: bool = False
     nms_center_suppress_radius: float = 0.0
+    # sparse middle: which GEMM path it takes, the TPU kernels' tuning
+    # (read, handed on, and without effect on the CUDA kernels), the
+    # static site capacities and the dense tail
+    compute_dtype: str = "float32"
+    sparse_use_pallas_gemm: bool = False  # joins through the gather-GEMM
+                                          # kernel, not the plain gather
+    sparse_pallas_tile: int = 256
+    sparse_pallas_window: Union[int, Tuple] = 768
+    sparse_keymatch: bool = False         # join keys inside the kernel
+                                          # (no rulebook build)
+    sparse_keymatch_subwindow: Union[int, Tuple] = 0
+    sparse_keymatch_group: bool = False
+    sparse_capacity_shrink: Optional[float] = None
+    sparse_out_caps: Optional[Tuple[int, ...]] = None
+    sparse_dense_tail_blocks: int = 0
     # post-processing
     post_center_limit_range: Optional[Tuple[float, ...]] = None
     use_rotate_nms: bool = True
@@ -71,13 +138,18 @@ class VoxelNetConfig:
 
 
 class VoxelNet(nn.Module):
-    """PillarFeatureNet -> PointPillarsScatter -> RPN; raw NCHW maps."""
+    """VFE -> middle -> RPN; raw NCHW maps.  Two families: PillarFeatureNet
+    -> PointPillarsScatter, and SimpleVoxel -> SparseMiddle."""
 
     def __init__(self, cfg: VoxelNetConfig):
         super().__init__()
-        if cfg.vfe_name != "PillarFeatureNet":
+        if cfg.vfe_name not in ("PillarFeatureNet", "SimpleVoxel"):
             raise NotImplementedError(
-                f"VFE {cfg.vfe_name}: only PillarFeatureNet is ported")
+                f"VFE {cfg.vfe_name}: only PillarFeatureNet and SimpleVoxel "
+                f"are ported")
+        if cfg.compute_dtype != "float32":
+            raise NotImplementedError(
+                f"compute_dtype {cfg.compute_dtype}: only float32 is ported")
         if cfg.with_distance:
             raise NotImplementedError("PillarFeatureNet with_distance is not "
                                       "ported")
@@ -85,21 +157,49 @@ class VoxelNet(nn.Module):
             raise NotImplementedError(
                 f"upsample strides {cfg.rpn_upsample_strides}: only integer "
                 f"strides >= 1 are ported")
-        if cfg.middle_name != "PointPillarsScatter":
+        sparse = cfg.middle_name in SPARSE_MIDDLE_NAMES
+        if not sparse and cfg.middle_name != "PointPillarsScatter":
             raise NotImplementedError(
-                f"middle {cfg.middle_name}: only PointPillarsScatter is "
-                f"ported (the SECOND sparse middle is a later slice)")
+                f"middle {cfg.middle_name}: only PointPillarsScatter and "
+                f"the sparse middle stack are ported")
         if cfg.use_yaw_quality_head:
             raise NotImplementedError("the yaw-quality head is not ported")
         _refuse_unported_heads(cfg)
         self.cfg = cfg
-        self.voxel_feature_extractor = PillarFeatureNet(
-            num_input_features=cfg.num_input_features,
-            num_filters=cfg.vfe_num_filters,
-            voxel_size=cfg.voxel_size[:2], pc_range=cfg.pc_range[:2])
-        self.middle_feature_extractor = PointPillarsScatter(cfg.bev_shape)
+        if cfg.vfe_name == "PillarFeatureNet":
+            self.voxel_feature_extractor = PillarFeatureNet(
+                num_input_features=cfg.num_input_features,
+                num_filters=cfg.vfe_num_filters,
+                voxel_size=cfg.voxel_size[:2], pc_range=cfg.pc_range[:2])
+            vfe_channels = cfg.vfe_num_filters[-1]
+        else:
+            self.voxel_feature_extractor = SimpleVoxel(
+                num_input_features=cfg.num_input_features)
+            vfe_channels = cfg.num_input_features
+        if sparse:
+            self.middle_feature_extractor = SparseMiddle(
+                grid_dhw=_sparse_grid(cfg), num_input_features=vfe_channels,
+                num_filters=cfg.middle_num_filters,
+                layers_per_block=cfg.middle_layers_per_block,
+                z_strides=cfg.middle_z_strides,
+                xy_strides=cfg.middle_xy_strides,
+                blocks=cfg.middle_blocks,
+                capacity_shrink=cfg.sparse_capacity_shrink,
+                out_caps=cfg.sparse_out_caps,
+                use_pallas_gemm=cfg.sparse_use_pallas_gemm,
+                pallas_tile=cfg.sparse_pallas_tile,
+                pallas_window=cfg.sparse_pallas_window,
+                use_keymatch=cfg.sparse_keymatch,
+                keymatch_subwindow=cfg.sparse_keymatch_subwindow,
+                keymatch_group=cfg.sparse_keymatch_group,
+                dense_tail_blocks=cfg.sparse_dense_tail_blocks)
+            rpn_in = self.middle_feature_extractor.out_channels
+        else:
+            self.middle_feature_extractor = PointPillarsScatter(
+                cfg.bev_shape)
+            rpn_in = vfe_channels
         self.rpn = RPN(
-            num_input_features=cfg.vfe_num_filters[-1],
+            num_input_features=rpn_in,
             layer_nums=cfg.rpn_layer_nums,
             layer_strides=cfg.rpn_layer_strides,
             num_filters=cfg.rpn_num_filters,
@@ -110,11 +210,15 @@ class VoxelNet(nn.Module):
             num_direction_bins=cfg.num_direction_bins)
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
-                coords: torch.Tensor, *, return_stages: bool = False):
+                coords: torch.Tensor, *, middle_rulebooks=None,
+                return_stages: bool = False):
         """voxels [B,V,T,C], num_points [B,V], coords [B,V,3] (z, y, x) in
         key order -> dict of NCHW prediction maps (and, with
         ``return_stages``, the voxel features [B,V,F] and the NCHW canvas).
+        ``middle_rulebooks`` (host-built sparse rulebooks) is not ported.
         """
+        if middle_rulebooks is not None:
+            raise NotImplementedError("host-built rulebooks are not ported")
         voxel_features = self.voxel_feature_extractor(voxels, num_points,
                                                       coords)
         spatial = self.middle_feature_extractor(voxel_features, coords)

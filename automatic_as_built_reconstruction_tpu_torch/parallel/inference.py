@@ -20,11 +20,13 @@ from ..builder import (config_io, second_builder, target_assigner_builder,
 from ..device import resolve_device
 from ..models import voxelnet as voxelnet_mod
 from ..ops.voxelize import voxelize
+from ..utils.seeded_init import load_seeded
 from ..utils.weight_import import load_variables
 
 
 class PodInference:
-    """Serve a built pillar VoxelNet on one device, batch by batch."""
+    """Serve a built VoxelNet (pillar or SECOND sparse middle) on one
+    device, batch by batch."""
 
     def __init__(self, model: voxelnet_mod.VoxelNet,
                  model_cfg: voxelnet_mod.VoxelNetConfig,
@@ -128,13 +130,21 @@ def load_checkpoint_variables(path) -> dict:
 
 def pod_inference_from_checkpoint(config_path, checkpoint_pkl, *,
                                   device="cuda", max_voxels: int = 20000,
-                                  max_points_per_voxel: int = 32
-                                  ) -> PodInference:
+                                  max_points_per_voxel: int = 32,
+                                  seed: int = 0) -> PodInference:
     """Build a :class:`PodInference` straight from a config file and a
-    checkpoint pickle — the one-call serving entry point."""
+    checkpoint pickle — the one-call serving entry point.  With
+    ``checkpoint_pkl=None`` it warns and serves random weights and
+    BatchNorm statistics drawn from ``seed`` (as the JAX entry point
+    serves fresh weights when it finds no checkpoint)."""
     dev = resolve_device(device)
     model, cfg, anchors = build_from_config(config_path)
-    load_variables(model, load_checkpoint_variables(checkpoint_pkl))
+    if checkpoint_pkl is None:
+        print(f"WARNING: no checkpoint; serving random weights from seed "
+              f"{seed}")
+        load_seeded(model, seed)
+    else:
+        load_variables(model, load_checkpoint_variables(checkpoint_pkl))
     return PodInference(model, cfg, anchors, device=dev,
                         max_voxels=max_voxels,
                         max_points_per_voxel=max_points_per_voxel)

@@ -5,7 +5,8 @@ nested dicts of arrays, as ``model.init`` returns them and as the repo's
 checkpoint pickles hold them) map to the lineage-named torch tensors the
 port's modules carry — the port's own copy of the mapping in the JAX
 package's ``utils/weight_import.py::to_torch_state_dict`` (:276), for the
-pillar VFE and the RPN:
+pillar VFE, the sparse middle and the RPN (``SimpleVoxel`` has no
+variables):
 
 ==============================  =======================================
 flax                            torch
@@ -15,6 +16,7 @@ ConvTranspose ``(kh, kw, I, O)``  ConvTranspose2d ``(I, O, kh, kw)`` —
                                 flip((0, 1)) then transpose(2,3,0,1)
 Dense ``(I, O)``                Linear ``(O, I)`` — ``.T``
 BatchNorm scale/bias + mean/var weight/bias + running_mean/running_var
+sparse conv ``(K, I, O)``       spconv 1.x ``(kz, ky, kx, I, O)`` — reshape
 ==============================  =======================================
 """
 from __future__ import annotations
@@ -27,6 +29,10 @@ import torch
 from torch import nn
 
 
+# tap count -> (kz, ky, kx): every kernel the lineage middles use
+_KERNEL_OF_TAPS = {27: (3, 3, 3), 3: (3, 1, 1), 1: (1, 1, 1)}
+
+
 def _natkey(name: str):
     return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", name)]
 
@@ -37,7 +43,7 @@ def _children(tree: Dict[str, Any], pattern: str) -> List[str]:
 
 
 def to_torch_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
-    """Variables of a pillar ``VoxelNet`` -> lineage-named numpy arrays in
+    """Variables of a ``VoxelNet`` -> lineage-named numpy arrays in
     torch layouts (the keys ``to_torch_state_dict`` of the JAX package
     emits for the same tree)."""
     params = variables["params"]
@@ -56,11 +62,11 @@ def to_torch_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
             out[f"{base}.bias"] = np.asarray(p["bias"])
 
     unknown = [k for k in params if not re.fullmatch(
-        r"(PillarFeatureNet|RPN|PointPillarsScatter)_\d+", k)]
+        r"(PillarFeatureNet|RPN|PointPillarsScatter|SparseMiddle)_\d+", k)]
     if unknown:
         raise NotImplementedError(
-            f"variables hold {unknown}: only the pillar VFE and the RPN "
-            f"are ported")
+            f"variables hold {unknown}: only the pillar VFE, the sparse "
+            f"middle and the RPN are ported")
     for scope in _children(params, r"PillarFeatureNet_\d+"):
         for i, layer in enumerate(_children(params[scope], r"PFNLayer_\d+")):
             base = f"voxel_feature_extractor.pfn_layers.{i}"
@@ -69,6 +75,21 @@ def to_torch_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
                 p["Dense_0"]["kernel"]).T
             bn(f"{base}.norm", p["BatchNorm_0"],
                stats[scope][layer]["BatchNorm_0"])
+    for scope in _children(params, r"SparseMiddle_\d+"):
+        # lineage Sequential, block by block, submanifold convs before the
+        # strided one: conv n at index 3n, its BN at 3n + 1
+        names = sorted(
+            (k for k in params[scope]
+             if re.fullmatch(r"b\d+_(subm\d+|down)_w", k)),
+            key=lambda n: (_natkey(n)[1], "subm" not in n, _natkey(n)))
+        for n, name in enumerate(names):
+            w = np.asarray(params[scope][name])
+            K, cin, cout = w.shape
+            kernel = _KERNEL_OF_TAPS.get(K, (K, 1, 1))
+            base = "middle_feature_extractor.middle_conv"
+            out[f"{base}.{3 * n}.weight"] = w.reshape(*kernel, cin, cout)
+            bn(f"{base}.{3 * n + 1}", params[scope][name[:-2] + "_bn"],
+               stats[scope][name[:-2] + "_bn"])
     for scope in _children(params, r"RPN_\d+"):
         rp, rs = params[scope], stats[scope]
         for i, blk in enumerate(_children(rp, r"ConvBlock_\d+")):

@@ -133,6 +133,56 @@ def test_port_configs_and_anchors_exact(name, num_anchors):
     np.testing.assert_array_equal(anchors, ref.astype(np.float32))
 
 
+@pytest.mark.parametrize("name", ["car.fhd.serving", "car.fhd"])
+def test_port_second_configs_and_anchors_exact(name):
+    """The port's copies of the SECOND car configs equal the JAX
+    package's, every field reads as protobuf reads it (``{}`` messages,
+    the ``database_sampler`` block, comments after values), the built
+    config carries the sparse-middle fields, and the 70 400 serving
+    anchors are exact."""
+    port_path = PORT_CONFIGS / "second" / "car" / f"{name}.config"
+    jax_path = (REPO / "automatic_as_built_reconstruction_tpu" / "configs"
+                / "second" / "car" / f"{name}.config")
+    assert port_path.read_text() == jax_path.read_text()
+    parsed = config_io.load_config(port_path)
+    _compare(jax_config_io.load_config(jax_path), parsed)
+    assigner = parsed["model"]["second"]["target_assigner"]
+    assert assigner["class_settings"]["region_similarity_calculator"] == {
+        "nearest_iou_similarity": {}}
+    assert parsed["train_config"]["steps"] == 99040
+    sampler = parsed["train_input_reader"]["preprocess"]["database_sampler"]
+    assert sampler["sample_groups"]["name_to_max_num"] == {"key": "Car",
+                                                           "value": 15}
+    _, tcfg, anchors = build_from_config(port_path)
+    jvg, jta, jcfg, jfmap = _jax_bundle(jax_path)
+    for f in dataclasses.fields(tcfg):
+        assert getattr(tcfg, f.name) == getattr(jcfg, f.name), f.name
+    assert tcfg.middle_blocks is not None and tcfg.middle_zpad == 1
+    assert tcfg.sparse_keymatch and tcfg.sparse_use_pallas_gemm
+    if name == "car.fhd.serving":
+        assert tcfg.sparse_out_caps == (52096, 61184, 40320, 35328)
+        assert tcfg.sparse_dense_tail_blocks == 1
+        assert tcfg.sparse_keymatch_group
+        assert tcfg.sparse_keymatch_subwindow == (
+            (384, 256), (512, 512), (512, 1024), (512, 512))
+    ref = jta.generate_anchors(jfmap)["anchors"].reshape(-1, 7)
+    assert anchors.shape == (200 * 176 * 2, 7)
+    np.testing.assert_array_equal(anchors, ref.astype(np.float32))
+
+
+def test_sparse_window_fields_are_checked():
+    """Unequal per-block window lists are refused as the JAX builder
+    refuses them."""
+    m = config_io.load_config(PORT_CONFIGS / "second" / "car"
+                              / "car.fhd.serving.config")["model"]["second"]
+    m["middle_feature_extractor"]["keymatch_subwindow_strided"] = [256, 512]
+    vg = t_voxel_builder.build(m["voxel_generator"])
+    ta = t_target_assigner_builder.build(m["target_assigner"],
+                                         m.get("box_coder", {}))
+    with pytest.raises(ValueError, match="one pair per middle block"):
+        t_second_builder.build_config(m, vg, ta)
+
+
 def test_reader_syntax():
     text = """
     # comment

@@ -20,6 +20,12 @@ import automatic_as_built_reconstruction_tpu_torch
 import automatic_as_built_reconstruction_tpu_torch.parallel
 import automatic_as_built_reconstruction_tpu_torch.builder.second_builder
 import automatic_as_built_reconstruction_tpu_torch.data.building
+import automatic_as_built_reconstruction_tpu_torch.data.kitti_like
+import automatic_as_built_reconstruction_tpu_torch.models.middle
+import automatic_as_built_reconstruction_tpu_torch.models.middle_plans
+import automatic_as_built_reconstruction_tpu_torch.ops.sparse_conv
+import automatic_as_built_reconstruction_tpu_torch.ops.sparse_gather_gemm
+import automatic_as_built_reconstruction_tpu_torch.utils.seeded_init
 import chip_smoke
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "jaxlib", "google.protobuf")

@@ -148,14 +148,18 @@ def test_stages_match_jax_tiny(variant):
     {"vfe_name": "PillarFeatureNetRadius"},
     {"with_distance": True},
     {"rpn_layer_strides": (1, 2), "rpn_upsample_strides": (0.5, 1.0)},
-    {"middle_name": "SpMiddleFHD"},
+    {"middle_name": "SpMiddleFHD", "compute_dtype": "bfloat16"},
     {"use_yaw_quality_head": True},
     {"encode_background_as_zeros": False},
     {"use_direction_classifier": False},
+    {"middle_name": "DenseMiddle"},
+    {"vfe_name": "SimpleVoxelRadius"},
 ], ids=["radius", "with_distance", "frac_upsample", "sparse_middle",
-        "yaw_quality", "softmax_scores", "no_direction_head"])
+        "yaw_quality", "softmax_scores", "no_direction_head",
+        "dense_middle", "simple_voxel_radius"])
 def test_unported_options_raise(variant):
-    """Options no as-built pillar config sets are refused, not served."""
+    """Options that are not ported (the sparse middle in bfloat16 among
+    them) are refused, not served."""
     _, tcfg, _ = build_from_config(PORT_CFG / "asbuilt_pillars_tiny.config")
     with pytest.raises(NotImplementedError):
         tvn.VoxelNet(dataclasses.replace(tcfg, **variant))
