@@ -48,7 +48,8 @@ def sources() -> List[str]:
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
+    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
@@ -70,7 +71,7 @@ def build_all(names=None) -> Dict[str, dict]:
     procs, result = {}, {}
     t0 = time.perf_counter()
     for name in names:
-        out = _lib_path(name)
+        out = lib_path(name)
         if out.exists():
             result[name] = {"seconds": 0.0, "log": ""}
             continue
@@ -95,7 +96,7 @@ def build_all(names=None) -> Dict[str, dict]:
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
-    path = _lib_path(name)
+    path = lib_path(name)
     if not path.exists():
         build_all([name])
     return ctypes.CDLL(str(path))

@@ -8,19 +8,28 @@ pallas/sparse_gather_gemm.py``: ``gather_gemm`` (:331; Pallas bodies
 ``_subwin`` and ``_grouped``).  The bodies of one family compute one
 function and differ only in how a TPU tile finds the window of feature
 rows it copies into VMEM; a GPU thread reads any row, so
-``csrc/sparse_gather_gemm.cu`` has one kernel per family.  The functions
-keep the JAX signatures: ``interpret``, ``tile``, ``window``, ``shared``,
-``subwindow`` and ``group`` are accepted and change nothing (with
-``group > 1`` the caller has permuted ``q_keys`` and ``weights`` alike
-with :func:`group_perm`, and a sum over taps does not depend on their
-order).  The window-sizing helpers of the JAX module tune the TPU windows
-and have no counterpart here.
+``csrc/sparse_gather_gemm.cu`` runs both families on one tile.  The
+functions keep the JAX signatures: ``interpret``, ``tile``, ``window``,
+``shared``, ``subwindow`` and ``group`` are accepted and change nothing
+(with ``group > 1`` the caller has permuted ``q_keys`` and ``weights``
+alike with :func:`group_perm`, and a sum over taps does not depend on
+their order).  The window-sizing helpers of the JAX module tune the TPU
+windows and have no counterpart here.
+
+The kernel's tile: ``TILE_R`` output rows, the source rows of all taps
+looked up first, the gathered rows and ``W[k]`` of the non-empty taps
+copied by ``cp.async`` through a two-stage ring, the products on the
+tensor cores as ``mma.sync`` TF32 with a 3xTF32 split, which is as
+accurate as fp32 (see the source note).  Each tile adds its taps in
+ascending order: no atomics, the same bits run after run and batched or
+not.  Bound: operations at the 3xTF32 rate (495 / 3 TFLOP/s on an H100)
+for the 27-tap joins at 32 and 64 channels; :func:`tile_occupancy` says
+what share of the tensor-core work the data needs.
 
 Both take an optional leading batch dimension on everything but the
 weights (the JAX package maps the kernel over the batch; here the batch
-is the launch grid's second axis).  Bound: operations for the 27-tap
-joins at 32 and 64 channels (see the source note).  No gradient yet: with
-grad mode on, the wrappers refuse inputs that require grad.
+is the launch grid's second axis).  No gradient yet: with grad mode on,
+the wrappers refuse inputs that require grad.
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ _GATHER_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 _KEYMATCH_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 KERNEL_COUTS = (8, 16, 32, 64, 128)
 MAX_SMEM_BYTES = 232448          # what one block may use on an H100
+TILE_R = 64                      # output rows per block of the kernel
 
 
 def group_perm(kernel_size) -> np.ndarray:
@@ -116,11 +126,12 @@ def _check_cuda(features, weights, others: dict):
         raise ValueError(f"weights {tuple(weights.shape)}: empty")
 
 
-def _check_smem(name: str, Cin: int, Cout: int) -> None:
-    fn = _build.function(name, "sparse_gemm_smem_bytes", (_I, _I))
-    if fn(Cin, Cout) > MAX_SMEM_BYTES:
-        raise ValueError(f"Cin {Cin} x Cout {Cout} needs more shared memory "
-                         f"than a block has ({MAX_SMEM_BYTES} bytes)")
+def _check_smem(K: int, Cin: int, Cout: int) -> None:
+    fn = _build.function("sparse_gather_gemm", "sparse_gemm_smem_bytes",
+                         (_I, _I, _I))
+    if fn(K, Cin, Cout) > MAX_SMEM_BYTES:
+        raise ValueError(f"K {K}, Cin {Cin}, Cout {Cout} need more shared "
+                         f"memory than a block has ({MAX_SMEM_BYTES} bytes)")
 
 
 def gather_gemm(features: torch.Tensor, gather_idx: torch.Tensor,
@@ -148,7 +159,7 @@ def gather_gemm(features: torch.Tensor, gather_idx: torch.Tensor,
     _check_cuda(features, weights, {"gather_idx": (gather_idx, torch.int32),
                                     "found": (found, torch.bool)})
     K, Cin, Cout = weights.shape
-    _check_smem("sparse_gather_gemm", Cin, Cout)
+    _check_smem(K, Cin, Cout)
     batched = features.dim() == 3
     B = features.shape[0] if batched else 1
     N, R = features.shape[-2], gather_idx.shape[-1]
@@ -206,7 +217,7 @@ def keymatch_gemm(features: torch.Tensor, in_keys: torch.Tensor,
         return keymatch_gemm_plain(features, in_keys, q_keys, weights)
     _check_cuda(features, weights, {"in_keys": (in_keys, torch.int32),
                                     "q_keys": (q_keys, torch.int32)})
-    _check_smem("sparse_gather_gemm", Cin, Cout)
+    _check_smem(K, Cin, Cout)
     batched = features.dim() == 3
     B = features.shape[0] if batched else 1
     N, M = features.shape[-2], q_keys.shape[-1]
@@ -230,13 +241,33 @@ def keymatch_gemm(features: torch.Tensor, in_keys: torch.Tensor,
 keymatch_gemm.launches = 0
 
 
+def keymatch_found(in_keys: torch.Tensor, q_keys: torch.Tensor
+                   ) -> torch.Tensor:
+    """Which (tap, output row) pairs of a key-match join have a source
+    row: bool, the shape of ``q_keys``."""
+    return _merge_lookup(in_keys, q_keys.flatten(-2))[1].view(q_keys.shape)
+
+
 def count_hits(in_keys: torch.Tensor, q_keys: torch.Tensor) -> int:
     """How many (tap, output row) pairs of a key-match join have a source
     row: the arithmetic the join needs is ``2 * hits * Cin * Cout``."""
-    hit = _merge_lookup(in_keys, q_keys.flatten(-2))[1]
-    return int(hit.sum())
+    return int(keymatch_found(in_keys, q_keys).sum())
 
 
-__all__ = ["KERNEL_COUTS", "count_hits", "gather_gemm",
-           "gather_gemm_plain", "group_perm", "keymatch_gemm",
-           "keymatch_gemm_plain"]
+def tile_occupancy(found: torch.Tensor):
+    """``found`` [..., K, R] (which rows have a source at which tap) ->
+    (hits, non-empty (tile, tap) pairs, occupancy): the kernel multiplies
+    the ``TILE_R`` rows of a tile for every tap that any of them finds,
+    and the occupancy ``hits / (pairs * TILE_R)`` is the share of that
+    work the data needs.  Tiles are ``TILE_R`` consecutive rows of one
+    batch element, the last one ragged."""
+    R = found.shape[-1]
+    pad = torch.nn.functional.pad(found.to(torch.uint8), (0, -R % TILE_R))
+    pairs = int(pad.unflatten(-1, (-1, TILE_R)).any(-1).sum())
+    hits = int(found.sum())
+    return hits, pairs, hits / (pairs * TILE_R) if pairs else 0.0
+
+
+__all__ = ["KERNEL_COUTS", "TILE_R", "count_hits", "gather_gemm",
+           "gather_gemm_plain", "group_perm", "keymatch_found",
+           "keymatch_gemm", "keymatch_gemm_plain", "tile_occupancy"]

@@ -4,7 +4,10 @@
 
 1. prints the toolchain (torch, CUDA, nvcc, triton, the card);
 2. builds every kernel in ``automatic_as_built_reconstruction_tpu_torch/
-   csrc/`` with nvcc (one process per source, all at once);
+   csrc/`` with nvcc (one process per source, all at once), prints what
+   ptxas reports (registers, shared memory, spills), and checks with
+   ``cuobjdump -sass`` that every sparse-GEMM kernel multiplies in TF32 on
+   the tensor cores and fills shared memory by cp.async;
 3. serves the as-built pillar detector (``asbuilt_pillars.config`` at full
    width, trained ``artifacts/asbuilt_r2_step8000.pkl``) through
    ``pod_inference_from_checkpoint``: four requests of two synthetic
@@ -35,9 +38,10 @@
 6. holds each kernel against its plain PyTorch version on the card, on
    the inputs the serving runs gave it (for the pillar scatter also with
    the rows shuffled; for the rotated IoU also a 1000 x 1000 set with
-   degenerate boxes; for the two sparse GEMMs the largest and the
-   smallest join, the four call forms of the key-match function, and
-   unsorted keys; for the fused voxelize+mean both slot numberings, a
+   degenerate boxes; for the two sparse GEMMs every join of a request,
+   each with its device time, bound and tile occupancy, the four call
+   forms of the key-match function, and unsorted keys; for the fused
+   voxelize+mean both slot numberings, a
    pillar-sized scan, a truncating voxel cap, T = 1 and an empty scan);
    times kernel, plain version and library call with CUDA events (median
    and range) and with torch.profiler (device time, the ``ms`` it
@@ -126,16 +130,20 @@ SECOND_CONFIG = (ROOT / "automatic_as_built_reconstruction_tpu_torch"
 SECOND_MAX_VOXELS, SECOND_MAX_POINTS, SECOND_SEED = 17000, 5, 0
 SECOND_REQUESTS = [(1000, 1001), (1002, 1003), (1004, 1005), (1006, 1007)]
 # GPU vs CPU head outputs: 14 sparse / dense conv + BN layers and the
-# RPN's 6, fp32 sums in another order on each side (FMA tap by tap in the
-# kernels and cuDNN on the card; one matmul and oneDNN on the CPU)
+# RPN's 6, fp32-accurate sums in another order on each side (3xTF32 tap by
+# tap on the tensor cores in the kernels and cuDNN on the card; one
+# matmul and oneDNN on the CPU)
 HEAD_TOL = dict(rtol=5e-4, atol=5e-4)
-# kernel vs plain on the card: up to 27 x 64 fp32 products summed tap by
-# tap with FMA against one cuBLAS dot, on values of order 1
+# kernel vs plain on the card: up to 27 x 64 products, 3xTF32 (as accurate
+# as fp32: tests/test_torch_sparse_gemm.py) summed tap by tap on the
+# tensor cores, against one fp32 cuBLAS dot, on values of order 1
 GEMM_ATOL = 1e-4
 # published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 FLOP/s
-# outside the tensor cores
+# outside the tensor cores, and the dense TF32 tensor-core rate over the
+# three products of a 3xTF32 split (the sparse GEMMs' fp32-exact route)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
+PEAK_TF32_3X_PER_S = 495e12 / 3
 L2_FLUSH_BYTES = 64 << 20        # > the H100's 50 MB L2
 
 
@@ -178,8 +186,37 @@ def build_kernels() -> None:
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall ({per_source})")
     for name, r in result.items():
         for line in r["log"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "registers",
+                                       "spill")):
                 log(f"  ptxas {name}: {line.strip()}")
+    check_sparse_gemm_sass()
+
+
+def check_sparse_gemm_sass() -> None:
+    """Every instantiation of the two sparse-GEMM kernels multiplies on the
+    tensor cores in TF32 (HMMA ... TF32) and fills shared memory with
+    cp.async (LDGSTS): ``cuobjdump -sass`` of the built library."""
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = run([str(cuobjdump), "-sass",
+                str(_build.lib_path("sparse_gather_gemm"))])
+    counts = {}
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        if "gemm_kernel" not in name:
+            continue
+        lines = body.splitlines()
+        counts[name.strip()] = {
+            "hmma_tf32": sum("HMMA" in x and "TF32" in x for x in lines),
+            "ldgsts": sum("LDGSTS" in x for x in lines)}
+    log(f"sparse GEMM SASS (cuobjdump -sass): {json.dumps(counts)}")
+    opcodes = sorted({x.split()[1] for x in sass.splitlines()
+                      if "HMMA" in x and len(x.split()) > 1})
+    log(f"  HMMA opcodes: {opcodes}")
+    bad = [n for n, c in counts.items() if not (c["hmma_tf32"]
+                                                and c["ldgsts"])]
+    if len(counts) != 10 or bad:
+        raise AssertionError(f"sparse GEMM kernels without TF32 HMMA or "
+                             f"LDGSTS: {bad or counts}")
 
 
 # --------------------------------------------------------------------------
@@ -743,8 +780,9 @@ def join_shape(call) -> str:
 
 def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
     """``keymatch_gemm`` or ``gather_gemm`` against its plain version on
-    the joins the serving run's warm-up request gave it.  -> (kernels-line
-    entry with event times, {key: fn} to time on the device)."""
+    every join the serving run's warm-up request gave it; each join's
+    device time, bound and tile occupancy.  -> (kernels-line entry with
+    event times, {key: fn} to time on the device)."""
     keymatch = name == "keymatch_gemm"
     kernel = KERNELS[name]
     plain = (sparse_gather_gemm.keymatch_gemm_plain if keymatch
@@ -769,15 +807,50 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
                                  f"plain max abs err {err} > {GEMM_ATOL}")
         return err, float(ref.abs().max())
 
+    def need(call) -> dict:
+        """What the join needs (hits of its taps, bytes, flops), its
+        bounds at the 3xTF32 and the fp32 SIMT rate, its tile occupancy."""
+        feats, a, b, w = operands(call)
+        B, R, Cout = feats.shape[0], b.shape[-1], w.shape[2]
+        found = (sparse_gather_gemm.keymatch_found(a, b) if keymatch
+                 else b)
+        hits, pairs, occupancy = sparse_gather_gemm.tile_occupancy(found)
+        nbytes = sum(t.numel() * t.element_size()
+                     for t in (feats, a, b, w)) + B * R * Cout * 4
+        flops = 2 * hits * w.shape[1] * Cout
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        ops_ms = flops / PEAK_TF32_3X_PER_S * 1e3
+        simt_ms = flops / PEAK_FP32_PER_S * 1e3
+        return {"hits": hits, "pairs": pairs, "occupancy": occupancy,
+                "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
+                "ops_ms": ops_ms, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_fp32_simt_ms": max(simt_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
     largest = max(calls, key=work)
     smallest = next(c for c in calls
                     if tuple(operands(c)[3].shape) == (27, 16, 16))
     worst = 0.0
+    per_join = []
     for call in calls:          # every join of the request
         err, scale = check(call)
         worst = max(worst, err)
+        n = need(call)
+        ms, _ = device_ms(lambda: kernel(*call[0]))
+        per_join.append(ms)
         log(f"{name} [{card}]: {join_shape(call)}: kernel vs plain max abs "
-            f"err {err:.3g} (values up to {scale:.3g})")
+            f"err {err:.3g} (values up to {scale:.3g}); device "
+            f"{'not measured' if ms is None else f'{ms:.5f} ms'}; bound "
+            f"{n['bound_ms']:.5f} ms ({n['bound_by']}; fp32 SIMT "
+            f"{n['bound_fp32_simt_ms']:.5f}); {n['hits']} hits, "
+            f"{n['pairs']} non-empty (tile, tap) pairs, tile occupancy "
+            f"{n['occupancy']:.4f}")
+    occupancy = [need(c)["occupancy"] for c in calls]
+    per_request = (None if None in per_join else sum(per_join))
+    log(f"{name} [{card}]: device time of the {len(calls)} joins of one "
+        f"request: {per_join}, summed "
+        f"{'not measured' if per_request is None else f'{per_request:.5f}'}"
+        f" ms")
 
     if keymatch:
         # the four call forms of the JAX function give one result, and
@@ -817,38 +890,23 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
         if not err <= GEMM_ATOL:
             raise AssertionError(f"{name}: unsorted keys vs plain: {err}")
 
-    def bound(call):
-        feats, a, b, w = operands(call)
-        B, R, Cout = feats.shape[0], b.shape[-1], w.shape[2]
-        if keymatch:
-            hits = sparse_gather_gemm.count_hits(a, b)
-        else:
-            hits = int(b.sum())
-        nbytes = sum(t.numel() * t.element_size()
-                     for t in (feats, a, b, w)) + B * R * Cout * 4
-        flops = 2 * hits * w.shape[1] * Cout
-        return (hits, nbytes, flops, nbytes / PEAK_BYTES_PER_S * 1e3,
-                flops / PEAK_FP32_PER_S * 1e3)
-
     fns = {"ms": lambda: kernel(*largest[0]),
            "plain_ms": lambda: plain(*operands(largest))}
     ev = {"ms": cuda_ms(fns["ms"], iters=20),
           "plain_ms": cuda_ms(fns["plain_ms"], iters=5, warmup=1)}
-    hits, nbytes, flops, bytes_ms, ops_ms = bound(largest)
+    big = need(largest)
     taps = operands(largest)[2].numel()
-    log(f"{name} [{card}]: largest join {join_shape(largest)}: {hits} hits "
-        f"of {taps} (tap, row) pairs ({100 * hits / taps:.1f} %); events: "
-        f"kernel {fmt_range(ev['ms'])}, plain {fmt_range(ev['plain_ms'])}; "
-        f"bound {max(ops_ms, bytes_ms):.5f} ms (ops {ops_ms:.5f}: {flops} "
-        f"needed fp32 flops; bytes {bytes_ms:.5f}: {nbytes})")
-    s_hits, s_bytes, s_flops, s_bytes_ms, s_ops_ms = bound(smallest)
+    log(f"{name} [{card}]: largest join {join_shape(largest)}: {big['hits']} "
+        f"hits of {taps} (tap, row) pairs ({100 * big['hits'] / taps:.1f} %), "
+        f"tile occupancy {big['occupancy']:.4f}; events: kernel "
+        f"{fmt_range(ev['ms'])}, plain {fmt_range(ev['plain_ms'])}; bound "
+        f"{big['bound_ms']:.5f} ms (ops at the 3xTF32 rate "
+        f"{big['ops_ms']:.5f}: {big['flops']} needed flops; bytes "
+        f"{big['bytes_ms']:.5f}: {big['bytes']}); at the fp32 SIMT rate "
+        f"{big['bound_fp32_simt_ms']:.5f}")
     s_ev = cuda_ms(lambda: kernel(*smallest[0]), iters=20)
-    s_dev, _ = device_ms(lambda: kernel(*smallest[0]))
-    log(f"{name} [{card}]: smallest join {join_shape(smallest)}: {s_hits} "
-        f"hits; events: kernel {fmt_range(s_ev)}; device "
-        f"{'not measured' if s_dev is None else f'{s_dev:.5f} ms'}; bound "
-        f"{max(s_ops_ms, s_bytes_ms):.5f} ms (ops {s_ops_ms:.5f}, bytes "
-        f"{s_bytes_ms:.5f})")
+    log(f"{name} [{card}]: smallest join {join_shape(smallest)}: events: "
+        f"kernel {fmt_range(s_ev)}")
     line = {"keymatch_gemm": 1098, "gather_gemm": 331}[name]
     entry = {"name": name, "route": "cuda",
              "source": "automatic_as_built_reconstruction_tpu_torch/csrc/"
@@ -856,10 +914,12 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
              "replaces": "automatic_as_built_reconstruction_tpu/ops/pallas/"
                          f"sparse_gather_gemm.py:{line}",
              "launches": launches, "max_abs_err": worst,
-             "shape": join_shape(largest), "hits": hits,
-             "bound_ms": max(ops_ms, bytes_ms),
-             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-             "library_ms": None}
+             "shape": join_shape(largest), "hits": big["hits"],
+             "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
+             "bound_fp32_simt_ms": big["bound_fp32_simt_ms"],
+             "per_join_ms": per_join, "per_request_ms": per_request,
+             "per_join_shape": [join_shape(c) for c in calls],
+             "tile_occupancy": occupancy, "library_ms": None}
     return entry, fns, ev
 
 

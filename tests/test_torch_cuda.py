@@ -125,7 +125,8 @@ def _sparse_join(device, K, cin, cout, sort_keys=True, B=2, n=700, pad=68):
 
 @pytest.mark.parametrize("K,cin,cout", [
     (27, 4, 16), (27, 16, 16), (27, 16, 32), (27, 32, 64), (27, 64, 64),
-    (3, 64, 64), (27, 8, 8), (27, 24, 128)])
+    (3, 64, 64), (27, 8, 8), (27, 24, 128), (27, 3, 16), (27, 6, 32),
+    (27, 64, 128)])
 def test_keymatch_gemm_kernel_equals_plain(cuda, K, cin, cout):
     feats, _, _, in_keys, q_keys, w, _, _ = _sparse_join(cuda, K, cin, cout)
     before = sgg.keymatch_gemm.launches
@@ -165,7 +166,9 @@ def test_keymatch_gemm_unsorted_keys_and_sentinels(cuda):
 
 
 @pytest.mark.parametrize("K,cin,cout", [(27, 16, 16), (27, 64, 64),
-                                        (3, 64, 64), (27, 4, 16)])
+                                        (3, 64, 64), (27, 4, 16),
+                                        (27, 3, 16), (27, 6, 8),
+                                        (27, 24, 128)])
 def test_gather_gemm_kernel_equals_plain(cuda, K, cin, cout):
     feats, coords, valid, _, _, w, grid, kernel = _sparse_join(cuda, K, cin,
                                                                cout)
@@ -196,6 +199,43 @@ def test_gather_gemm_kernel_equals_plain(cuda, K, cin, cout):
     assert float((got - ref).abs().max()) <= 1e-4
 
 
+@pytest.mark.parametrize("family", ["keymatch", "gather"])
+def test_sparse_gemm_ragged_rows_empty_tile_and_repeatable(cuda, family):
+    """R = 731 (not a multiple of the 64-row tile); rows 64-127 find no
+    source at any tap (half of them query keys that are absent, half
+    query nothing); the same call twice gives the same bits, and the
+    batch's second element equals its unbatched call."""
+    feats, coords, valid, in_keys, q_keys, w, grid, kernel = _sparse_join(
+        cuda, 27, 32, 64, pad=31)
+    assert feats.shape[1] % sgg.TILE_R != 0
+    if family == "keymatch":
+        q_keys = q_keys.clone()
+        q_keys[..., 64:96] = 12 * 40 * 40 + 7     # outside the grid's keys
+        q_keys[..., 96:128] = sparse_conv.INT32_MAX
+        args = (feats, in_keys, q_keys, w)
+        kernel_fn, plain = sgg.keymatch_gemm, sgg.keymatch_gemm_plain
+        found = sgg.keymatch_found(in_keys, q_keys)
+    else:
+        rb = sparse_conv.build_submanifold_rulebook_merge(coords, valid,
+                                                          grid, kernel)
+        found = rb.found.clone()
+        found[..., 64:128] = False
+        args = (feats, rb.gather_idx, found, w)
+        kernel_fn, plain = sgg.gather_gemm, sgg.gather_gemm_plain
+    assert not bool(found[..., 64:128].any()) and bool(found.any())
+    got = kernel_fn(*args)
+    ref = plain(*args)
+    again = kernel_fn(*args)
+    one = kernel_fn(*(a[1] if a is not w else a for a in args))
+    torch.cuda.synchronize()
+    assert got.shape == (2, 731, 64)
+    assert float((got - ref).abs().max()) <= 1e-4
+    assert float(ref.abs().max()) > 1.0
+    assert bool((got[:, 64:128] == 0).all())
+    assert torch.equal(got, again)
+    assert torch.equal(one, got[1])
+
+
 def test_sparse_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     feats, _, _, in_keys, q_keys, w, _, _ = _sparse_join(cuda, 27, 16, 16)
     found = q_keys != sparse_conv.INT32_MAX
@@ -209,6 +249,10 @@ def test_sparse_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         sgg.keymatch_gemm(feats, in_keys, q_keys, w[..., :12].contiguous())
     with pytest.raises(ValueError):      # weights on another device
         sgg.gather_gemm(feats, q_keys, found, w.cpu())
+    with pytest.raises(ValueError):      # more shared memory than a block has
+        sgg.keymatch_gemm(torch.zeros(2, feats.shape[1], 256, device=cuda),
+                          in_keys, q_keys,
+                          torch.zeros(27, 256, 128, device=cuda))
     with pytest.raises(NotImplementedError):     # no backward yet
         sgg.keymatch_gemm(feats, in_keys, q_keys, w.requires_grad_())
     with torch.no_grad():                # fine where no grad is recorded

@@ -175,3 +175,123 @@ def test_wrappers_refuse_bad_shapes():
         sgg.gather_gemm(t(feats[:, :4]), t(q_keys), t(q_keys > 0), t(w))
     with pytest.raises(ValueError):          # found of another shape
         sgg.gather_gemm(t(feats), t(q_keys), t(q_keys[:, :-1] > 0), t(w))
+
+
+# --------------------------------------------------------------------------
+# The CUDA kernel's arithmetic, modelled on the CPU
+# --------------------------------------------------------------------------
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: what ``cvt.rna.tf32.f32`` gives for finite x, and what the
+    kernel computes for a split's big part."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> TF32 by dropping the low 13 bits: how the tensor core reads
+    an fp32 operand, the kernel's small parts."""
+    return (x.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_round_is_cvt_rna():
+    one = 2.0 ** -10                 # a TF32 ulp at 1
+    x = torch.tensor([1 + one / 2, 1 + 3 * one / 2, -(1 + one / 2),
+                      1 + one / 2 - 2 ** -23, 3.0, -0.0], dtype=torch.float32)
+    want = [1 + one, 1 + 2 * one, -(1 + one), 1.0, 3.0, -0.0]
+    assert tf32_round(x).tolist() == want
+    assert tf32_trunc(x).tolist() == [1.0, 1 + one, -1.0, 1.0, 3.0, -0.0]
+
+
+def rz_to_fp32(s: torch.Tensor) -> torch.Tensor:
+    """fp64 -> fp32 rounded toward zero: how the tensor core rounds the
+    sum of an mma."""
+    f = s.float()
+    over = f.double().abs() > s.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def split_tf32_matmul(a: torch.Tensor, b: torch.Tensor, terms: int = 3,
+                      partials: bool = True) -> torch.Tensor:
+    """``a @ b`` as the kernel computes it on the tensor cores: k-steps of
+    8 in ascending order, each mma adding its exact TF32 products to its
+    input and rounding toward zero.  ``terms=3`` is the 3xTF32 split
+    (a_small @ b_big, a_big @ b_small, then a_big @ b_big; big rounded to
+    nearest, small truncated), ``terms=1`` single TF32 (a_big @ b_big).  With ``partials`` (the kernel) each
+    k-step's mmas start from zero and their partial is added into the fp32
+    accumulator with a round-to-nearest add; without, one accumulator is
+    carried through every mma."""
+    a_big, b_big = tf32_round(a), tf32_round(b)
+    a_small, b_small = tf32_trunc(a - a_big), tf32_trunc(b - b_big)
+    pairs = [(a_small, b_big), (a_big, b_small), (a_big, b_big)][-terms:]
+    acc = torch.zeros(a.shape[0], b.shape[1])
+    for k0 in range(0, a.shape[1], 8):
+        s = slice(k0, k0 + 8)
+        d = torch.zeros_like(acc) if partials else acc
+        for x, y in pairs:
+            d = rz_to_fp32(d.double() + x[:, s].double() @ y[s].double())
+        acc = acc + d if partials else d
+    return acc
+
+
+def test_3xtf32_split_is_as_accurate_as_fp32():
+    """The accuracy behind chip_smoke.py's GEMM_ATOL: at K = 27 taps of
+    Cin = Cout = 64, order-1 values, the kernel's arithmetic stays within
+    2e-6 of the fp64 product relative to its largest value, as an fp32
+    matmul does; single TF32 does not (0.06 absolute), nor does 3xTF32
+    with one accumulator carried through every mma, whose rounding toward
+    zero drifts."""
+    rng = np.random.default_rng(0)
+    K, cin, cout, rows = 27, 64, 64, 256
+    a = rng.normal(size=(rows, K * cin)).astype(np.float32)
+    b = rng.normal(size=(K * cin, cout)).astype(np.float32)
+    exact = a.astype(np.float64) @ b.astype(np.float64)
+    scale = np.abs(exact).max()
+    ta, tb = torch.from_numpy(a), torch.from_numpy(b)
+
+    def rel_err(got):
+        return np.abs(got.numpy().astype(np.float64) - exact).max() / scale
+
+    kernel = rel_err(split_tf32_matmul(ta, tb))
+    fp32 = rel_err(ta @ tb)
+    single = rel_err(split_tf32_matmul(ta, tb, terms=1))
+    carried = rel_err(split_tf32_matmul(ta, tb, partials=False))
+    assert kernel <= 2e-6 and fp32 <= 2e-6
+    assert single > 2e-6 and single * scale > 1e-4
+    assert carried > 2e-6
+
+
+def test_tile_occupancy_matches_a_brute_force_count():
+    rng = np.random.default_rng(3)
+    B, K, R, tile = 2, 27, 200, sgg.TILE_R   # R ragged: 3 tiles + 8 rows
+    found = rng.random((B, K, R)) < 0.02
+    found[0, :, 64:128] = False          # a tile where every tap misses
+    hits, pairs, occ = sgg.tile_occupancy(torch.from_numpy(found))
+    want_pairs = sum(bool(found[b, k, r0:r0 + tile].any())
+                     for b in range(B) for k in range(K)
+                     for r0 in range(0, R, tile))
+    assert (hits, pairs) == (int(found.sum()), want_pairs)
+    assert occ == pytest.approx(hits / (want_pairs * tile))
+    # unbatched, and the key-match form of the same count
+    assert sgg.tile_occupancy(torch.from_numpy(found[1]))[:2] == (
+        int(found[1].sum()), sum(bool(found[1, k, r0:r0 + tile].any())
+                                 for k in range(K)
+                                 for r0 in range(0, R, tile)))
+    feats, _, _, in_keys, q_keys, _ = problem(24)
+    hit = sgg.keymatch_found(t(in_keys), t(q_keys))
+    assert hit.shape == q_keys.shape
+    assert int(hit.sum()) == sgg.count_hits(t(in_keys), t(q_keys)) > 0
+    assert sgg.tile_occupancy(torch.zeros(27, 5, dtype=torch.bool)) == (
+        0, 0, 0.0)
+
+
+def test_ablation_variants_follow_the_kernel_source():
+    """``sparse_gemm_ablation.py`` derives its timing variants from
+    ``csrc/sparse_gather_gemm.cu`` by text substitution: each must still
+    apply exactly once, and change the source."""
+    import sparse_gemm_ablation
+
+    sources = sparse_gemm_ablation.variant_sources()
+    shipped = sparse_gemm_ablation.SOURCE.read_text()
+    assert sources.pop("kernel") == shipped
+    assert sources and all(src != shipped for src in sources.values())
