@@ -4,10 +4,12 @@ Replaces the TPU kernel ``automatic_as_built_reconstruction_tpu/ops/
 pallas/rotated_iou_pallas.py::rotate_iou_matrix_pallas`` (Sutherland–
 Hodgman clip in 8-slot vertex buffers, shoelace area, IoU by criterion
 -1/0/1), which also computes the XLA ``ops/rotated_iou.py`` function that
-``ops/nms_jax.py`` calls.  The CUDA kernel (``csrc/rotated_iou.cu``) runs
-one thread per pair with the clip in registers.  Bound: the larger of
-the fp32 arithmetic the inputs need (:func:`clip_flops`) and the bytes
-(boxes read once, IoUs written once).
+``ops/nms_jax.py`` calls.  The CUDA kernel (``csrc/rotated_iou.cu``) first
+rejects the pairs that are disjoint by a margin (bounding circles, then
+separating axes: :func:`disjoint_pairs` is its plain mirror), and clips
+only the others, one pair a thread, with the plain version's arithmetic.
+Bound: the larger of the fp32 arithmetic the inputs need
+(:func:`clip_flops`) and the bytes (boxes read once, IoUs written once).
 """
 from __future__ import annotations
 
@@ -23,10 +25,10 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
              ctypes.c_void_p)
 
 # fp32 arithmetic (add, sub, mul, div) of the clip, per unit of work the
-# data asks for.  Not counted: the kernel's compares, selects and slot
-# compaction (bookkeeping of its branch-free 8-slot buffers, not
-# arithmetic the clip needs) and the per-box corners and edge vectors
-# (amortized over a row or column of pairs).
+# data asks for.  Not counted: the kernel's rejection tests, compares and
+# slot bookkeeping (its way to the work, not arithmetic the clip needs)
+# and the per-box corners and edge vectors (amortized over a row or
+# column of pairs).
 SIDE_FLOPS = 5       # s = ex*(py - aye) - ey*(px - axe): per held vertex, edge
 CROSS_FLOPS = 8      # denom, t = s/denom, x and y (sub, mul, add): per crossing
 SHOELACE_FLOPS = 4   # 2 mul, sub, add: per vertex of the clipped polygon
@@ -115,6 +117,64 @@ def clip_flops(boxes: torch.Tensor, qboxes: torch.Tensor) -> int:
     return (SIDE_FLOPS * held + CROSS_FLOPS * crossings
             + SHOELACE_FLOPS * final + IOU_FLOPS * pairs)
 
+
+# The kernel's rejection margin of a box (csrc/rotated_iou.cu):
+# REJECT_TOL_REL * mag + REJECT_TOL_MIN with mag = |x| + |y| + r.  A pair is
+# rejected only when its boxes are apart by more than the sum of their
+# margins, hundreds of times the fp32 rounding of the clip.  A degenerate
+# box (a value not finite, mag above REJECT_HUGE, or w or l not above
+# REJECT_TOL_REL * mag: zero, negative, or thin enough for its fp32 corners
+# to collapse) gets NaN: never rejected.
+REJECT_TOL_REL = 2.0 ** -14
+REJECT_TOL_MIN = 1e-6
+REJECT_HUGE = 1e15
+
+
+def _reject_params(boxes: torch.Tensor):
+    """[..., 5] -> centre, w axis (cos, sin), half sizes, circumradius and
+    margin of each box, as the kernel's prologue computes them."""
+    x, y, w, l, yaw = boxes.float().unbind(-1)
+    r = 0.5 * torch.sqrt(w * w + l * l)
+    mag = (x.abs() + y.abs()) + r
+    ok = ((w > REJECT_TOL_REL * mag) & (l > REJECT_TOL_REL * mag)
+          & (mag <= REJECT_HUGE) & torch.isfinite(yaw))
+    tol = torch.where(ok, REJECT_TOL_REL * mag + REJECT_TOL_MIN,
+                      torch.full_like(x, float("nan")))
+    return x, y, torch.cos(yaw), torch.sin(yaw), 0.5 * w, 0.5 * l, r, tol
+
+
+def reject_stages(boxes: torch.Tensor, qboxes: torch.Tensor):
+    """The kernel's two rejection tests on ``[R, N, 5] x [R, K, 5]`` ->
+    (by the bounding circles, by the separating axes of the 4 edge
+    normals), each ``[R, N, K]`` bool and each on its own (the kernel
+    tries the axes only where the circles do not reject)."""
+    ax, ay, ac, as_, ahw, ahl, ar, atol = (
+        t[:, :, None] for t in _reject_params(boxes))
+    bx, by, bc, bs, bhw, bhl, br, btol = (
+        t[:, None, :] for t in _reject_params(qboxes))
+    m = atol + btol
+    dx, dy = bx - ax, by - ay
+    reach = (ar + br) + m
+    circles = dx * dx + dy * dy > reach * reach
+    cab = ac * bc + as_ * bs                    # ua . ub
+    sab = as_ * bc - ac * bs                    # ua . vb
+    acab, asab = cab.abs(), sab.abs()
+    axes = (((dx * ac + dy * as_).abs()
+             > ((ahw + acab * bhw) + asab * bhl) + m)
+            | ((dy * ac - dx * as_).abs()
+               > ((ahl + asab * bhw) + acab * bhl) + m)
+            | ((dx * bc + dy * bs).abs()
+               > ((bhw + acab * ahw) + asab * ahl) + m)
+            | ((dy * bc - dx * bs).abs()
+               > ((bhl + asab * ahw) + acab * ahl) + m))
+    return circles, axes
+
+
+def disjoint_pairs(boxes: torch.Tensor, qboxes: torch.Tensor) -> torch.Tensor:
+    """``[R, N, K]`` bool: the pairs the kernel rejects without clipping
+    (and writes 0.0 for), by the same tests and margins."""
+    circles, axes = reject_stages(boxes, qboxes)
+    return circles | axes
 
 def _iou_from_inter(inter, boxes, qboxes, criterion: int):
     area_a = (boxes[..., 2] * boxes[..., 3]).float()[:, :, None]

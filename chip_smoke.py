@@ -37,8 +37,11 @@
    every AP to the value the JAX package's ``evaluate`` gives;
 6. holds each kernel against its plain PyTorch version on the card, on
    the inputs the serving runs gave it (for the pillar scatter also with
-   the rows shuffled; for the rotated IoU also a 1000 x 1000 set with
-   degenerate boxes; for the two sparse GEMMs every join of a request,
+   the rows shuffled; for the rotated IoU the pillar and SECOND inputs, a
+   1000 x 1000 set with degenerate boxes and one of nearly touching pairs,
+   each with the outputs equal bit for bit and the share of the pairs
+   each of its rejection tests takes; for the two sparse GEMMs every join
+   of a request,
    each with its device time, bound and tile occupancy, the four call
    forms of the key-match function, and unsorted keys; for the fused
    voxelize+mean both slot numberings, a
@@ -47,7 +50,9 @@
    and range) and with torch.profiler (device time, the ``ms`` it
    reports), L2 flushed before each call; checks the flat pillar VFE
    path against the padded one on a served request;
-7. prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
+7. times an empty kernel (one block, and the grids of K1 and K5) as the
+   launch floor beside those two;
+8. prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
    six main paths, ``launches_by_path`` each path's own count), the card's
    name and power limit as ``nvidia-smi`` reports them, and last
    ``{"ok": true, "device": ...}``.
@@ -58,6 +63,7 @@ phase fails.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
@@ -178,9 +184,33 @@ def toolchain() -> str:
     return smi
 
 
-def build_kernels() -> None:
+# an empty kernel: its device time is the least a launch of that grid
+# takes on this card, the floor beside K1 and K5
+EMPTY_KERNEL_SRC = r'''
+#include <cuda_runtime.h>
+__global__ void empty_kernel() {}
+extern "C" int empty_launch(int blocks, int threads, cudaStream_t stream) {
+  empty_kernel<<<blocks, threads, 0, stream>>>();
+  return (int)cudaGetLastError();
+}
+'''
+
+
+def build_kernels() -> Path:
+    """Build every kernel and the empty one, all nvcc processes started
+    together.  -> the empty kernel's library."""
     t0 = time.perf_counter()
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "empty_kernel.cu"
+    src.write_text(EMPTY_KERNEL_SRC)
+    empty = _build.BUILD_DIR / "libempty_kernel.so"
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(empty), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     result = _build.build_all()
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise _build.KernelBuildError(f"empty kernel: {out}")
     per_source = ", ".join(f"{name} {r['seconds']:.1f} s"
                            for name, r in result.items())
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall ({per_source})")
@@ -190,6 +220,30 @@ def build_kernels() -> None:
                                        "spill")):
                 log(f"  ptxas {name}: {line.strip()}")
     check_sparse_gemm_sass()
+    return empty
+
+
+def launch_floor(lib: Path, card: str, grids: dict) -> dict:
+    """Device time (torch.profiler, as ``device_time``) and event times of
+    the empty kernel: one block of 32 threads, and each grid of ``grids``
+    ({name: (blocks, threads)}).  -> {"one block" or name: device ms}."""
+    fn = ctypes.CDLL(str(lib)).empty_launch
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    floors = {}
+    for what, (blocks, threads) in {"one block": (1, 32), **grids}.items():
+        def call():
+            _build.check(fn(blocks, threads,
+                            torch.cuda.current_stream().cuda_stream),
+                         "empty_launch")
+        ms, _ = device_ms(call)
+        ev = cuda_ms(call)
+        floors[what] = ms
+        log(f"launch floor [{card}]: empty kernel, {blocks} x {threads} "
+            f"threads ({what}): device "
+            f"{'not measured' if ms is None else f'{ms:.5f} ms'} "
+            f"(torch.profiler), events {fmt_range(ev)}")
+    return floors
 
 
 def check_sparse_gemm_sass() -> None:
@@ -688,13 +742,15 @@ def phase_k1(call, launches: int, card: str):
              "replaces": "automatic_as_built_reconstruction_tpu/ops/pallas/"
                          "pillar_scatter.py:61",
              "launches": launches, "max_abs_err": 0.0,
-             "bound_ms": bound_ms, "bound_by": "bytes"}
+             "bound_ms": bound_ms, "bound_by": "bytes",
+             # as csrc/pillar_scatter.cu launches it
+             "grid": [-(-B * V * (C // 4) // 256), 256]}
     return entry, fns, ev
 
 
-def iou_cases(R: int, K: int, seed: int = 0) -> torch.Tensor:
-    """[R, K, 5] building-scale boxes plus degenerate ones: coincident,
-    zero-area pad boxes, thin boxes crossed at 90 degrees."""
+def iou_cases(R: int, K: int, seed: int = 0) -> np.ndarray:
+    """[R, K, 5] float32 building-scale boxes plus degenerate ones:
+    coincident, zero-area pad boxes, thin boxes crossed at 90 degrees."""
     rng = np.random.default_rng(seed)
     b = np.concatenate([rng.uniform(0, 16, (R, K, 2)),
                         rng.uniform(0.05, 3.0, (R, K, 2)),
@@ -704,62 +760,158 @@ def iou_cases(R: int, K: int, seed: int = 0) -> torch.Tensor:
     b[:, 3] = [5.0, 5.0, 0.0, 0.0, 0.3]
     b[:, 4] = [5.0, 5.0, 0.07, 0.95, 0.0]
     b[:, 5] = [5.0, 5.0, 0.07, 0.95, math.pi / 2]
-    return torch.as_tensor(b, dtype=torch.float32, device="cuda")
+    return b.astype(np.float32)
 
 
-def phase_k2(call, launches: int, card: str):
-    """-> (kernels-line entry with event times, {key: fn} to time on the
-    device)."""
-    # 1) degenerate set at R=6, N=K=1000, every criterion
-    boxes = iou_cases(6, 1000)
-    zero_area_b = (boxes[..., 2] * boxes[..., 3] == 0)[:, None, :]
-    worst = 0.0
-    for criterion in (-1, 0, 1):
-        got = rotated_iou.rotate_iou_matrix(boxes, boxes, criterion)
-        ref = rotated_iou.rotate_iou_matrix_plain(boxes, boxes, criterion)
+def near_touching_cases(R: int, K: int, seed: int = 0) -> np.ndarray:
+    """[R, K, 5] float32 boxes in pairs (2i, 2i + 1) that nearly touch,
+    for the rotated IoU's rejection test (its IoU matrix with itself):
+    bounding circles (1 +- 1e-4)(r_a + r_b) apart; thin axis-aligned walls
+    edge to edge (gaps 0, +-1e-6, +-1e-4 m, at 0 and 90 degrees); gaps of
+    (1 +- 1e-2) times the kernel's rejection margin; a third of each kind
+    1e3 m from the origin; and in every row a coincident pair, zero-area
+    boxes, the 1e6 m pad box and a 1e6 m wide box."""
+    rng = np.random.default_rng(seed)
+    b = np.zeros((R, K, 5))
+    gaps = (0.0, 1e-6, -1e-6, 1e-4, -1e-4)
+    for r in range(R):
+        for i in range(K // 2):
+            kind, j = i % 4, i // 4
+            origin = rng.uniform(0, 16, 2) + (1e3 if j % 3 == 2 else 0.0)
+            sign = 1 if j % 2 else -1
+            a = np.concatenate([origin, rng.uniform(0.05, 3.0, 2),
+                                rng.uniform(-np.pi, np.pi, 1)])
+            q = np.concatenate([origin, rng.uniform(0.05, 3.0, 2),
+                                rng.uniform(-np.pi, np.pi, 1)])
+            if kind == 0:               # circles (1 +- 1e-4)(r_a + r_b) apart
+                ra, rq = (0.5 * np.hypot(v[2], v[3]) for v in (a, q))
+                d = (ra + rq) * (1 + sign * 1e-4)
+                phi = rng.uniform(-np.pi, np.pi)
+                q[:2] = a[:2] + d * np.array([np.cos(phi), np.sin(phi)])
+            elif kind in (1, 2):        # walls edge to edge
+                yaw = 0.0 if j // 2 % 2 else math.pi / 2
+                thick, long_ = rng.uniform(0.05, 0.3), rng.uniform(2, 8)
+                axis = np.array([np.cos(yaw), np.sin(yaw)])
+                gap = gaps[j % len(gaps)]
+                if kind == 2:           # the kernel's own margin, +-1 %
+                    mag = (abs(origin).sum() + abs(origin + thick * axis).sum()
+                           + np.hypot(thick, long_))
+                    gap = (1 + sign * 1e-2) * (
+                        rotated_iou.REJECT_TOL_REL * mag
+                        + 2 * rotated_iou.REJECT_TOL_MIN)
+                a = np.array([*origin, thick, long_, yaw])
+                q = np.array([*(origin + (thick + gap) * axis), thick, long_,
+                              yaw])
+            b[r, 2 * i], b[r, 2 * i + 1] = a, q
+        b[r, 0] = b[r, 1]               # coincident
+        b[r, 2] = [1e6, 1e6, 0.0, 0.0, 0.0]
+        b[r, 3] = [*b[r, 4, :2], 0.0, 2.0, 0.4]
+        b[r, 5] = [*b[r, 4, :2], 1.5, 0.0, 0.0]
+        b[r, 6] = [3.0, 4.0, 1e6, 1e6, 0.2]
+    return b.astype(np.float32)
+
+
+def iou_mismatch(a, q, criteria=(-1, 0, 1)):
+    """The kernel against the plain version on ``a`` x ``q`` under each
+    criterion -> (max abs error, outputs equal bit for bit, outputs).
+    IoU over the union against a zero-area B is 0/0 (rounding noise on
+    both sides, see tests/test_torch_ops.py): those columns are held to
+    the other criteria only."""
+    zero_area_b = (q[..., 2] * q[..., 3] == 0)[:, None, :]
+    worst, equal, total = 0.0, 0, 0
+    for criterion in criteria:
+        got = rotated_iou.rotate_iou_matrix(a, q, criterion)
+        ref = rotated_iou.rotate_iou_matrix_plain(a, q, criterion)
         torch.cuda.synchronize()
-        # IoU over the union against a zero-area B is 0/0 (see
-        # tests/test_torch_ops.py): held to the other criteria only
-        mask = ~zero_area_b if criterion == -1 else torch.ones_like(got,
-                                                                    dtype=bool)
-        err = float((got - ref).abs()[mask.expand_as(got)].max())
-        if not (err <= IOU_ATOL and torch.isfinite(got[mask.expand_as(got)])
-                .all()):
-            raise AssertionError(f"rotated_iou criterion {criterion}: max "
-                                 f"abs err {err} > {IOU_ATOL}")
+        held = (~zero_area_b if criterion == -1
+                else torch.ones_like(zero_area_b)).expand_as(got)
+        err = float((got - ref).abs()[held].max())
+        if not (err <= IOU_ATOL and torch.isfinite(got[held]).all()):
+            raise AssertionError(f"rotated_iou {tuple(a.shape)} x "
+                                 f"{tuple(q.shape)} criterion {criterion}: "
+                                 f"max abs err {err} > {IOU_ATOL}")
         worst = max(worst, err)
-    log(f"K2 rotated_iou [{card}]: degenerate set R=6 N=K=1000, criteria "
-        f"-1/0/1: kernel vs plain max abs err {worst:.3g}")
-    # 2) the serving run's own input
-    (a, q), _ = call
+        equal += int((got.view(torch.int32) == ref.view(torch.int32)).sum())
+        total += got.numel()
+    return worst, equal, total
+
+
+def reject_share(a, q) -> dict:
+    """Shares of the pairs that the kernel's bounding circles reject, that
+    its separating axes reject of the rest, and that it clips (the plain
+    mirror of its test, ``rotated_iou.reject_stages``)."""
+    circles, axes = rotated_iou.reject_stages(a, q)
+    n = circles.numel()
+    return {"circles": int(circles.sum()) / n,
+            "axes": int((axes & ~circles).sum()) / n,
+            "clipped": int((~(circles | axes)).sum()) / n}
+
+
+def iou_bound_ms(a, q):
+    """-> (bound ms, ops ms, bytes ms, fp32 flops) of the IoU matrix of
+    ``a`` x ``q``: the arithmetic these boxes need, or the bytes."""
     R, N, K = a.shape[0], a.shape[1], q.shape[1]
-    got = rotated_iou.rotate_iou_matrix(a, q)
-    ref = rotated_iou.rotate_iou_matrix_plain(a, q)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    if not err <= IOU_ATOL:
-        raise AssertionError(f"rotated_iou main-path input: max abs err "
-                             f"{err}")
-    worst = max(worst, err)
+    flops = rotated_iou.clip_flops(a, q)
+    ops_ms = flops / PEAK_FP32_PER_S * 1e3
+    bytes_ms = (R * (N + K) * 5 * 4 + R * N * K * 4) / PEAK_BYTES_PER_S * 1e3
+    return max(ops_ms, bytes_ms), ops_ms, bytes_ms, flops
+
+
+def phase_k2(call, second_call, launches: int, card: str):
+    """The rotated IoU on the pillar and SECOND serving runs' own inputs,
+    the degenerate set and the near-touching set: kernel vs plain, the
+    share of the pairs each rejection stage takes, device times.  -> (kernels-
+    line entry with event times, {key: fn} to time on the device)."""
+    (a, q), _ = call
+    (sa, sq), _ = second_call
+    degenerate = torch.as_tensor(iou_cases(6, 1000), device="cuda")
+    near = torch.as_tensor(near_touching_cases(6, 1000), device="cuda")
+    sets = {"pillar serving": (a, q, (-1,)),
+            "second key-match": (sa, sq, (-1,)),
+            "degenerate set": (degenerate, degenerate, (-1, 0, 1)),
+            "near-touching set": (near, near, (-1, 0, 1))}
+    worst, shares, bit_equal, set_ms = 0.0, {}, {}, {}
+    for what, (x, y, criteria) in sets.items():
+        err, equal, total = iou_mismatch(x, y, criteria)
+        worst = max(worst, err)
+        shares[what] = reject_share(x, y)
+        bit_equal[what] = [equal, total]
+        bound, _, _, flops = iou_bound_ms(x, y)
+        pairs = x.shape[0] * x.shape[1] * y.shape[1]
+        dev, _ = device_ms(lambda: rotated_iou.rotate_iou_matrix(x, y))
+        set_ms[what] = dev
+        log(f"K2 rotated_iou [{card}]: {what} R={x.shape[0]} N={x.shape[1]} "
+            f"K={y.shape[1]}, criteria {list(criteria)}: kernel vs plain max "
+            f"abs err {err:.3g}, {equal} of {total} outputs equal bit for "
+            f"bit; rejected by the circles "
+            f"{shares[what]['circles']:.4f}, by the axes "
+            f"{shares[what]['axes']:.4f}, clipped "
+            f"{shares[what]['clipped']:.4f}; device "
+            f"{'not measured' if dev is None else f'{dev:.5f} ms'}, bound "
+            f"{bound:.5f} ms, {flops / pairs:.2f} needed flops a "
+            f"pair")
+    # with criterion 0 a zero-area B keeps all of A: IoU 1.0 (the pad box
+    # of iou_cases, against every A with an area near the origin)
+    got = rotated_iou.rotate_iou_matrix(degenerate, degenerate, 0)[:, :, 2]
+    some_a = ((degenerate[..., 2] * degenerate[..., 3] > 0)
+              & (degenerate[..., :2].abs().amax(-1) < 100))
+    low = float(got[some_a].min())
+    log(f"K2 rotated_iou [{card}]: criterion 0 against the zero-area pad box: "
+        f"IoU {low:.7f} at the least over {int(some_a.sum())} boxes A")
+    if not low > 0.99:
+        raise AssertionError(f"zero-area B under criterion 0 gave {low}")
+
+    R, N, K = a.shape[0], a.shape[1], q.shape[1]
     fns = {"ms": lambda: rotated_iou.rotate_iou_matrix(a, q),
            "plain_ms": lambda: rotated_iou.rotate_iou_matrix_plain(a, q)}
     ev = {"ms": cuda_ms(fns["ms"]),
           "plain_ms": cuda_ms(fns["plain_ms"], iters=10)}
-    pairs = R * N * K
-    # the arithmetic these boxes need and the bytes: the larger bounds it
-    flops = rotated_iou.clip_flops(a, q)
-    ops_ms = flops / PEAK_FP32_PER_S * 1e3
-    bytes_ms = ((R * N + R * K) * 5 * 4 + pairs * 4) / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    big = cuda_ms(lambda: rotated_iou.rotate_iou_matrix(boxes, boxes))
-    big_flops = rotated_iou.clip_flops(boxes, boxes)
-    log(f"K2 rotated_iou [{card}]: main-path input R={R} N={N} K={K}: max "
-        f"abs err {err:.3g}; events: kernel {fmt_range(ev['ms'])}, plain "
+    bound_ms, ops_ms, bytes_ms, flops = iou_bound_ms(a, q)
+    log(f"K2 rotated_iou [{card}]: main-path input R={R} N={N} K={K}: "
+        f"events: kernel {fmt_range(ev['ms'])}, plain "
         f"{fmt_range(ev['plain_ms'])}; bound {bound_ms:.5f} ms (ops "
-        f"{ops_ms:.5f}: {flops} fp32 flops, {flops / pairs:.2f} a pair; "
-        f"bytes {bytes_ms:.5f}); degenerate set R=6 N=K=1000: kernel "
-        f"{fmt_range(big)}, {big_flops / 6e6:.2f} flops a pair, ops bound "
-        f"{big_flops / PEAK_FP32_PER_S * 1e3:.5f} ms")
+        f"{ops_ms:.5f}: {flops} fp32 flops, {flops / (R * N * K):.2f} a pair;"
+        f" bytes {bytes_ms:.5f})")
     entry = {"name": "rotated_iou", "route": "cuda",
              "source": "automatic_as_built_reconstruction_tpu_torch/csrc/"
                        "rotated_iou.cu",
@@ -768,7 +920,8 @@ def phase_k2(call, launches: int, card: str):
              "launches": launches, "max_abs_err": worst,
              "bound_ms": bound_ms,
              "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-             "library_ms": None}
+             "library_ms": None, "reject_share": shares,
+             "bit_equal": bit_equal, "ms_by_input": set_ms}
     return entry, fns, ev
 
 
@@ -1034,6 +1187,8 @@ def phase_k5(call, requests, pillar_request, pillar_cfg, cfg, launches: int,
              "launches": launches, "max_abs_err": worst,
              "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
              "needed_bytes": nbytes, "moved_bytes": moved,
+             # as csrc/voxel_mean.cu launches it
+             "grid": [-(-tab.start.shape[1] * C // 256) * B, 256],
              "fused_call_event_ms": stage_ev["fused_call"],
              "unfused_call_event_ms": stage_ev["unfused_call"]}
     return entry, fns, ev, stage
@@ -1125,7 +1280,7 @@ def main() -> int:
     torch.set_grad_enabled(False)    # serving: the kernels have no backward
     try:
         card = smi = toolchain()
-        build_kernels()
+        empty_kernel = build_kernels()
         pod, requests, latency_ms, launches, k1_call, k2_call = serve(card)
         second = serve_second(card)
         ev_launches = run_evaluate(card)
@@ -1142,7 +1297,8 @@ def main() -> int:
                       second["requests"], requests[0], pod.cfg,
                       second["pod"].cfg, total["voxel_mean"], card)
         phases = [phase_k1(k1_call, total["pillar_scatter"], card),
-                  phase_k2(k2_call, total["rotated_iou"], card),
+                  phase_k2(k2_call, second["km_calls"]["rotated_iou"][0],
+                           total["rotated_iou"], card),
                   phase_sparse_gemm("keymatch_gemm",
                                     second["km_calls"]["keymatch_gemm"],
                                     total["keymatch_gemm"], card),
@@ -1170,6 +1326,13 @@ def main() -> int:
         for key, fn in k5[3].items():
             dev = device_time(f"voxel_mean {key}", card, fn)
             kernels[-1][key + "_ms"] = dev
+        launch_bound = [e for e in kernels
+                        if e["name"] in ("pillar_scatter", "voxel_mean")]
+        floors = launch_floor(empty_kernel, card, {
+            e["name"]: e["grid"] for e in launch_bound})
+        for e in launch_bound:
+            e["floor_ms"] = floors["one block"]
+            e["grid_floor_ms"] = floors[e["name"]]
         profile_request("serving", pod, requests[2], card, latency_ms)
         profile_request("second key-match", second["pod"],
                         second["requests"][2], card, second["latency_ms"])

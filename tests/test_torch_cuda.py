@@ -9,6 +9,7 @@ import math
 import pytest
 import torch
 
+import chip_smoke
 from automatic_as_built_reconstruction_tpu_torch.ops import (
     pillar_scatter, rotated_iou, sparse_conv, sparse_gather_gemm as sgg,
     voxel_mean)
@@ -59,26 +60,63 @@ def test_pillar_scatter_kernel_takes_ids_in_any_order(cuda):
     assert int((got != 0).any(-1).sum()) == 3000 + 1234
 
 
+def _iou_sets(name):
+    """(A boxes, B boxes) [R, N, 5] / [R, K, 5] on the CPU."""
+    if name == "random":
+        g = torch.Generator().manual_seed(3)
+        R = 3
+
+        def boxes(n):
+            b = torch.cat([torch.rand(R, n, 2, generator=g) * 8,
+                           0.5 + torch.rand(R, n, 2, generator=g) * 2.5,
+                           (torch.rand(R, n, 1, generator=g) - 0.5) * 2
+                           * math.pi], -1)
+            b[:, 1] = b[:, 0]
+            b[:, 2] = torch.tensor([0.3, 0.3, 0.05, 2.5, math.pi / 2])
+            return b
+        return boxes(70), boxes(45)
+    b = torch.from_numpy((chip_smoke.iou_cases if name == "degenerate"
+                          else chip_smoke.near_touching_cases)(2, 300))
+    return b, b
+
+
+@pytest.mark.parametrize("ragged", [False, True])
+@pytest.mark.parametrize("case", ["random", "degenerate", "near-touching"])
 @pytest.mark.parametrize("criterion", [-1, 0, 1])
-def test_rotated_iou_kernel_equals_plain(cuda, criterion):
-    g = torch.Generator().manual_seed(3)
-    R, N, K = 3, 70, 45
-    def boxes(n):
-        b = torch.cat([torch.rand(R, n, 2, generator=g) * 8,
-                       0.5 + torch.rand(R, n, 2, generator=g) * 2.5,
-                       (torch.rand(R, n, 1, generator=g) - 0.5) * 2 * math.pi],
-                      -1)
-        b[:, 1] = b[:, 0]
-        b[:, 2] = torch.tensor([0.3, 0.3, 0.05, 2.5, math.pi / 2])
-        return b
-    a, q = boxes(N).to(cuda), boxes(K).to(cuda)
+def test_rotated_iou_kernel_equals_plain(cuda, criterion, case, ragged):
+    """Kernel == plain within 1e-5 (the rejected pairs 0.0, the clipped
+    ones the same arithmetic) on random, degenerate and near-touching
+    boxes; ``ragged``: N and K off the 32 x 128 tile and K % 4 != 0 (the
+    scalar stores).  Criterion -1 against a zero-area B is 0/0 (rounding
+    noise on both sides, tests/test_torch_ops.py): those columns are held
+    to criteria 0 and 1, where a zero-area B gives 1.0 over area A."""
+    a, q = _iou_sets(case)
+    if ragged:
+        a, q = a[:, :a.shape[1] - 1], q[:, :q.shape[1] - 3 - q.shape[1] % 4]
+    if case == "random" and not ragged:
+        q = q[:, :44]
+    a, q = a.to(cuda), q.to(cuda)
+    R, N, K = a.shape[0], a.shape[1], q.shape[1]
+    assert (K % 4 != 0) == ragged
     before = rotated_iou.rotate_iou_matrix.launches
     got = rotated_iou.rotate_iou_matrix(a, q, criterion)
     ref = rotated_iou.rotate_iou_matrix_plain(a, q, criterion)
     torch.cuda.synchronize()
     assert rotated_iou.rotate_iou_matrix.launches == before + 1
     assert got.shape == (R, N, K)
-    assert float((got - ref).abs().max()) <= 1e-5
+    zero_b = (q[..., 2] * q[..., 3] == 0)[:, None, :].expand_as(got)
+    held = ~zero_b if criterion == -1 else torch.ones_like(zero_b)
+    assert float((got - ref).abs()[held].max()) <= 1e-5
+    assert bool(torch.isfinite(got[held]).all())
+    rejected = rotated_iou.disjoint_pairs(a, q)
+    assert bool((got[rejected] == 0).all())
+    pad_b = ((q[..., 2] == 0) & (q[..., 3] == 0))[:, None, :].expand_as(got)
+    # A with an area, near the origin (far out the shoelace's rounding on
+    # absolute coordinates moves a small box's area by more than 1 %)
+    some_a = ((a[..., 2] * a[..., 3] > 0) & (a[..., :2].abs().amax(-1) < 100)
+              )[:, :, None].expand_as(got)
+    if criterion == 0 and bool(pad_b.any()):
+        assert bool((got[pad_b & some_a] > 0.99).all())
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):

@@ -39,6 +39,7 @@ import automatic_as_built_reconstruction_tpu_torch.train.input_pipeline
 import automatic_as_built_reconstruction_tpu_torch.train.train
 import automatic_as_built_reconstruction_tpu_torch.utils.eval
 import chip_smoke
+import rotated_iou_ablation
 import sparse_gemm_ablation
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "jaxlib", "google.protobuf")
