@@ -1,5 +1,8 @@
-"""Device resolution: ``cuda`` by default, the CPU only when asked for."""
+"""Device resolution (``cuda`` by default, the CPU only when asked for)
+and the fp32 arithmetic the entry points run in."""
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -18,3 +21,20 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """Full fp32 inside the block: TF32 off for cuDNN convolutions (on by
+    PyTorch's default) and cuBLAS matmuls, whatever the caller's global
+    flags; the caller's flags are restored on the way out.  The flags are
+    process-wide, so two threads must not run entry points at once."""
+    backends = torch.backends
+    conv, matmul = backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32
+    backends.cudnn.allow_tf32 = False
+    backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        backends.cudnn.allow_tf32 = conv
+        backends.cuda.matmul.allow_tf32 = matmul

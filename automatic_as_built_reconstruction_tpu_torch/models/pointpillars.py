@@ -115,10 +115,15 @@ class PillarFeatureNet(nn.Module):
         pvalid = slot < V
         dump = slot.long().clamp(max=V)                   # [B, P] in [0, V]
         slot_c = slot.long().clamp(max=V - 1)
-        xyz = torch.where(pvalid[..., None], points[..., :3],
-                          torch.zeros((), dtype=dt, device=points.device))
-        sums = torch.zeros((B, V + 1, 3), dtype=dt, device=points.device)
-        sums.scatter_add_(1, dump[..., None].expand(B, P, 3), xyz)
+        # each pillar's points added one after another in their order in
+        # the buffer (grouped by a stable sort on the slot), not by atomics:
+        # the same bits on every run
+        by_slot, perm = torch.sort(dump, dim=1, stable=True)
+        ends = torch.searchsorted(by_slot, torch.arange(
+            V + 2, device=points.device).expand(B, V + 2).contiguous())
+        xyz = torch.gather(points[..., :3], 1, perm[..., None].expand(B, P, 3))
+        sums = torch.segment_reduce(xyz, "sum", lengths=ends.diff(dim=1),
+                                    axis=1)
         means = sums[:, :V] / torch.clamp_min(num_points[..., None], 1).to(dt)
         f_cluster = points[..., :3] - torch.gather(
             means, 1, slot_c[..., None].expand(B, P, 3))

@@ -13,7 +13,9 @@ voxels), :func:`voxelize_flat` (the point-major view of the same hard
 voxelization) and :func:`dynamic_voxelize` (cap-free per-voxel means).  All
 take a padded batch ``[B, P, C]``; the JAX functions are per scan and
 ``vmap``-ped by their callers.  ``ops/voxel_mean.py`` builds the fused
-voxelize+mean on :func:`slot_table`.  Nothing here synchronises the host.
+voxelize+mean's first-appearance route on :func:`slot_table`; its key
+route computes the same cells and keys in a kernel of its own.  Nothing
+here synchronises the host.
 """
 from __future__ import annotations
 

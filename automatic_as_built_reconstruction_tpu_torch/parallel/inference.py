@@ -5,8 +5,9 @@ one device (no mesh), in its ``"hard"`` and ``"dynamic"`` voxelization
 modes and a third, ``"fused_mean"``, that runs the fused voxelize+mean
 kernel as the input stage.  A request is a padded point buffer
 ``[B, P, C]`` plus ``num_valid [B]``; the answer is a numpy dict with the
-keys and shapes of the JAX ``PodInference.__call__``.  Multi-device meshes
-wait for a later slice.
+keys and shapes of the JAX ``PodInference.__call__``.  The network runs
+in fp32 with TF32 off whatever the process's global flags
+(``device.fp32_math``).  Multi-device meshes wait for a later slice.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 from ..builder import (config_io, second_builder, target_assigner_builder,
                        voxel_builder)
-from ..device import resolve_device
+from ..device import fp32_math, resolve_device
 from ..models import voxelnet as voxelnet_mod
 from ..ops.voxel_mean import fused_voxelize_mean
 from ..ops.voxelize import dynamic_voxelize, voxelize
@@ -67,16 +68,27 @@ class PodInference:
                  num_valid: np.ndarray) -> Dict[str, np.ndarray]:
         """points [B, P, C] padded, num_valid [B] -> detection dict
         (host numpy, padded, with a validity mask)."""
-        cfg = self.cfg
-        pts = torch.as_tensor(np.asarray(points, np.float32),
-                              device=self.device)
-        nv = torch.as_tensor(np.asarray(num_valid, np.int32),
-                             device=self.device)
-        preds = self.model(*self.voxelize(pts, nv))
-        anchors = self.anchors[None].expand(pts.shape[0],
-                                            *self.anchors.shape)
-        out = voxelnet_mod.predict(preds, anchors, cfg)
+        pts, nv = self._device_inputs(points, num_valid)
+        with fp32_math():
+            preds = self.model(*self.voxelize(pts, nv))
+            anchors = self.anchors[None].expand(pts.shape[0],
+                                                *self.anchors.shape)
+            out = voxelnet_mod.predict(preds, anchors, self.cfg)
         return {k: v.cpu().numpy() for k, v in out.items()}
+
+    @torch.no_grad()
+    def heads(self, points, num_valid) -> Dict[str, torch.Tensor]:
+        """The network's raw prediction maps (device tensors) for one
+        request, computed as :meth:`__call__` computes them."""
+        pts, nv = self._device_inputs(points, num_valid)
+        with fp32_math():
+            return self.model(*self.voxelize(pts, nv))
+
+    def _device_inputs(self, points, num_valid):
+        return (torch.as_tensor(np.asarray(points, np.float32),
+                                device=self.device),
+                torch.as_tensor(np.asarray(num_valid, np.int32),
+                                device=self.device))
 
     def voxelize(self, pts: torch.Tensor, nv: torch.Tensor):
         """The input stage: device points -> the model's (voxels

@@ -4,8 +4,9 @@ The port of the JAX package's ``train/train.py``: ``Bundle`` (everything
 built from one config file), ``make_predict_fn`` and ``evaluate`` (the
 eval split through the host reader, the network and ``predict`` on the
 device, point-evidence refinement for the configured classes, then the
-dataset's AP).  ``train()`` and the checkpoint directory lookup come with
-the training slice.
+dataset's AP).  The network runs in fp32 with TF32 off whatever the
+process's global flags (``device.fp32_math``).  ``train()`` and the
+checkpoint directory lookup come with the training slice.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ from ..builder import (config_io, input_reader_builder, second_builder,
                        target_assigner_builder, voxel_builder)
 from ..core import point_refine
 from ..data import batching
-from ..device import resolve_device
+from ..device import fp32_math, resolve_device
 from ..models import voxelnet as voxelnet_mod
 from ..parallel.inference import load_checkpoint_variables
 from ..utils.seeded_init import load_seeded
@@ -63,6 +64,7 @@ def make_predict_fn(bundle: Bundle):
     model, cfg = bundle.model, bundle.model_cfg
 
     @torch.no_grad()
+    @fp32_math()
     def predict_fn(example):
         preds = model(example["voxels"], example["num_points"],
                       example["coordinates"])
@@ -73,11 +75,12 @@ def make_predict_fn(bundle: Bundle):
 
 
 @torch.no_grad()
+@fp32_math()
 def stage_times_ms(bundle: Bundle, example, repeats: int = 3
                    ) -> Dict[str, float]:
     """Time of the four stages (vfe, middle, rpn, predict) on one device
     batch, each synchronised, the mean of ``repeats`` runs after one
-    warm-up."""
+    warm-up, in fp32 as :func:`make_predict_fn` runs them."""
     model, cfg = bundle.model, bundle.model_cfg
     sync = (torch.cuda.synchronize if example["voxels"].is_cuda
             else (lambda: None))

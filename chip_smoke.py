@@ -14,9 +14,11 @@
    scans each (scenes 0-7), served twice over after a warm-up, with
    the kernels' launch counters set to 0 just before and read just
    after; reports the latency's median and range and the scans/s;
-   checks the detections against the port's own CPU run (TF32 off for
-   convolutions and matmuls) and against the detection counts the JAX
-   package gives on scans 0 and 1;
+   checks the detections against the port's own CPU run and against the
+   detection counts the JAX package gives on scans 0 and 1.  The process
+   keeps PyTorch's default flags (TF32 on for cuDNN): the entry points
+   run fp32 with TF32 off inside their calls, and the run checks that they
+   leave the flags as they found them;
 4. serves SECOND (``car.fhd.serving.config`` at full width: 1408 x 1600 x
    40 voxels, the SpMiddleFHD stack, RPN 128, 70 400 anchors; weights and
    BatchNorm statistics drawn from a seed, there being no trained
@@ -24,8 +26,9 @@
    each (scenes 1000-1007), twice over after a warm-up, in the config's
    key-match mode, and once over with ``sparse_keymatch=False`` (the
    gather-GEMM mode on device-built rulebooks), once over with
-   ``voxelization="fused_mean"`` (the fused voxelize+mean kernel as the
-   input stage; the detections must equal the hard mode's) and once over
+   ``voxelization="fused_mean"`` (the fused voxelize+mean's key route as
+   the input stage; the detections must equal the hard mode's) and once
+   over
    with ``voxelization="dynamic"`` (against the port's own CPU run),
    counters read for each; checks head outputs and detections against
    the port's own CPU run, the modes against each other, the launch
@@ -44,12 +47,17 @@
    of a request,
    each with its device time, bound and tile occupancy, the four call
    forms of the key-match function, and unsorted keys; for the fused
-   voxelize+mean both slot numberings, a
-   pillar-sized scan, a truncating voxel cap, T = 1 and an empty scan);
+   voxelize+mean both routes on the served request, a pillar-sized scan, a
+   truncating voxel cap, T = 1, an empty scan, NaN and on-face points and
+   more slots than points, the key route's two kernels against their plain
+   mirrors and the table kernel bit for bit, and at both served shapes the
+   device time and device events of the function, its kernels, the sort
+   and the table route);
    times kernel, plain version and library call with CUDA events (median
-   and range) and with torch.profiler (device time, the ``ms`` it
-   reports), L2 flushed before each call; checks the flat pillar VFE
-   path against the padded one on a served request;
+   and range) and with torch.profiler (device time of the kernels,
+   memsets and copies a call launches, the ``ms`` it reports), L2 flushed
+   before each call; checks the flat pillar VFE path against the padded
+   one on a served request, and that it gives the same bits twice;
 7. times an empty kernel (one block, and the grids of K1 and K5) as the
    launch floor beside those two;
 8. prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
@@ -80,12 +88,11 @@ from automatic_as_built_reconstruction_tpu_torch.data.building import (
     generate_building_scene, pad_batch)
 from automatic_as_built_reconstruction_tpu_torch.data.kitti_like import (
     make_scene)
+from automatic_as_built_reconstruction_tpu_torch.device import fp32_math
 from automatic_as_built_reconstruction_tpu_torch.models import (
     middle, pointpillars)
 from automatic_as_built_reconstruction_tpu_torch.models.voxelnet import (
     VoxelNet, middle_plan, predict)
-from automatic_as_built_reconstruction_tpu_torch.models.voxel_encoder import (
-    SimpleVoxel)
 from automatic_as_built_reconstruction_tpu_torch.ops import (
     _build, nms, pillar_scatter, rotated_iou, sparse_gather_gemm, voxel_mean)
 from automatic_as_built_reconstruction_tpu_torch.ops.voxelize import (
@@ -124,12 +131,15 @@ EVAL_AP_ATOL = 1e-3
 # voxel's points in arrival order, torch.sum in its own
 MEAN_TOL = dict(rtol=1e-6, atol=1e-6)
 K5_TRUNCATING_CAP = 2000     # a voxel cap far below a scan's occupied cells
-# flat vs padded pillar VFE: the pillar mean is an atomic fp32 sum on the
-# flat path and an ordered one on the padded path, so it differs by an ulp
-# of a 16 m coordinate (2e-6); the cluster offsets (centimetres) carry
-# that as 1e-4 relative, and the trained PFN weights and BN scales
-# amplify it
+# flat vs padded pillar VFE: the flat path adds a pillar's points one after
+# another, torch.sum on the padded path in its own order, so the mean
+# differs by an ulp of a 16 m coordinate (2e-6); the cluster offsets
+# (centimetres) carry that as 1e-4 relative, and the trained PFN weights
+# and BN scales amplify it.  The CPU test (tests/test_torch_models.py,
+# random weights of a tiny config) holds the two at FLAT_CPU_TOL; the
+# difference here is logged against it
 FLAT_TOL = dict(rtol=1e-3, atol=1e-3)
+FLAT_CPU_TOL = dict(rtol=1e-5, atol=1e-5)
 # SECOND: car.fhd.serving.config, its voxel caps, seeded state
 SECOND_CONFIG = (ROOT / "automatic_as_built_reconstruction_tpu_torch"
                  / "configs" / "second" / "car" / "car.fhd.serving.config")
@@ -301,12 +311,13 @@ def fmt_range(t: list) -> str:
     return f"{t[0]:.4f} ms (range {t[1]:.4f}-{t[2]:.4f})"
 
 
-def device_ms(fn, iters: int = 20):
-    """Device time per call summed over the kernels ``fn`` launches
-    (torch.profiler / CUPTI, one profiling window), L2 flushed before
-    each call by a 64 MB device-to-device copy (left out of the sum): the
-    card's own time without the host's launch overhead.  Returns
-    (ms, {kernel: ms}), or (None, {}) when the profiler saw no kernel."""
+def device_profile(fn, iters: int = 20):
+    """Device time per call summed over the kernels, memsets and copies
+    ``fn`` launches (torch.profiler / CUPTI, one profiling window), L2
+    flushed before each call by a 64 MB ``bitwise_not`` (left out): the
+    card's own time without the host's launch overhead.  Returns (ms,
+    {name: ms}, device events a call), or (None, {}, 0) when the profiler
+    saw no kernel."""
     from torch.profiler import ProfilerActivity, profile
 
     src = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
@@ -315,18 +326,24 @@ def device_ms(fn, iters: int = 20):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            dst.copy_(src)
+            torch.bitwise_not(src, out=dst)
             fn()
         torch.cuda.synchronize()
-    per_kernel = {}
+    per_kernel, n = {}, 0
     for e in prof.events():
         if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.name.startswith(("Memcpy", "Memset"))):
+                and "bitwise_not" not in e.name):
+            n += 1
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us() / 1e3 / iters)
     if not per_kernel:
-        return None, {}
-    return sum(per_kernel.values()), per_kernel
+        return None, {}, 0
+    return sum(per_kernel.values()), per_kernel, n / iters
+
+
+def device_ms(fn, iters: int = 20):
+    """:func:`device_profile` without the event count: (ms, {name: ms})."""
+    return device_profile(fn, iters)[:2]
 
 
 def fmt_kernels(per_kernel: dict) -> str:
@@ -355,12 +372,16 @@ def recording(module, name: str, calls: list):
 # serving
 # --------------------------------------------------------------------------
 
-# the port's kernel wrappers, and where the serving path looks each one up
+# the port's kernel wrappers (K5 is three: its key route's key kernel and
+# segment-and-mean kernel, and the first-appearance route's table kernel),
+# and where the serving path looks each kernel or function up
 KERNELS = {"pillar_scatter": pillar_scatter.scatter_sorted_to_canvas,
            "rotated_iou": rotated_iou.rotate_iou_matrix,
            "keymatch_gemm": sparse_gather_gemm.keymatch_gemm,
            "gather_gemm": sparse_gather_gemm.gather_gemm,
-           "voxel_mean": voxel_mean.mean_from_table}
+           "voxel_keys": voxel_mean.point_keys,
+           "voxel_mean": voxel_mean.segment_mean,
+           "voxel_mean_table": voxel_mean.mean_from_table}
 CALL_SITES = {"pillar_scatter": (pointpillars, "scatter_sorted_to_canvas"),
               "rotated_iou": (nms, "rotate_iou_matrix"),
               "keymatch_gemm": (middle, "keymatch_gemm"),
@@ -432,7 +453,7 @@ def stage_split_ms(pod, points, num_valid) -> dict:
     nv = torch.as_tensor(num_valid, device=pod.device)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    with torch.no_grad():
+    with torch.no_grad(), fp32_math():
         vox = pod.voxelize(pts, nv)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
@@ -477,10 +498,11 @@ def profile_request(what: str, pod, request, card: str,
 def serve(card: str):
     """The pillar path.  -> (pod, requests, median latency ms, launches,
     recorded K1 call, recorded K2 call)."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    log("serving: torch.backends.cudnn.allow_tf32 = False, "
-        "torch.backends.cuda.matmul.allow_tf32 = False (full fp32)")
+    flags = tf32_flags()
+    log(f"serving: the process's own flags, as a caller has them: "
+        f"torch.backends.cudnn.allow_tf32 = {flags[0]}, "
+        f"torch.backends.cuda.matmul.allow_tf32 = {flags[1]}; the entry "
+        f"points run fp32 with TF32 off inside their calls")
     t0 = time.perf_counter()
     pod = pod_inference_from_checkpoint(
         CONFIG, CHECKPOINT, device="cuda", max_voxels=MAX_VOXELS,
@@ -512,6 +534,10 @@ def serve(card: str):
                                    BOX_ATOL, SCORE_ATOL)
         if diff is not None:
             raise AssertionError(f"request {i}, GPU vs CPU: {diff}")
+    if tf32_flags() != flags:
+        raise AssertionError(f"serving changed the caller's TF32 flags "
+                             f"{flags} to {tf32_flags()}")
+    check_network_flags("serving", pod, requests[0])
     n_det = int(sum(o["valid"].sum() for o in outs[:len(requests)]))
     log(f"serving: GPU detections match the port's CPU run on all "
         f"{len(outs)} requests (boxes atol {BOX_ATOL}, scores atol "
@@ -526,11 +552,53 @@ def serve(card: str):
 
 def head_outputs(pod, request) -> dict:
     """The network's raw prediction maps for one request, on the host."""
-    pts = torch.as_tensor(request[0], device=pod.device)
-    nv = torch.as_tensor(request[1], device=pod.device)
-    with torch.no_grad():
-        preds = pod.model(*pod.voxelize(pts, nv))
-    return {k: v.float().cpu() for k, v in preds.items()}
+    return {k: v.float().cpu() for k, v in pod.heads(*request).items()}
+
+
+def tf32_flags() -> tuple:
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@contextlib.contextmanager
+def flags_in_modules():
+    """-> the set of :func:`tf32_flags` that any module's forward saw
+    at its start inside the block."""
+    seen = set()
+    handle = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda *_: seen.add(tf32_flags()))
+    try:
+        yield seen
+    finally:
+        handle.remove()
+
+
+@contextlib.contextmanager
+def tf32_on():
+    """TF32 on for cuDNN convolutions and cuBLAS matmuls inside the
+    block; the flags restored after."""
+    before = tf32_flags()
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = before
+
+
+def check_network_flags(what: str, pod, request) -> None:
+    """Inside ``heads()`` and ``__call__`` every module of the network
+    runs with TF32 off, whatever the process's flags."""
+    with flags_in_modules() as seen:
+        pod.heads(*request)
+        pod(*request)
+    if seen != {(False, False)}:
+        raise AssertionError(f"{what}: the network ran with TF32 flags "
+                             f"{sorted(seen)}")
+    log(f"{what}: every module of the network saw cuDNN and matmul TF32 "
+        f"off inside heads() and __call__ (the process's flags "
+        f"{tf32_flags()})")
 
 
 def heads_mismatch(got: dict, ref: dict):
@@ -589,7 +657,8 @@ def serve_second(card: str):
         {"gather_gemm": joins * n, "rotated_iou": None})
     fm_outs, fm_lat, result["fm_launches"], result["fm_calls"] = drive(
         "second fused_mean", card, fused, requests, 1,
-        {"keymatch_gemm": joins * n, "rotated_iou": None, "voxel_mean": n})
+        {"keymatch_gemm": joins * n, "rotated_iou": None, "voxel_keys": n,
+         "voxel_mean": n})
     dyn_outs, dyn_lat, result["dyn_launches"], _ = drive(
         "second dynamic", card, dyn, requests, 1,
         {"keymatch_gemm": joins * n, "rotated_iou": None})
@@ -651,6 +720,17 @@ def serve_second(card: str):
         f"tolerance {HEAD_TOL}")
     if bad is not None:
         raise AssertionError(f"second: GPU vs CPU head {bad} differs: {err}")
+    check_network_flags("second fused_mean", fused, requests[0])
+    # control: the same heads with TF32 on (the network called outside
+    # the entry points), to show whether HEAD_TOL tells TF32 from fp32
+    with tf32_on():
+        tf32 = {k: v.float().cpu()
+                for k, v in pod.model(*pod.voxelize(
+                    *pod._device_inputs(*requests[0]))).items()}
+    err_tf32, bad_tf32 = heads_mismatch(tf32, heads_cpu)
+    log(f"second: control, GPU heads with TF32 on vs CPU: max abs diff "
+        f"{err_tf32}; "
+        f"{'outside' if bad_tf32 is not None else 'within'} {HEAD_TOL}")
     cpu_outs = [cpu(*req) for req in requests]
     for i, out in enumerate(outs):
         diff = detections_mismatch(out, cpu_outs[i % n], cfg.num_class,
@@ -1076,128 +1156,288 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
     return entry, fns, ev
 
 
-def phase_k5(call, requests, pillar_request, pillar_cfg, cfg, launches: int,
-             card: str):
-    """The fused voxelize+mean kernel against its plain version.  ``call``
-    is the recorded ``fused_voxelize_mean`` call of the serving run,
-    ``requests`` the SECOND requests.  -> (kernels-line entry with event
-    times, {key: fn} to time on the device)."""
+def k5_cases(requests, pillar_request, pillar_cfg, cfg) -> list:
+    """[(what, points, num_valid, kwargs)] of the K5 checks: the served
+    request, a pillar-sized scan (also with T = 64), a voxel cap below
+    the occupied cells, T = 1, an empty scan, NaN and on-face points,
+    more slots than points, four pillar-sized scans (more segment blocks
+    than the card holds at once)."""
     def geo(c):
         return dict(voxel_size=c.voxel_size, pc_range=c.pc_range,
                     grid_size=c.grid_size)
 
-    def check(what, pts, nv, **kw):
-        got = voxel_mean.fused_voxelize_mean(pts, nv, **kw)
-        ref = voxel_mean.fused_voxelize_mean_plain(pts, nv, **kw)
-        torch.cuda.synchronize()
-        for name in ("coords", "num_points", "num_voxels"):
-            if not torch.equal(getattr(got, name), getattr(ref, name)):
-                raise AssertionError(f"voxel_mean {what}: {name} differ")
-        err = float((got.features - ref.features).abs().max())
-        if not (torch.allclose(got.features, ref.features, **MEAN_TOL)
-                and bool((got.features[got.num_points == 0] == 0).all())):
-            raise AssertionError(f"voxel_mean {what}: features differ by "
-                                 f"{err} (tolerance {MEAN_TOL})")
-        log(f"K5 voxel_mean [{card}]: {what}: B={pts.shape[0]} "
-            f"P={pts.shape[1]} V={kw['max_voxels']} T={kw['max_points']}, "
-            f"voxels {got.num_voxels.tolist()}, most points in one "
-            f"{int(got.num_points.max())}: integers equal, features max abs "
-            f"diff {err:.3g}")
-        return err, got
-
     pts = torch.as_tensor(requests[0][0], device="cuda")
     nv = torch.as_tensor(requests[0][1], device="cuda")
     V, T = SECOND_MAX_VOXELS, SECOND_MAX_POINTS
+    served = dict(max_points=T, max_voxels=V, **geo(cfg))
+    # NaN rows (an all-NaN point lands in cell 0, first there) and points
+    # on cell faces ((p - r0) / vs a whole number), in the served request
+    odd = pts.clone()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    odd[:, 0, :3] = math.nan
+    odd[:, 1:40, 0] = math.nan
+    odd[:, 40:50, 1] = math.inf
+    lo = torch.tensor(cfg.pc_range[:3], device="cuda")
+    vs = torch.tensor(cfg.voxel_size, device="cuda")
+    cells = torch.floor(torch.rand(2, 2000, 3, device="cuda", generator=g)
+                        * torch.tensor(cfg.grid_size, device="cuda") / 4)
+    odd[:, 50:2050, :3] = lo + cells * vs
+    return [
+        ("served request", pts, nv, served),
+        ("pillar-sized scan", torch.as_tensor(pillar_request[0],
+                                              device="cuda"),
+         torch.as_tensor(pillar_request[1], device="cuda"),
+         dict(max_points=MAX_POINTS, max_voxels=MAX_VOXELS,
+              **geo(pillar_cfg))),
+        ("pillar-sized scan, T = 64 (runs past a tile's halo)",
+         torch.as_tensor(pillar_request[0], device="cuda"),
+         torch.as_tensor(pillar_request[1], device="cuda"),
+         dict(max_points=64, max_voxels=MAX_VOXELS, **geo(pillar_cfg))),
+        ("voxel cap below the occupied cells", pts, nv,
+         served | {"max_voxels": K5_TRUNCATING_CAP}),
+        ("T = 1", pts, nv, served | {"max_points": 1}),
+        ("empty scan", pts, torch.zeros_like(nv), served),
+        ("NaN, inf and on-face points", odd, nv, served),
+        ("more slots than points (P = 3001, V = 4096)",
+         pts[:, :3001].contiguous(), torch.tensor([3001, 2000],
+                                                  dtype=nv.dtype,
+                                                  device="cuda"),
+         served | {"max_voxels": 4096}),
+        # 4 x 175 blocks of 512 threads: more than the 132 SMs x 4 the
+        # H100 can hold at once, whatever the registers
+        ("four pillar-sized scans (B = 4: more segment blocks than fit the "
+         "card at once)", torch.as_tensor(np.concatenate(
+             [pillar_request[0]] * 2), device="cuda"),
+         torch.as_tensor(np.concatenate(
+             [pillar_request[1], pillar_request[1] // 2]), device="cuda"),
+         dict(max_points=MAX_POINTS, max_voxels=MAX_VOXELS,
+              **geo(pillar_cfg)))]
+
+
+def same_floats(a, b) -> bool:
+    """Equal bit for bit, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan], b[~nan]))
+
+
+def check_k5(what, pts, nv, kw, card) -> float:
+    """Both routes of ``fused_voxelize_mean`` against the plain function,
+    and the key route's two kernels against their plain mirrors and the
+    table kernel.  -> the largest feature difference to the plain
+    function."""
     worst = 0.0
     for fa in (False, True):
-        err, _ = check(f"serving request, first_appearance={fa}", pts, nv,
-                       max_points=T, max_voxels=V, first_appearance=fa,
-                       **geo(cfg))
+        got = voxel_mean.fused_voxelize_mean(pts, nv, first_appearance=fa,
+                                             **kw)
+        ref = voxel_mean.fused_voxelize_mean_plain(pts, nv,
+                                                   first_appearance=fa, **kw)
+        torch.cuda.synchronize()
+        for name in ("coords", "num_points", "num_voxels"):
+            if not torch.equal(getattr(got, name), getattr(ref, name)):
+                raise AssertionError(f"voxel_mean {what}, first_appearance="
+                                     f"{fa}: {name} differ")
+        fin = torch.isfinite(ref.features)
+        err = float((got.features - ref.features).abs()[fin].max()
+                    if fin.any() else 0.0)
+        if not (torch.allclose(got.features, ref.features, equal_nan=True,
+                               **MEAN_TOL)
+                and bool((got.features[got.num_points == 0] == 0).all())):
+            raise AssertionError(f"voxel_mean {what}: features differ by "
+                                 f"{err} (tolerance {MEAN_TOL})")
         worst = max(worst, err)
-    ppts = torch.as_tensor(pillar_request[0], device="cuda")
-    pnv = torch.as_tensor(pillar_request[1], device="cuda")
-    cases = [
-        ("pillar-sized scan", ppts, pnv, dict(
-            max_points=MAX_POINTS, max_voxels=MAX_VOXELS, **geo(pillar_cfg))),
-        ("voxel cap below the occupied cells", pts, nv, dict(
-            max_points=T, max_voxels=K5_TRUNCATING_CAP, **geo(cfg))),
-        ("T = 1", pts, nv, dict(max_points=1, max_voxels=V, **geo(cfg))),
-        ("empty scan", pts, torch.zeros_like(nv), dict(
-            max_points=T, max_voxels=V, **geo(cfg)))]
-    for what, p_, n_, kw in cases:
-        for fa in (False, True):
-            err, got = check(f"{what}, first_appearance={fa}", p_, n_,
-                             first_appearance=fa, **kw)
-            worst = max(worst, err)
-            if what.startswith("voxel cap") and got.num_voxels.tolist() != [
-                    K5_TRUNCATING_CAP] * 2:
+        log(f"K5 voxel_mean [{card}]: {what}, first_appearance={fa}: "
+            f"B={pts.shape[0]} P={pts.shape[1]} V={kw['max_voxels']} "
+            f"T={kw['max_points']}, voxels {got.num_voxels.tolist()}, most "
+            f"points in one {int(got.num_points.max())}, "
+            f"{int(torch.isnan(got.features).any(-1).sum())} NaN voxels: "
+            f"integers equal the plain function's, features max abs diff "
+            f"{err:.3g}")
+        if not fa:
+            key_route = got
+    geo = {k: kw[k] for k in ("voxel_size", "pc_range", "grid_size")}
+    seg_kw = {k: kw[k] for k in ("grid_size", "max_points", "max_voxels")}
+    keys = voxel_mean.point_keys(pts, nv, **geo)
+    if not torch.equal(keys, voxel_mean.point_keys_plain(pts, nv, **geo)):
+        raise AssertionError(f"voxel_mean {what}: keys != plain keys")
+    srt = torch.sort(keys, dim=1).values
+    plain = voxel_mean.segment_mean_plain(pts, srt, **seg_kw)
+    cell, tab = slot_table(pts, nv, max_voxels=kw["max_voxels"],
+                           first_appearance=False, **geo)
+    table = voxel_mean.mean_from_table(pts, cell, tab, kw["max_points"])
+    seg = voxel_mean.segment_mean(pts, srt, **seg_kw)
+    for other, name in ((plain, "its plain mirror"),
+                        (key_route, "the function's key route"),
+                        (table, "the table route")):
+        if not (all(torch.equal(getattr(seg, k), getattr(other, k))
+                    for k in ("coords", "num_points", "num_voxels"))
+                and same_floats(seg.features, other.features)):
+            raise AssertionError(f"voxel_mean {what}: segment kernel != "
+                                 f"{name}")
+    log(f"K5 voxel_mean [{card}]: {what}: key kernel == plain keys; "
+        f"segment kernel == its plain mirror == the table route, bit for "
+        f"bit")
+    return worst
+
+
+def k5_bound(B, P, C, V) -> tuple:
+    """-> (bytes, ms) the key route needs without the sort: every point
+    row and num_valid read once, the packed values written and read
+    once, features, coords, counts and num_voxels written once."""
+    nbytes = B * P * 4 * C + B * 4 + 2 * B * P * 8 + B * V * (4 * C + 16) \
+        + B * 4
+    return nbytes, nbytes / PEAK_BYTES_PER_S * 1e3
+
+
+def k5_times(pts, nv, kw) -> dict:
+    """Device times (torch.profiler, L2 flushed) and device events a call
+    of the key route, its kernels, the sort, the table route and the
+    first-appearance route on one request."""
+    fused = dict(first_appearance=False, **kw)
+    ms, per, events = device_profile(
+        lambda: voxel_mean.fused_voxelize_mean(pts, nv, **fused))
+
+    def kernel_ms(prefix):
+        return sum(v for k, v in per.items() if k.startswith(prefix))
+
+    keys = voxel_mean.point_keys(pts, nv, voxel_size=kw["voxel_size"],
+                                 pc_range=kw["pc_range"],
+                                 grid_size=kw["grid_size"])
+    sort_ms, _, sort_events = device_profile(
+        lambda: torch.sort(keys, dim=1))
+    cut = {k: kw[k] for k in ("voxel_size", "pc_range", "grid_size",
+                              "max_voxels")}
+
+    def table_route():
+        cell, tab = slot_table(pts, nv, first_appearance=False, **cut)
+        return voxel_mean.mean_from_table(pts, cell, tab, kw["max_points"])
+
+    table_ms, table_per, table_events = device_profile(table_route)
+    fa_ms, _, fa_events = device_profile(
+        lambda: voxel_mean.fused_voxelize_mean(pts, nv, first_appearance=True,
+                                               **kw))
+    return {"function_ms": ms, "function_launches": events,
+            "keys_ms": kernel_ms("point_keys_kernel"),
+            "segment_ms": kernel_ms("segment_mean_kernel"),
+            "sort_ms": sort_ms, "sort_launches": sort_events,
+            "table_route_ms": table_ms, "table_route_launches": table_events,
+            "table_kernel_ms": sum(v for k, v in table_per.items()
+                                   if k.startswith("voxel_mean_kernel")),
+            "first_appearance_ms": fa_ms,
+            "first_appearance_launches": fa_events,
+            "function_kernels": fmt_kernels(per)}
+
+
+def phase_k5(call, requests, pillar_request, pillar_cfg, cfg,
+             launches: dict, card: str):
+    """The fused voxelize+mean: both routes and the key route's kernels
+    against their plain versions on every case; device times of the key
+    route, its two kernels, the sort and the table route at both served
+    shapes.  ``call`` is the recorded
+    ``fused_voxelize_mean`` call of the serving run.  -> (kernels-line
+    entry with event times, {key: fn} to time on the device)."""
+    cases = k5_cases(requests, pillar_request, pillar_cfg, cfg)
+    worst = 0.0
+    for what, pts, nv, kw in cases:
+        worst = max(worst, check_k5(what, pts, nv, kw, card))
+        if what.startswith("voxel cap"):
+            got = voxel_mean.fused_voxelize_mean(pts, nv, **kw)
+            if got.num_voxels.tolist() != [K5_TRUNCATING_CAP] * 2:
                 raise AssertionError("voxel cap did not truncate")
-            if what == "empty scan" and int(got.num_voxels.sum()) != 0:
+        if what == "empty scan":
+            got = voxel_mean.fused_voxelize_mean(pts, nv, **kw)
+            if int(got.num_voxels.sum()) != 0:
                 raise AssertionError("empty scan gave voxels")
+    if launches["voxel_keys"] != launches["voxel_mean"]:
+        raise AssertionError(f"key and segment kernels launched "
+                             f"{launches['voxel_keys']} / "
+                             f"{launches['voxel_mean']} times")
 
-    # the kernel alone, on the slot table of the serving run's own call
-    (kpts, knv), kkw = call
-    kkw = dict(kkw)
-    kT = kkw.pop("max_points")
-    cell, tab = slot_table(kpts, knv, **kkw)
-    B, P, C = kpts.shape
-    fns = {"ms": lambda: voxel_mean.mean_from_table(kpts, cell, tab, kT),
-           "plain_ms": lambda: voxel_mean.mean_from_table_plain(
-               kpts, cell, tab, kT)}
+    # the served call as the fused_mean path made it, and the pillar-sized
+    # scan: the key route against the table route
+    (spts, snv), skw = call
+    skw = {k: v for k, v in skw.items() if k != "first_appearance"}
+    shapes = {"served SECOND request": (spts, snv, skw),
+              "pillar-sized scan": cases[1][1:]}
+    times = {}
+    for what, (pts, nv, kw) in shapes.items():
+        t = times[what] = k5_times(pts, nv, kw)
+        B, P, C = pts.shape
+        t["needed_bytes"], t["bound_ms"] = k5_bound(B, P, C,
+                                                    kw["max_voxels"])
+        log(f"K5 voxel_mean [{card}]: {what} B={B} P={P} C={C} "
+            f"V={kw['max_voxels']} T={kw['max_points']}: function (key "
+            f"route) {t['function_ms']:.5f} ms device, "
+            f"{t['function_launches']:.0f} device events a call "
+            f"[{t['function_kernels']}]; key kernel {t['keys_ms']:.5f}, "
+            f"segment kernel {t['segment_ms']:.5f}, torch.sort alone "
+            f"{t['sort_ms']:.5f} ({t['sort_launches']:.0f} events); table "
+            f"route (slot_table + table kernel) "
+            f"{t['table_route_ms']:.5f} ({t['table_route_launches']:.0f} "
+            f"events, its kernel {t['table_kernel_ms']:.5f}); "
+            f"first_appearance=True {t['first_appearance_ms']:.5f} "
+            f"({t['first_appearance_launches']:.0f} events); bound without "
+            f"the sort {t['bound_ms']:.5f} ms ({t['needed_bytes']} bytes)")
+    served = times["served SECOND request"]
+    B, P, C = spts.shape
+    plain_kw = {k: skw[k] for k in ("grid_size", "max_points", "max_voxels")}
+    geo = {k: skw[k] for k in ("voxel_size", "pc_range", "grid_size")}
+    srt = torch.sort(voxel_mean.point_keys(spts, snv, **geo), dim=1).values
+    out = voxel_mean.FusedVoxelMeanResult(
+        torch.empty((B, skw["max_voxels"], C), device="cuda"),
+        *(torch.empty(shape, dtype=torch.int32, device="cuda")
+          for shape in ((B, skw["max_voxels"], 3), (B, skw["max_voxels"]),
+                        (B,))))
+    state = torch.empty((B, voxel_mean.scan_words(P)), dtype=torch.int32,
+                        device="cuda")
+
+    def two_kernels():
+        """The function without its sort, as the function calls them."""
+        voxel_mean.point_keys(spts, snv, fill=out, tile_state=state, **geo)
+        voxel_mean.segment_mean(spts, srt, outputs=out, tile_state=state,
+                                **plain_kw)
+
+    def two_plain():
+        voxel_mean.point_keys_plain(spts, snv, **geo)
+        voxel_mean.segment_mean_plain(spts, srt, **plain_kw)
+
+    fns = {"ms": two_kernels, "plain_ms": two_plain}
     ev = {k: cuda_ms(fn) for k, fn in fns.items()}
-    kept = int(tab.count.clamp(max=kT).sum())
-    occupied = int((tab.count > 0).sum())
-    slots = B * tab.start.shape[1]
-    # what the function needs: start/count of every slot, an index (4 B)
-    # and the row of every kept point; features, coords and counts written
-    nbytes = slots * 8 + kept * (4 + 4 * C) + slots * (4 * C + 12 + 4)
-    # what this kernel moves beyond that: int64 order entries (torch.sort
-    # gives them) and the head point's cell from a separate int32 array
-    moved = nbytes + kept * 4 + occupied * 12
-    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"K5 voxel_mean [{card}]: kernel alone on the serving table: B={B} "
-        f"P={P} C={C} V={tab.start.shape[1]} T={kT}, {occupied} occupied "
-        f"slots, {kept} kept points; events: kernel {fmt_range(ev['ms'])}, "
-        f"plain (gather [V,T,C] + SimpleVoxel) {fmt_range(ev['plain_ms'])}; "
-        f"bound {bound_ms:.5f} ms ({nbytes} bytes needed; the kernel moves "
-        f"{moved}, {moved / nbytes - 1:.1%} more): far under a launch, the "
-        f"kernel is launch-bound")
-    # the whole input stage, fused against unfused
-    g = geo(cfg)
-    simple = SimpleVoxel(C)
-
-    def unfused():
-        vox = voxelize(pts, nv, max_points=T, max_voxels=V,
-                       first_appearance=False, **g)
-        return simple(vox.voxels, vox.num_points)
-
-    stage = {"fused_call": lambda: voxel_mean.fused_voxelize_mean(
-                 pts, nv, max_points=T, max_voxels=V, first_appearance=False,
-                 **g),
-             "unfused_call": unfused}
-    stage_ev = {k: cuda_ms(fn) for k, fn in stage.items()}
-    log(f"K5 voxel_mean [{card}]: whole input stage, events: "
-        f"fused_voxelize_mean {fmt_range(stage_ev['fused_call'])}, voxelize "
-        f"+ SimpleVoxel {fmt_range(stage_ev['unfused_call'])}")
+    ev["function"] = cuda_ms(lambda: voxel_mean.fused_voxelize_mean(
+        spts, snv, first_appearance=False, **skw))
+    log(f"K5 voxel_mean [{card}]: served request, events: key + segment "
+        f"kernels {fmt_range(ev['ms'])}, their plain mirrors "
+        f"{fmt_range(ev['plain_ms'])}, the function "
+        f"{fmt_range(ev['function'])}")
     entry = {"name": "voxel_mean", "route": "cuda",
              "source": "automatic_as_built_reconstruction_tpu_torch/csrc/"
                        "voxel_mean.cu",
              "replaces": "automatic_as_built_reconstruction_tpu/ops/pallas/"
                          "voxel_mean.py:80",
-             "launches": launches, "max_abs_err": worst,
-             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
-             "needed_bytes": nbytes, "moved_bytes": moved,
-             # as csrc/voxel_mean.cu launches it
-             "grid": [-(-tab.start.shape[1] * C // 256) * B, 256],
-             "fused_call_event_ms": stage_ev["fused_call"],
-             "unfused_call_event_ms": stage_ev["unfused_call"]}
-    return entry, fns, ev, stage
+             "launches": launches["voxel_mean"],
+             "keys_launches": launches["voxel_keys"],
+             "table_route_launches_on_paths": launches["voxel_mean_table"],
+             "max_abs_err": worst,
+             "bound_ms": served["bound_ms"], "bound_by": "bytes",
+             "bound_counts": "the key route without the sort",
+             "library_ms": None,
+             "keys_ms": served["keys_ms"],
+             "segment_ms": served["segment_ms"],
+             "sort_ms": served["sort_ms"],
+             "function_ms": served["function_ms"],
+             "function_launches": served["function_launches"],
+             "function_event_ms": ev["function"],
+             "by_shape": times,
+             # the segment kernel's grid, as csrc/voxel_mean.cu launches it
+             "grid": [-(-P // voxel_mean.SEGMENT_TILE) * B,
+                      voxel_mean.SEGMENT_TILE]}
+    return entry, fns, ev
 
 
 def check_flat_pfn(pod, request, card: str) -> None:
     """The flat pillar path (voxelize_flat -> point-major PFN -> scatter
     kernel) against the padded one on one served request: the canvas and
-    the head outputs."""
+    the head outputs, the flat path's equal bit for bit over two runs."""
     cfg = pod.cfg
     pts = torch.as_tensor(request[0], device="cuda")
     nv = torch.as_tensor(request[1], device="cuda")
@@ -1206,21 +1446,29 @@ def check_flat_pfn(pod, request, card: str) -> None:
               max_voxels=pod.max_voxels, first_appearance=False)
     flat = voxelize_flat(pts, nv, **kw)
     vox = voxelize(pts, nv, **kw)
-    preds_f, st_f = pod.model(None, flat.num_points, flat.coords,
-                              flat_points=flat.points, flat_slot=flat.slot,
-                              return_stages=True)
-    preds_p, st_p = pod.model(vox.voxels, vox.num_points, vox.coords,
-                              return_stages=True)
+    with fp32_math():
+        runs = [pod.model(None, flat.num_points, flat.coords,
+                          flat_points=flat.points, flat_slot=flat.slot,
+                          return_stages=True) for _ in range(2)]
+        preds_p, st_p = pod.model(vox.voxels, vox.num_points, vox.coords,
+                                  return_stages=True)
     torch.cuda.synchronize()
+    (preds_f, st_f), (preds_f2, st_f2) = runs
+    if not (torch.equal(st_f["spatial_features"], st_f2["spatial_features"])
+            and all(torch.equal(preds_f[k], preds_f2[k]) for k in preds_f)):
+        raise AssertionError("flat PFN: two runs differ")
     pairs = [("canvas", st_f["spatial_features"], st_p["spatial_features"])]
     pairs += [(k, preds_f[k], preds_p[k]) for k in preds_p]
     errs = {name: float((a - b).abs().max()) for name, a, b in pairs}
+    within_cpu = {name: bool(torch.allclose(a, b, **FLAT_CPU_TOL))
+                  for name, a, b in pairs}
     over = int((vox.num_points == pod.max_points_per_voxel).sum())
     log(f"flat PFN [{card}]: flat vs padded path on one request "
         f"({int(flat.num_voxels.sum())} pillars, {over} at the point cap, "
-        f"{int((flat.slot == pod.max_voxels).sum())} dump rows): max abs "
-        f"diff {errs}, canvas values up to "
-        f"{float(st_p['spatial_features'].abs().max()):.3g} (tolerance "
+        f"{int((flat.slot == pod.max_voxels).sum())} dump rows): the flat "
+        f"path equal bit for bit over two runs; max abs diff {errs}, canvas "
+        f"values up to {float(st_p['spatial_features'].abs().max()):.3g}; "
+        f"within the CPU test's {FLAT_CPU_TOL}: {within_cpu} (held to "
         f"{FLAT_TOL})")
     for name, a, b in pairs:
         if not torch.allclose(a, b, **FLAT_TOL):
@@ -1234,11 +1482,17 @@ def run_evaluate(card: str) -> dict:
     for fn in KERNELS.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    result = evaluate(CONFIG, CHECKPOINT, device="cuda", measure_time=True)
+    with flags_in_modules() as seen:
+        result = evaluate(CONFIG, CHECKPOINT, device="cuda",
+                          measure_time=True)
     wall = time.perf_counter() - t0
+    if seen != {(False, False)}:
+        raise AssertionError(f"evaluate: the network ran with TF32 flags "
+                             f"{sorted(seen)}")
     launches = {name: fn.launches for name, fn in KERNELS.items()}
     log(f"evaluate [{card}]: 32 val scenes in {wall:.1f} s (host reader, "
-        f"refinement and AP included); launches {launches}")
+        f"refinement and AP included; every module saw TF32 off); "
+        f"launches {launches}")
     log("evaluate AP: " + json.dumps(result))
     if sorted(result) != sorted(JAX_EVAL_AP):
         raise AssertionError(f"evaluate: keys {sorted(result)}")
@@ -1295,7 +1549,7 @@ def main() -> int:
         check_flat_pfn(pod, requests[0], card)
         k5 = phase_k5(second["fm_calls"]["voxel_mean"][0],
                       second["requests"], requests[0], pod.cfg,
-                      second["pod"].cfg, total["voxel_mean"], card)
+                      second["pod"].cfg, total, card)
         phases = [phase_k1(k1_call, total["pillar_scatter"], card),
                   phase_k2(k2_call, second["km_calls"]["rotated_iou"][0],
                            total["rotated_iou"], card),
@@ -1305,7 +1559,7 @@ def main() -> int:
                   phase_sparse_gemm("gather_gemm",
                                     second["gg_calls"]["gather_gemm"],
                                     total["gather_gemm"], card),
-                  k5[:3]]
+                  k5]
         # last: the profiler's tracing slows later launches down.  Each
         # time in the kernels line is device time, with the event times
         # (median, min, max) beside it under *_event_ms.
@@ -1323,9 +1577,6 @@ def main() -> int:
             entry["ms_from"] = ("torch.profiler device time" if measured
                                 else "cuda events (median)")
             kernels.append(entry)
-        for key, fn in k5[3].items():
-            dev = device_time(f"voxel_mean {key}", card, fn)
-            kernels[-1][key + "_ms"] = dev
         launch_bound = [e for e in kernels
                         if e["name"] in ("pillar_scatter", "voxel_mean")]
         floors = launch_floor(empty_kernel, card, {

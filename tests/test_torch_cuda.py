@@ -302,9 +302,10 @@ def test_sparse_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 # K5: fused voxelize + mean
 # --------------------------------------------------------------------------
 
-def _scans(P, n_valid, extent, seed, C=4):
+def _scans(P, n_valid, extent, seed, voxel_size, C=4):
     """[B, P, C] points over ``extent`` (with a crowded cell, points out
-    of range and junk in the padding) + num_valid."""
+    of range, points on cell faces, NaN coordinates and junk in the
+    padding) + num_valid."""
     g = torch.Generator().manual_seed(seed)
     lo = torch.tensor(extent[:3])
     hi = torch.tensor(extent[3:])
@@ -312,6 +313,14 @@ def _scans(P, n_valid, extent, seed, C=4):
     pts = torch.rand(B, P, C, generator=g)
     pts[..., :3] = lo - 1 + pts[..., :3] * (hi - lo + 2)
     pts[:, : P // 10, :3] = lo + torch.rand(B, P // 10, 3, generator=g) * 0.3
+    # faces: (p - r0) / vs a whole number
+    n = P // 20
+    cells = torch.floor(torch.rand(B, n, 3, generator=g)
+                        * ((hi - lo) / torch.tensor(voxel_size) + 1))
+    pts[:, P // 10: P // 10 + n, :3] = lo + cells * torch.tensor(voxel_size)
+    pts[:, 0, :3] = math.nan       # cell (0, 0, 0), in range, first there
+    pts[:, 1:4, 0] = math.nan
+    pts[:, 4, 1] = math.inf
     return pts, torch.tensor(n_valid, dtype=torch.int32)
 
 
@@ -326,52 +335,108 @@ K5_CASES = {
                     voxel_size=(0.1, 0.1, 4.0),
                     pc_range=(0, 0, -0.5, 16, 16, 3.5),
                     grid_size=(160, 160, 1)),
+    # B = 4 pillar-sized scans: 4 x 175 segment blocks of 512 threads,
+    # more than the card holds at once (132 SMs x 4), so tiles wait on
+    # tiles of blocks that started in another wave
+    "pillars_b4": dict(P=89297, n_valid=(89297, 63336, 89297, 40000),
+                       V=25600, T=24, voxel_size=(0.1, 0.1, 4.0),
+                       pc_range=(0, 0, -0.5, 16, 16, 3.5),
+                       grid_size=(160, 160, 1)),
     # the voxel cap below the occupied cells
     "truncated": dict(P=18000, n_valid=(18000, 9000), V=500, T=5,
                       voxel_size=(0.5, 0.5, 0.5),
                       pc_range=(0, -8, -2, 16, 8, 2), grid_size=(32, 32, 8)),
+    # runs longer than a tile's halo (the crowded cell holds ~1800)
+    "t64": dict(P=18000, n_valid=(18000, 9000), V=6000, T=64,
+                voxel_size=(0.5, 0.5, 0.5), pc_range=(0, -8, -2, 16, 8, 2),
+                grid_size=(32, 32, 8)),
     "t1": dict(P=18000, n_valid=(18000, 9000), V=6000, T=1,
                voxel_size=(0.5, 0.5, 0.5), pc_range=(0, -8, -2, 16, 8, 2),
                grid_size=(32, 32, 8)),
+    # more slots than points, P not a multiple of any block size
+    "v_over_p": dict(P=3001, n_valid=(3001, 2000), V=4096, T=5,
+                     voxel_size=(0.2, 0.2, 0.2),
+                     pc_range=(0, -8, -2, 16, 8, 2), grid_size=(80, 80, 20)),
     "empty": dict(P=4096, n_valid=(0, 0), V=256, T=4,
                   voxel_size=(0.5, 0.5, 0.5), pc_range=(0, -8, -2, 16, 8, 2),
                   grid_size=(32, 32, 8)),
 }
+K5_COUNTERS = (voxel_mean.point_keys, voxel_mean.segment_mean,
+               voxel_mean.mean_from_table)
+
+
+def _launches():
+    return [fn.launches for fn in K5_COUNTERS]
+
+
+def _same_floats(a, b) -> bool:
+    """Equal bit for bit, NaN where the other is NaN."""
+    nan = torch.isnan(a)
+    return bool(torch.equal(nan, torch.isnan(b))
+                and torch.equal(a[~nan], b[~nan]))
 
 
 @pytest.mark.parametrize("first_appearance", [True, False],
                          ids=["first_appearance", "key_order"])
 @pytest.mark.parametrize("case", list(K5_CASES))
 def test_voxel_mean_kernel_equals_plain(cuda, case, first_appearance):
-    """Integers exact; features rtol 1e-6 + atol 1e-6 (the kernel adds in
-    t order, torch.sum in its own)."""
+    """Both routes against the plain function: integers exact, features
+    rtol 1e-6 + atol 1e-6 (the kernels add in t order, torch.sum in its
+    own), NaN where a voxel holds one.  The key route's kernels against
+    their own plain mirrors (keys exact, the segment kernel bit for bit)
+    and against the table route (bit for bit)."""
     k = dict(K5_CASES[case])
-    pts, nv = _scans(k.pop("P"), k.pop("n_valid"), k["pc_range"], seed=1)
+    pts, nv = _scans(k.pop("P"), k.pop("n_valid"), k["pc_range"], 1,
+                     k["voxel_size"])
     kw = dict(max_points=k.pop("T"), max_voxels=k.pop("V"),
               first_appearance=first_appearance, **k)
     pts, nv = pts.to(cuda), nv.to(cuda)
-    before = voxel_mean.mean_from_table.launches
+    before = _launches()
     got = voxel_mean.fused_voxelize_mean(pts, nv, **kw)
-    assert voxel_mean.mean_from_table.launches == before + 1
+    per_call = [0, 0, 1] if first_appearance else [1, 1, 0]
+    assert [a - b for a, b in zip(_launches(), before)] == per_call
     ref = voxel_mean.fused_voxelize_mean_plain(pts, nv, **kw)
     torch.cuda.synchronize()
-    assert voxel_mean.mean_from_table.launches == before + 1
     assert torch.equal(got.coords, ref.coords)
     assert torch.equal(got.num_points, ref.num_points)
     assert torch.equal(got.num_voxels, ref.num_voxels)
-    assert torch.allclose(got.features, ref.features, rtol=1e-6, atol=1e-6)
+    assert torch.allclose(got.features, ref.features, rtol=1e-6, atol=1e-6,
+                          equal_nan=True)
     assert bool((got.features[got.num_points == 0] == 0).all())
     if case == "empty":
         assert int(got.num_voxels.sum()) == 0
     else:
         assert int(got.num_voxels.min()) > 100
         assert int(got.num_points.max()) == kw["max_points"]
+        assert bool(torch.isnan(got.features).any())
     if case == "truncated":
         assert got.num_voxels.tolist() == [500, 500]
+    if case == "v_over_p":
+        assert int(got.num_voxels.max()) < kw["max_voxels"]
     # the CPU run of the same request: the same integers
     cpu = voxel_mean.fused_voxelize_mean(pts.cpu(), nv.cpu(), **kw)
     assert torch.equal(got.coords.cpu(), cpu.coords)
     assert torch.equal(got.num_points.cpu(), cpu.num_points)
+    if first_appearance:
+        return
+    geo = dict(voxel_size=k["voxel_size"], pc_range=k["pc_range"],
+               grid_size=k["grid_size"])
+    keys = voxel_mean.point_keys(pts, nv, **geo)
+    assert torch.equal(keys, voxel_mean.point_keys_plain(pts, nv, **geo))
+    srt = torch.sort(keys, dim=1).values
+    seg_kw = dict(grid_size=k["grid_size"], max_points=kw["max_points"],
+                  max_voxels=kw["max_voxels"])
+    seg = voxel_mean.segment_mean(pts, srt, **seg_kw)
+    plain = voxel_mean.segment_mean_plain(pts, srt, **seg_kw)
+    for name in ("coords", "num_points", "num_voxels"):
+        assert torch.equal(getattr(seg, name), getattr(plain, name))
+        assert torch.equal(getattr(seg, name), getattr(got, name))
+    assert _same_floats(seg.features, plain.features)
+    assert _same_floats(seg.features, got.features)
+    cell, tab = voxel_mean.slot_table(pts, nv, max_voxels=kw["max_voxels"],
+                                      first_appearance=False, **geo)
+    table = voxel_mean.mean_from_table(pts, cell, tab, kw["max_points"])
+    assert _same_floats(table.features, got.features)
 
 
 def test_voxel_mean_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -381,10 +446,108 @@ def test_voxel_mean_wrapper_refuses_what_the_kernel_does_not_take(cuda):
               grid_size=k["grid_size"])
     pts = torch.zeros(1, 64, 4, device=cuda)
     nv = torch.tensor([64], dtype=torch.int32, device=cuda)
-    with pytest.raises(TypeError):          # fp64 points
-        voxel_mean.fused_voxelize_mean(pts.double(), nv, **kw)
-    with pytest.raises(ValueError):         # num_valid on another device
-        voxel_mean.fused_voxelize_mean(pts, nv.cpu(), **kw)
-    with pytest.raises(ValueError):         # no batch axis
-        voxel_mean.fused_voxelize_mean(pts[0], nv, **kw)
+    for fa in (True, False):
+        with pytest.raises(TypeError):          # fp64 points
+            voxel_mean.fused_voxelize_mean(pts.double(), nv,
+                                           first_appearance=fa, **kw)
+        with pytest.raises(ValueError):         # num_valid on another device
+            voxel_mean.fused_voxelize_mean(pts, nv.cpu(),
+                                           first_appearance=fa, **kw)
+        with pytest.raises(ValueError):         # no batch axis
+            voxel_mean.fused_voxelize_mean(pts[0], nv, first_appearance=fa,
+                                           **kw)
+        with pytest.raises(ValueError):         # 2^31 cells: no int32 key
+            voxel_mean.fused_voxelize_mean(
+                pts, nv, first_appearance=fa,
+                **(kw | {"grid_size": (2**16, 2**15, 1)}))
+    with pytest.raises(ValueError):             # keys not int64
+        voxel_mean.segment_mean(pts, nv[:, None].expand(1, 64),
+                                grid_size=kw["grid_size"], max_points=4,
+                                max_voxels=16)
     torch.cuda.synchronize()
+
+
+# --------------------------------------------------------------------------
+# the entry points as a caller gets them
+# --------------------------------------------------------------------------
+
+def test_serving_from_the_default_flags_is_fp32(cuda):
+    """One pillar and one SECOND request served from the process's
+    default flags (cuDNN TF32 on): every module of the network sees TF32
+    off inside ``heads()`` and ``__call__``, heads within HEAD_TOL of the
+    CPU run, and the caller's flags the same afterwards."""
+    from automatic_as_built_reconstruction_tpu_torch.data.building import (
+        generate_building_scene, pad_batch)
+    from automatic_as_built_reconstruction_tpu_torch.data.kitti_like import (
+        make_scene)
+    from automatic_as_built_reconstruction_tpu_torch.parallel import (
+        pod_inference_from_checkpoint)
+
+    def flags():
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32)
+
+    default = flags()
+    assert default[0]              # PyTorch's default: TF32 convolutions
+    pillar = dict(config_path=chip_smoke.CONFIG,
+                  checkpoint_pkl=chip_smoke.CHECKPOINT,
+                  max_voxels=chip_smoke.MAX_VOXELS,
+                  max_points_per_voxel=chip_smoke.MAX_POINTS)
+    second = dict(config_path=chip_smoke.SECOND_CONFIG, checkpoint_pkl=None,
+                  seed=chip_smoke.SECOND_SEED,
+                  max_voxels=chip_smoke.SECOND_MAX_VOXELS,
+                  max_points_per_voxel=chip_smoke.SECOND_MAX_POINTS,
+                  voxelization="fused_mean")
+    for kw, request in (
+            (pillar, pad_batch([generate_building_scene(s) for s in (0, 1)])),
+            (second, pad_batch([make_scene(s) for s in (1000, 1001)]))):
+        gpu = pod_inference_from_checkpoint(device="cuda", **kw)
+        with chip_smoke.flags_in_modules() as seen:
+            got = {k: v.float().cpu()
+                   for k, v in gpu.heads(*request).items()}
+            assert flags() == default
+            out = gpu(*request)
+            assert flags() == default
+        assert seen == {(False, False)}
+        cpu = pod_inference_from_checkpoint(device="cpu", **kw)
+        ref = cpu.heads(*request)
+        for name in ref:
+            assert torch.allclose(got[name], ref[name],
+                                  **chip_smoke.HEAD_TOL), name
+        assert out["valid"].any()
+
+
+def test_flat_pfn_is_the_same_bits_on_every_run(cuda):
+    """The flat pillar path on a served request: canvas and heads equal
+    bit for bit over three runs."""
+    from automatic_as_built_reconstruction_tpu_torch.data.building import (
+        generate_building_scene, pad_batch)
+    from automatic_as_built_reconstruction_tpu_torch.device import fp32_math
+    from automatic_as_built_reconstruction_tpu_torch.ops.voxelize import (
+        voxelize_flat)
+    from automatic_as_built_reconstruction_tpu_torch.parallel import (
+        pod_inference_from_checkpoint)
+
+    pod = pod_inference_from_checkpoint(
+        chip_smoke.CONFIG, chip_smoke.CHECKPOINT, device="cuda",
+        max_voxels=chip_smoke.MAX_VOXELS,
+        max_points_per_voxel=chip_smoke.MAX_POINTS)
+    pts, nv = (torch.as_tensor(a, device=cuda) for a in
+               pad_batch([generate_building_scene(s) for s in (0, 1)]))
+    cfg = pod.cfg
+    flat = voxelize_flat(pts, nv, voxel_size=cfg.voxel_size,
+                         pc_range=cfg.pc_range, grid_size=cfg.grid_size,
+                         max_points=pod.max_points_per_voxel,
+                         max_voxels=pod.max_voxels)
+    runs = []
+    with torch.no_grad(), fp32_math():
+        for _ in range(3):
+            preds, stages = pod.model(None, flat.num_points, flat.coords,
+                                      flat_points=flat.points,
+                                      flat_slot=flat.slot,
+                                      return_stages=True)
+            runs.append({"canvas": stages["spatial_features"], **preds})
+    torch.cuda.synchronize()
+    for again in runs[1:]:
+        for name, t in runs[0].items():
+            assert torch.equal(t, again[name]), name

@@ -41,6 +41,7 @@ import automatic_as_built_reconstruction_tpu_torch.utils.eval
 import chip_smoke
 import rotated_iou_ablation
 import sparse_gemm_ablation
+import voxel_mean_ablation
 bad = sorted(m for m in sys.modules
              if m in ("jax", "flax", "optax", "jaxlib", "google.protobuf")
              or m == "automatic_as_built_reconstruction_tpu"

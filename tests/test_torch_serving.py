@@ -11,6 +11,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from automatic_as_built_reconstruction_tpu.data import building as jax_building
 from automatic_as_built_reconstruction_tpu.models.voxelnet import VoxelNet
@@ -154,6 +155,42 @@ def test_dynamic_serving_matches_jax(second_twin):
     got = _second_pod(path, variables, "dynamic")(pts, nv)
     assert_same_detections(got, ref, jcfg.num_class)
     assert (got["valid"].sum(-1) > 3).all()
+
+
+def _tf32_flags():
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@pytest.mark.parametrize("model", ["pillars", "second"])
+def test_entry_points_run_the_network_with_tf32_off(second_twin, model):
+    """Inside ``heads()`` and ``__call__`` every module of the network
+    sees cuDNN and matmul TF32 off, though the caller turned both on; the
+    caller's flags are the same afterwards."""
+    if model == "pillars":
+        net, tcfg, anchors = build_from_config(
+            PORT_CFG / "asbuilt_pillars_tiny.config")
+        pod = PodInference(net, tcfg, anchors, device="cpu")
+        request = pad_batch([generate_building_scene(s) for s in (0, 1)])
+    else:
+        path, _, _, variables, request = second_twin
+        pod = _second_pod(path, variables, "fused_mean")
+    caller = _tf32_flags()
+    seen = set()
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(
+        lambda *_: seen.add(_tf32_flags()))
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        pod.heads(*request)
+        out = pod(*request)
+        assert _tf32_flags() == (True, True)
+    finally:
+        hook.remove()
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = caller
+    assert seen == {(False, False)}
+    assert set(out) >= {"box3d_lidar", "valid"}
 
 
 @pytest.mark.parametrize("voxelization", ["dynamic", "fused_mean"])
