@@ -1,8 +1,10 @@
 """Input reader config message -> (PrepDataset, BatchLoader), as the JAX
 package's ``builder/input_reader_builder.py::build`` does, for the
-evaluation reader of ``BuildingDataset`` configs.  The training reader
-(database sampler, buckets, host rulebooks) and ``KittiDataset`` are not
-ported yet."""
+training and evaluation readers of ``BuildingDataset`` configs: 256
+synthetic training scenes (seed 0), shuffled, repeated, the last partial
+batch dropped; 32 val scenes (seed 7) in order, once.  The ground-truth
+database sampler, bucketed shapes, host rulebooks and ``KittiDataset``
+are not ported and raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import functools
@@ -77,14 +79,18 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
     """Returns (PrepDataset, BatchLoader).  ``middle_plan`` (host rulebook
     precompute) must be None: key-match and device-built rulebooks need
     none, and host rulebooks are not ported."""
-    if training:
-        raise NotImplementedError("the training reader is not ported yet")
     if middle_plan is not None:
         raise NotImplementedError("host-built rulebooks are not ported")
     class_names = list(as_list(input_cfg.get("class_names")))
     dataset = _build_dataset(input_cfg.get("dataset", {}), class_names,
                              training)
     pp = input_cfg.get("preprocess", {})
+    if training and pp.get("database_sampler", {}).get(
+            "database_info_path"):
+        raise NotImplementedError("the ground-truth database sampler is not "
+                                  "ported")
+    if training and as_list(pp.get("static_shape_buckets")):
+        raise NotImplementedError("bucketed static shapes are not ported")
     prep_cfg = _prep_config(pp, class_names or ["Car"], out_size_factor=1)
 
     # anchor cache: computed once for the fixed feature map

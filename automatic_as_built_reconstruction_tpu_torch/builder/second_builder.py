@@ -1,6 +1,6 @@
 """``model.second`` config message -> (VoxelNet, VoxelNetConfig, feature
 map size), as the JAX package's ``builder/second_builder.py::build`` does
-for the fields the serving paths read."""
+for the fields serving and the loss read."""
 from __future__ import annotations
 
 import math
@@ -8,6 +8,7 @@ from typing import Tuple
 
 from ..models import middle_plans
 from ..models.voxelnet import VoxelNet, VoxelNetConfig
+from . import losses_builder
 from .config_io import as_list, f32
 
 
@@ -52,6 +53,7 @@ def build_config(model_cfg: dict, voxel_grid, target_assigner
     vfe = model_cfg.get("voxel_feature_extractor", {})
     mid = model_cfg.get("middle_feature_extractor", {})
     rpn = model_cfg.get("rpn", {})
+    loss = losses_builder.build(model_cfg.get("loss", {}))
 
     grid_size = tuple(int(g) for g in voxel_grid.grid_size)
     middle_name = mid.get("module_class_name") or ""
@@ -117,6 +119,19 @@ def build_config(model_cfg: dict, voxel_grid, target_assigner
             model_cfg.get("use_direction_classifier", False)),
         num_direction_bins=int(model_cfg.get("num_direction_bins", 0)) or 2,
         direction_offset=f32(model_cfg.get("direction_offset", 0.0)),
+        encode_rad_error_by_sin=bool(
+            model_cfg.get("encode_rad_error_by_sin", False)),
+        sin_error_factor=f32(model_cfg.get("sin_error_factor", 0.0)) or 1.0,
+        cls_weight=loss.cls_weight,
+        loc_weight=loss.loc_weight,
+        dir_weight=f32(model_cfg.get("direction_loss_weight", 0.0)) or 0.2,
+        pos_cls_weight=f32(model_cfg.get("pos_class_weight", 0.0)) or 1.0,
+        neg_cls_weight=f32(model_cfg.get("neg_class_weight", 0.0)) or 1.0,
+        focal_gamma=loss.focal_gamma,
+        focal_alpha=loss.focal_alpha,
+        smooth_l1_sigma=loss.smooth_l1_sigma,
+        code_weights=loss.code_weights,
+        loss_norm_type=model_cfg.get("loss_norm_type") or "NormByNumPositives",
         use_yaw_quality_head=bool(
             model_cfg.get("use_yaw_quality_head", False)),
         nms_center_suppress_radius=f32(

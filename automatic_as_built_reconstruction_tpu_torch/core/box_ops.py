@@ -1,17 +1,24 @@
-"""Host box math on NumPy arrays: what serving and evaluation need.
+"""Host box math on NumPy arrays: what serving, evaluation and the
+training reader need.
 
 Conventions (SECOND lineage): 3D boxes are ``[x, y, z, w, l, h, yaw]`` in
 the LiDAR frame with ``(x, y, z)`` the bottom centre; yaw rotates
 counter-clockwise about +z.  BEV boxes are ``[x, y, w, l, yaw]``.  Corner
 order from :func:`corners_nd` follows a ring: for 2D ``(-,-), (-,+),
 (+,+), (+,-)`` scaled by dims.  Formula for formula the same as the JAX
-package's ``core/box_ops.py`` (parity is tested exactly).  The residual
-box coders live in ``ops/box_ops.py`` (torch); the camera and image
+package's ``core/box_ops.py`` (parity is tested exactly): the numpy
+residual encodings the box coders use (``second_box_encode`` /
+``_decode``, ``bev_box_encode`` / ``_decode``), the axis-aligned
+``iou_2d`` of the nearest-IoU similarity and the gt filters of the
+training branch.  ``points_in_rbbox`` runs its numpy arithmetic as
+torch CPU ops (the same bits, on every core).  The torch decode
+``predict`` runs is in ``ops/box_ops.py``; the camera and image
 functions wait for the KITTI dataset.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def limit_period(val, offset: float = 0.5, period: float = np.pi):
@@ -132,35 +139,146 @@ def rbbox2d_to_near_bbox(rbboxes: np.ndarray) -> np.ndarray:
     return np.concatenate([centers - dims / 2, centers + dims / 2], axis=-1)
 
 
+def second_box_encode(boxes: np.ndarray, anchors: np.ndarray,
+                      encode_angle_to_vector: bool = False,
+                      smooth_dim: bool = False) -> np.ndarray:
+    """Encode gt boxes [N,7] against anchors [N,7] -> residuals.
+
+    Residuals: dx,dy normalized by the anchor BEV diagonal; dz by anchor
+    height (after shifting z to box center); sizes log-ratio (or smooth
+    ratio-1); yaw as difference or (cos,sin) vector difference.
+    """
+    xa, ya, za, wa, la, ha, ra = np.split(anchors, 7, axis=-1)
+    xg, yg, zg, wg, lg, hg, rg = np.split(boxes, 7, axis=-1)
+    diagonal = np.sqrt(la**2 + wa**2)
+    zg = zg + hg / 2
+    za = za + ha / 2
+    xt = (xg - xa) / diagonal
+    yt = (yg - ya) / diagonal
+    zt = (zg - za) / ha
+    if smooth_dim:
+        lt = lg / la - 1
+        wt = wg / wa - 1
+        ht = hg / ha - 1
+    else:
+        lt = np.log(lg / la)
+        wt = np.log(wg / wa)
+        ht = np.log(hg / ha)
+    if encode_angle_to_vector:
+        rgx, rgy = np.cos(rg), np.sin(rg)
+        rax, ray = np.cos(ra), np.sin(ra)
+        rtx = rgx - rax
+        rty = rgy - ray
+        return np.concatenate([xt, yt, zt, wt, lt, ht, rtx, rty], axis=-1)
+    rt = rg - ra
+    return np.concatenate([xt, yt, zt, wt, lt, ht, rt], axis=-1)
+
+
+def second_box_decode(encodings: np.ndarray, anchors: np.ndarray,
+                      encode_angle_to_vector: bool = False,
+                      smooth_dim: bool = False) -> np.ndarray:
+    """Inverse of :func:`second_box_encode` -> boxes [N,7]."""
+    xa, ya, za, wa, la, ha, ra = np.split(anchors, 7, axis=-1)
+    if encode_angle_to_vector:
+        xt, yt, zt, wt, lt, ht, rtx, rty = np.split(encodings, 8, axis=-1)
+    else:
+        xt, yt, zt, wt, lt, ht, rt = np.split(encodings, 7, axis=-1)
+    diagonal = np.sqrt(la**2 + wa**2)
+    za = za + ha / 2
+    xg = xt * diagonal + xa
+    yg = yt * diagonal + ya
+    zg = zt * ha + za
+    if smooth_dim:
+        lg = (lt + 1) * la
+        wg = (wt + 1) * wa
+        hg = (ht + 1) * ha
+    else:
+        lg = np.exp(lt) * la
+        wg = np.exp(wt) * wa
+        hg = np.exp(ht) * ha
+    if encode_angle_to_vector:
+        rax, ray = np.cos(ra), np.sin(ra)
+        rg = np.arctan2(rty + ray, rtx + rax)
+    else:
+        rg = rt + ra
+    zg = zg - hg / 2
+    return np.concatenate([xg, yg, zg, wg, lg, hg, rg], axis=-1)
+
+
+def bev_box_encode(boxes: np.ndarray, anchors: np.ndarray,
+                   encode_angle_to_vector: bool = False,
+                   smooth_dim: bool = False) -> np.ndarray:
+    """Encode BEV boxes [N,5] (x,y,w,l,yaw) against BEV anchors [N,5]."""
+    xa, ya, wa, la, ra = np.split(anchors, 5, axis=-1)
+    xg, yg, wg, lg, rg = np.split(boxes, 5, axis=-1)
+    diagonal = np.sqrt(la**2 + wa**2)
+    xt = (xg - xa) / diagonal
+    yt = (yg - ya) / diagonal
+    if smooth_dim:
+        lt = lg / la - 1
+        wt = wg / wa - 1
+    else:
+        lt = np.log(lg / la)
+        wt = np.log(wg / wa)
+    if encode_angle_to_vector:
+        rtx = np.cos(rg) - np.cos(ra)
+        rty = np.sin(rg) - np.sin(ra)
+        return np.concatenate([xt, yt, wt, lt, rtx, rty], axis=-1)
+    return np.concatenate([xt, yt, wt, lt, rg - ra], axis=-1)
+
+
+def bev_box_decode(encodings: np.ndarray, anchors: np.ndarray,
+                   encode_angle_to_vector: bool = False,
+                   smooth_dim: bool = False) -> np.ndarray:
+    xa, ya, wa, la, ra = np.split(anchors, 5, axis=-1)
+    if encode_angle_to_vector:
+        xt, yt, wt, lt, rtx, rty = np.split(encodings, 6, axis=-1)
+    else:
+        xt, yt, wt, lt, rt = np.split(encodings, 5, axis=-1)
+    diagonal = np.sqrt(la**2 + wa**2)
+    xg = xt * diagonal + xa
+    yg = yt * diagonal + ya
+    if smooth_dim:
+        lg = (lt + 1) * la
+        wg = (wt + 1) * wa
+    else:
+        lg = np.exp(lt) * la
+        wg = np.exp(wt) * wa
+    if encode_angle_to_vector:
+        rg = np.arctan2(rty + np.sin(ra), rtx + np.cos(ra))
+    else:
+        rg = rt + ra
+    return np.concatenate([xg, yg, wg, lg, rg], axis=-1)
+
+
 def points_in_rbbox(points: np.ndarray, rbbox: np.ndarray,
                     origin=(0.5, 0.5, 0.0)) -> np.ndarray:
     """Boolean [P, N] membership of points in rotated 3D boxes [N,7].
 
     Implemented by inverse-transforming points into each box frame (exact and
-    fully vectorized), in the precision of its inputs.
+    fully vectorized), in the precision of its inputs: numpy's promotion
+    and the reference's arithmetic, op for op, run as torch CPU ops on
+    every core (the same bits as numpy: one rounding an op, no fused
+    multiply-add).  ``evaluate``'s point refinement tests a whole scan
+    against ~94 yaw hypotheses a detection.
     """
-    points = np.asarray(points)[:, :3]
     rbbox = np.atleast_2d(rbbox)
-    centers = rbbox[:, :3]
-    dims = rbbox[:, 3:6]
-    yaw = rbbox[:, 6]
     # shift origin to box center
     origin = np.asarray(origin, dtype=rbbox.dtype)
-    center_shift = (0.5 - origin) * dims
-    true_centers = centers + center_shift  # rotation-frame origin offset
+    true_centers = rbbox[:, :3] + (0.5 - origin) * rbbox[:, 3:6]
+    c, s = np.cos(-rbbox[:, 6]), np.sin(-rbbox[:, 6])
+    half = rbbox[:, 3:6] / 2
+    t = torch.from_numpy
+    pts = t(np.ascontiguousarray(np.asarray(points)[:, :3]))
     # local = R(-yaw) @ (p - c)
-    d = points[None, :, :] - true_centers[:, None, :]  # [N, P, 3]
-    c, s = np.cos(-yaw), np.sin(-yaw)
-    lx = d[..., 0] * c[:, None] - d[..., 1] * s[:, None]
-    ly = d[..., 0] * s[:, None] + d[..., 1] * c[:, None]
-    lz = d[..., 2]
-    half = dims / 2
-    inside = (
-        (np.abs(lx) <= half[:, 0:1])
-        & (np.abs(ly) <= half[:, 1:2])
-        & (np.abs(lz) <= half[:, 2:3])
-    )
-    return inside.T  # [P, N]
+    d = pts[None, :, :] - t(true_centers)[:, None, :]  # [N, P, 3]
+    c, s = t(c)[:, None], t(s)[:, None]
+    lx = d[..., 0] * c - d[..., 1] * s
+    ly = d[..., 0] * s + d[..., 1] * c
+    half = t(half)
+    inside = ((lx.abs() <= half[:, 0:1]) & (ly.abs() <= half[:, 1:2])
+              & (d[..., 2].abs() <= half[:, 2:3]))
+    return inside.T.numpy()  # [P, N]
 
 
 def _dense_anchor_grid(x_centers, y_centers, z_centers, sizes, rotations,
@@ -247,6 +365,31 @@ def fused_get_anchors_area(dense_map: np.ndarray, anchors_bv: np.ndarray,
     # inclusive box sum on the padded SAT
     return (sat[y2 + 1, x2 + 1] - sat[y1, x2 + 1]
             - sat[y2 + 1, x1] + sat[y1, x1])
+
+
+def iou_2d(boxes: np.ndarray, query_boxes: np.ndarray,
+           add1: bool = False) -> np.ndarray:
+    """Axis-aligned IoU between [N,4] and [K,4] (x1,y1,x2,y2) -> [N,K]."""
+    a = 1.0 if add1 else 0.0
+    area_q = (query_boxes[:, 2] - query_boxes[:, 0] + a) * (
+        query_boxes[:, 3] - query_boxes[:, 1] + a)
+    area_b = (boxes[:, 2] - boxes[:, 0] + a) * (boxes[:, 3] - boxes[:, 1] + a)
+    iw = np.minimum(boxes[:, None, 2], query_boxes[None, :, 2]) - np.maximum(
+        boxes[:, None, 0], query_boxes[None, :, 0]) + a
+    ih = np.minimum(boxes[:, None, 3], query_boxes[None, :, 3]) - np.maximum(
+        boxes[:, None, 1], query_boxes[None, :, 1]) + a
+    iw = np.clip(iw, 0, None)
+    ih = np.clip(ih, 0, None)
+    inter = iw * ih
+    union = area_b[:, None] + area_q[None, :] - inter
+    return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
+
+
+def filter_gt_box_outside_range(gt_boxes, limit_range):
+    """Keep boxes whose BEV center lies inside [x0,y0,x1,y1]."""
+    bev = gt_boxes[:, [0, 1]]
+    return ((bev >= np.asarray(limit_range[:2])).all(axis=1)
+            & (bev <= np.asarray(limit_range[2:])).all(axis=1))
 
 
 def remove_points_outside_range(points, pc_range):

@@ -3,14 +3,13 @@ enumeration) that the evaluation uses.
 
 The port's copy of the JAX package's ``core/geometry.py``:
 ``rotated_box_intersection_area``, ``rotate_iou_matrix`` and
-``d3_box_overlap``.  All NumPy, the same formulas in the same order, so the
-results equal the reference's numpy path exactly.  (The reference's
-``d3_box_overlap`` takes a float32 C++ kernel where its native library
-built; this copy keeps to the numpy polygon clip, in the precision of its
-inputs.)  The convex-polygon point tests have no caller in the port
-(``box_ops.points_in_rbbox`` transforms points into the box frame) and
-``box_collision_test`` belongs to the training augmentation: neither is
-ported.
+``d3_box_overlap``, and the separating-axis ``box_collision_test`` of the
+per-object noise augmentation.  All NumPy, the same formulas in the same
+order, so the results equal the reference's numpy path exactly.  (The
+reference's ``d3_box_overlap`` and ``box_collision_test`` take a float32
+C++ kernel where its native library built; this copy keeps to the numpy
+forms.)  The convex-polygon point tests have no caller in the port
+(``box_ops.points_in_rbbox`` transforms points into the box frame).
 """
 from __future__ import annotations
 
@@ -89,20 +88,26 @@ def rotated_box_intersection_area(box_a: np.ndarray, box_b: np.ndarray) -> float
 
 
 def _may_touch(bev_a: np.ndarray, bev_b: np.ndarray) -> np.ndarray:
-    """[N,5] vs [K,5] -> [N,K] bool: False only where the boxes'
-    circumscribed circles are apart, so that the clip finds no point and
-    the overlap is exactly 0 (those pairs skip the clip).  A box without
-    area stays True against everything: its quad is degenerate and the
-    clip's point tests then count every corner of the other box as
-    inside, which the result has to keep."""
+    """[N,5] vs [K,5] -> [N,K] bool: False where the boxes' circumscribed
+    circles are apart, so that the clip finds no point and the overlap is
+    exactly 0 (those pairs skip the clip), and where either box has a
+    non-finite value (an untrained box head's ``exp`` of a size residual
+    gives infinite sizes: the clip then finds no point either, at several
+    times a finite pair's cost; a NaN box, whose overlap the clip makes
+    NaN or 0, gets 0, which matches nothing either way).  A finite box
+    without area stays True against everything: its quad is degenerate
+    and the clip's point tests then count every corner of the other box
+    as inside, which the result has to keep."""
     ra = 0.5 * np.hypot(bev_a[:, 2], bev_a[:, 3])
     rb = 0.5 * np.hypot(bev_b[:, 2], bev_b[:, 3])
     dist = np.hypot(bev_a[:, None, 0] - bev_b[None, :, 0],
                     bev_a[:, None, 1] - bev_b[None, :, 1])
     flat_a = ~(bev_a[:, 2] * bev_a[:, 3] > 0)
     flat_b = ~(bev_b[:, 2] * bev_b[:, 3] > 0)
-    return (~(dist > ra[:, None] + rb[None, :] + 1e-6)
-            | flat_a[:, None] | flat_b[None, :])
+    finite = (np.isfinite(bev_a).all(1)[:, None]
+              & np.isfinite(bev_b).all(1)[None, :])
+    return finite & (~(dist > ra[:, None] + rb[None, :] + 1e-6)
+                     | flat_a[:, None] | flat_b[None, :])
 
 
 def rotate_iou_matrix(boxes: np.ndarray, query_boxes: np.ndarray,
@@ -158,3 +163,36 @@ def d3_box_overlap(boxes, qboxes, criterion: int = -1) -> np.ndarray:
                 denom = vb
             out[i, j] = inter3d / max(denom, 1e-12)
     return out
+
+
+def box_collision_test(boxes: np.ndarray, qboxes: np.ndarray) -> np.ndarray:
+    """[N,5] vs [K,5] BEV boxes -> [N,K] bool overlap (any contact).
+
+    Separating-axis test over both boxes' edge normals — exact for convex
+    quads and fully vectorized (the lineage used corner-in-box + segment
+    intersection loops), in float64 whatever the inputs' precision.
+    """
+    ca = _box_to_corners(np.asarray(boxes, np.float64))    # [N,4,2]
+    cb = _box_to_corners(np.asarray(qboxes, np.float64))   # [K,4,2]
+
+    def axes_of(c):
+        e = np.roll(c, -1, axis=1) - c  # [M,4,2]
+        normals = np.stack([-e[..., 1], e[..., 0]], axis=-1)
+        return normals  # [M,4,2]
+
+    ax_a = axes_of(ca)
+    ax_b = axes_of(cb)
+    # SAT: for each pair (i,j) and each of 8 candidate axes, the boxes are
+    # disjoint iff some axis separates their projection intervals.
+    n, k = len(ca), len(cb)
+    if n == 0 or k == 0:
+        return np.zeros((n, k), dtype=bool)
+    # axes: [N,K,8,2] = A's 4 axes broadcast + B's 4 axes broadcast
+    axes = np.concatenate([
+        np.broadcast_to(ax_a[:, None], (n, k, 4, 2)),
+        np.broadcast_to(ax_b[None, :], (n, k, 4, 2)),
+    ], axis=2)
+    pa = np.einsum("nvd,nkad->nkav", ca, axes)  # [N,K,8,4]
+    pb = np.einsum("kvd,nkad->nkav", cb, axes)
+    sep = (pa.max(-1) < pb.min(-1) - 1e-12) | (pb.max(-1) < pa.min(-1) - 1e-12)
+    return ~sep.any(axis=2)

@@ -1,13 +1,18 @@
 """The per-sample prep path: sensor data -> static-shape example.
 
-The port's copy of the JAX package's ``data/preprocess.py`` in its
-inference branch: point shuffle -> host voxelization -> (key sort) ->
-padding to the static capacities (max_voxels / max_points_per_voxel, so
-that batches stack into fixed-shape buffers; validity is carried in counts
-and -1 coords) -> anchors (cached) -> anchor mask (BEV density integral
-image).  The training branch (gt filtering, database sampling, noise,
-flips, target assignment) and host-built sparse rulebooks come with the
-training slice and raise ``NotImplementedError`` until then.
+The port's copy of the JAX package's ``data/preprocess.py``.  One function
+(:func:`prep_pointcloud`) does, in order: (training) gt class filter ->
+``min_points_in_gt`` -> point dropping in gt boxes -> frustum dropout ->
+per-object noise -> global flip / rotation / scaling / translation ->
+range filter -> yaw wrap; then point shuffle -> host voxelization -> (key
+sort) -> padding to the static capacities (max_voxels /
+max_points_per_voxel, so that batches stack into fixed-shape buffers;
+validity is carried in counts and -1 coords) -> anchors (cached) ->
+anchor mask (BEV density integral image) -> (training) target
+assignment.  Every rng call is the reference's, in its order, so one
+seed gives the reference's example.  The ground-truth database sampler
+and host-built sparse rulebooks are not ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 
-from ..core import box_ops
+from ..core import augment, box_ops
+from ..core.target_assign import TargetAssigner
 from ..core.voxelize import VoxelGenerator
 
 
@@ -51,10 +57,9 @@ class PrepConfig:
     out_size_factor: int = 2
 
 
-
 def prep_pointcloud(input_dict: dict,
                     voxel_generator: VoxelGenerator,
-                    target_assigner,
+                    target_assigner: TargetAssigner,
                     prep_cfg: PrepConfig,
                     training: bool,
                     anchor_cache: Optional[dict] = None,
@@ -67,15 +72,72 @@ def prep_pointcloud(input_dict: dict,
     ``voxels`` [V, T, C], ``num_points`` [V], ``coordinates`` [V, 3]
     (z, y, x; -1 padding), ``num_voxels``, ``anchors`` [A, 7], and, where
     present or configured, ``metadata``, ``calib`` and ``anchors_mask``.
+    With ``training`` also ``labels`` [A], ``reg_targets`` [A, code],
+    ``importance`` [A], ``gt_boxes`` [G, 7] and ``gt_names`` [G].
     """
-    if training:
-        raise NotImplementedError(
-            "prep_pointcloud(training=True) (augmentation, database "
-            "sampling, target assignment) is not ported yet")
+    if db_sampler is not None:
+        raise NotImplementedError("the ground-truth database sampler is not "
+                                  "ported")
     if middle_plan is not None or middle_plan_buckets is not None:
         raise NotImplementedError("host-built rulebooks are not ported")
     rng = rng or np.random.default_rng()
     points = np.array(input_dict["lidar"]["points"], np.float32, copy=True)
+    class_names = list(prep_cfg.class_names)
+
+    gt_boxes = gt_names = gt_classes = None
+    if training:
+        annos = input_dict["annotations"]
+        gt_boxes = np.asarray(annos["boxes"], np.float32).reshape(-1, 7).copy()
+        gt_names = np.asarray(annos["names"]).reshape(-1)
+
+        # keep known classes
+        selected = np.array(
+            [i for i, n in enumerate(gt_names) if n in class_names
+             or not prep_cfg.remove_unknown], dtype=np.int64)
+        gt_boxes, gt_names = gt_boxes[selected], gt_names[selected]
+
+        if prep_cfg.min_points_in_gt > 0 and len(gt_boxes):
+            counts = box_ops.points_in_rbbox(points, gt_boxes).sum(0)
+            keep = counts >= prep_cfg.min_points_in_gt
+            gt_boxes, gt_names = gt_boxes[keep], gt_names[keep]
+
+        if prep_cfg.gt_points_drop_percentage > 0:
+            points = augment.drop_points_in_gt(
+                points, gt_boxes, prep_cfg.gt_points_drop_percentage,
+                prep_cfg.gt_drop_max_keep_points, rng=rng)
+        if prep_cfg.frustum_dropout_prob > 0:
+            points = augment.frustum_dropout(
+                points, prep_cfg.frustum_dropout_prob,
+                prep_cfg.frustum_dropout_azimuth_width, rng=rng)
+        if (np.any(np.asarray(prep_cfg.gt_loc_noise_std) > 0)
+                or np.any(np.asarray(prep_cfg.gt_rotation_noise) != 0)):
+            augment.noise_per_object(
+                gt_boxes, points,
+                rotation_perturb=prep_cfg.gt_rotation_noise,
+                center_noise_std=prep_cfg.gt_loc_noise_std, rng=rng)
+        gt_boxes, points, _ = augment.random_flip(
+            gt_boxes, points, flip_x=prep_cfg.random_flip_x,
+            flip_y=prep_cfg.random_flip_y, rng=rng)
+        gt_boxes, points, _ = augment.global_rotation(
+            gt_boxes, points, prep_cfg.global_rotation_noise, rng=rng)
+        gt_boxes, points, _ = augment.global_scaling(
+            gt_boxes, points, prep_cfg.global_scaling_noise, rng=rng)
+        augment.global_translate(
+            gt_boxes, points, prep_cfg.global_translate_noise_std, rng=rng)
+
+        pc_range = np.asarray(voxel_generator.point_cloud_range)
+        mask = box_ops.filter_gt_box_outside_range(
+            gt_boxes, [pc_range[0], pc_range[1], pc_range[3], pc_range[4]])
+        gt_boxes, gt_names = gt_boxes[mask], gt_names[mask]
+        gt_boxes[:, 6] = box_ops.limit_period(
+            gt_boxes[:, 6], offset=0.5,
+            period=(np.pi if prep_cfg.symmetric_yaw else 2 * np.pi))
+        gt_classes = np.array(
+            [class_names.index(n) + 1 if n in class_names else -1
+             for n in gt_names], dtype=np.int32)
+        keep = gt_classes > 0
+        gt_boxes, gt_names, gt_classes = (
+            gt_boxes[keep], gt_names[keep], gt_classes[keep])
 
     if prep_cfg.shuffle_points:
         points = points[rng.permutation(len(points))]
@@ -115,12 +177,16 @@ def prep_pointcloud(input_dict: dict,
     if anchor_cache is not None:
         anchors = anchor_cache["anchors"]
         anchors_bv = anchor_cache["anchors_bv"]
+        matched_thresholds = anchor_cache["matched_thresholds"]
+        unmatched_thresholds = anchor_cache["unmatched_thresholds"]
     else:
         if feature_map_size is None:
             raise ValueError("prep_pointcloud needs an anchor_cache or a "
                              "feature_map_size")
         ret = target_assigner.generate_anchors(feature_map_size)
         anchors = ret["anchors"].reshape(-1, 7).astype(np.float32)
+        matched_thresholds = ret["matched_thresholds"]
+        unmatched_thresholds = ret["unmatched_thresholds"]
         anchors_bv = box_ops.rbbox2d_to_near_bbox(
             anchors[:, [0, 1, 3, 4, 6]])
     example["anchors"] = anchors
@@ -135,4 +201,16 @@ def prep_pointcloud(input_dict: dict,
             voxel_generator.point_cloud_range, grid_size)
         anchors_mask = (area > prep_cfg.anchor_area_threshold)
         example["anchors_mask"] = anchors_mask
+
+    if training:
+        targets = target_assigner.assign(
+            anchors, gt_boxes, anchors_mask=anchors_mask,
+            gt_classes=gt_classes,
+            matched_thresholds=matched_thresholds,
+            unmatched_thresholds=unmatched_thresholds)
+        example["labels"] = targets["labels"]
+        example["reg_targets"] = targets["bbox_targets"]
+        example["importance"] = targets["bbox_outside_weights"]
+        example["gt_boxes"] = gt_boxes
+        example["gt_names"] = gt_names
     return example

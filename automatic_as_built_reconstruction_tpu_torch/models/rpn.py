@@ -15,11 +15,11 @@ from typing import Dict, Sequence
 import torch
 from torch import nn
 
-from .pointpillars import BN_EPS, BN_MOMENTUM
+from .pointpillars import BN_EPS, BN_MOMENTUM, FlaxBatchNorm2d
 
 
 def _bn(ch: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
+    return FlaxBatchNorm2d(ch, eps=BN_EPS, momentum=BN_MOMENTUM)
 
 
 def conv_block(in_ch: int, filters: int, layers: int,

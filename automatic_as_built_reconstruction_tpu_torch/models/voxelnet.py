@@ -5,7 +5,7 @@ The port of the JAX package's ``models/voxelnet.py``: its own copy of
 ``VoxelNetConfig`` (the fields the serving paths read), the ``VoxelNet``
 pillar branch (PillarFeatureNet -> PointPillarsScatter -> RPN) and sparse
 branch (SimpleVoxel -> SparseMiddle -> RPN), ``num_middle_blocks``,
-``middle_plan`` and ``predict`` (:452).  Training (``compute_loss``), the
+``middle_plan``, ``compute_loss`` (:364) and ``predict`` (:452).  The
 other VFEs, ``DenseMiddle``, host rulebooks, bfloat16 compute, the
 yaw-quality head, ``PillarFeatureNetRadius``, ``with_distance``,
 fractional upsample strides, softmax class scores
@@ -24,6 +24,7 @@ from torch import nn
 
 from ..ops import box_ops, nms
 from ..ops import sparse_conv as sc
+from . import losses as losses_mod
 from .middle import SparseMiddle
 from .pointpillars import PillarFeatureNet, PointPillarsScatter
 from .rpn import RPN
@@ -69,8 +70,8 @@ def middle_plan(cfg: "VoxelNetConfig", v_cap: int):
 @dataclasses.dataclass(frozen=True)
 class VoxelNetConfig:
     """Static model config: the fields of the JAX package's
-    ``VoxelNetConfig`` that the serving paths read (same names, same
-    defaults)."""
+    ``VoxelNetConfig`` that serving and ``compute_loss`` read (same names,
+    same defaults)."""
 
     num_class: int = 1
     # VFE
@@ -106,7 +107,20 @@ class VoxelNetConfig:
     use_direction_classifier: bool = True
     num_direction_bins: int = 2
     direction_offset: float = 0.0
+    encode_rad_error_by_sin: bool = True
+    sin_error_factor: float = 1.0
+    # losses
+    cls_weight: float = 1.0
+    loc_weight: float = 2.0
+    dir_weight: float = 0.2
     use_yaw_quality_head: bool = False
+    pos_cls_weight: float = 1.0
+    neg_cls_weight: float = 1.0
+    focal_gamma: float = 2.0
+    focal_alpha: float = 0.25
+    smooth_l1_sigma: float = 3.0
+    code_weights: Optional[Tuple[float, ...]] = None
+    loss_norm_type: str = "NormByNumPositives"
     nms_center_suppress_radius: float = 0.0
     # host-side post-NMS point-evidence pose refinement (class indices,
     # 0-based; core/point_refine.py): ``evaluate`` applies it, the serving
@@ -267,6 +281,61 @@ def flatten_preds(preds: Dict[str, torch.Tensor], cfg: VoxelNetConfig):
             "cls_preds": flat(preds["cls_preds"], cfg.num_class),
             "dir_cls_preds": flat(preds["dir_cls_preds"],
                                   cfg.num_direction_bins)}
+
+
+def compute_loss(preds: Dict[str, torch.Tensor],
+                 example: Dict[str, torch.Tensor], cfg: VoxelNetConfig
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Total loss + per-term metrics (``loss_cls``, ``loss_loc``,
+    ``loss_dir``, ``loss``), as the JAX package's ``compute_loss``.
+
+    example: labels [B,A] int, reg_targets [B,A,code], anchors [B,A,7].
+    """
+    if cfg.use_yaw_quality_head:
+        raise NotImplementedError("the yaw-quality loss is not ported")
+    _refuse_unported_heads(cfg)
+    p = flatten_preds(preds, cfg)
+    labels = example["labels"]
+    reg_targets = example["reg_targets"]
+    B = labels.shape[0]
+
+    cls_weights, reg_weights, cared = losses_mod.prepare_loss_weights(
+        labels, cfg.pos_cls_weight, cfg.neg_cls_weight, cfg.loss_norm_type)
+
+    # classification: one-hot with the background column dropped
+    cls_targets = torch.where(cared, labels, torch.zeros_like(labels))
+    one_hot = torch.nn.functional.one_hot(
+        cls_targets.long(), cfg.num_class + 1).to(p["cls_preds"].dtype)
+    one_hot = one_hot[..., 1:]
+    focal = losses_mod.SigmoidFocalClassificationLoss(
+        gamma=cfg.focal_gamma, alpha=cfg.focal_alpha)
+    cls_loss = focal(p["cls_preds"], one_hot, cls_weights).sum() / B
+
+    # localization: sin-difference on yaw
+    box_preds = p["box_preds"]
+    if cfg.encode_rad_error_by_sin:
+        box_preds_s, reg_targets_s = box_ops.add_sin_difference(
+            box_preds, reg_targets)
+    else:
+        box_preds_s, reg_targets_s = box_preds, reg_targets
+    smooth_l1 = losses_mod.WeightedSmoothL1LocalizationLoss(
+        sigma=cfg.smooth_l1_sigma, code_weights=cfg.code_weights)
+    loc_loss = smooth_l1(box_preds_s, reg_targets_s, reg_weights).sum() / B
+
+    dir_targets = box_ops.get_direction_target(
+        example["anchors"], reg_targets, cfg.direction_offset,
+        cfg.num_direction_bins)
+    dir_one_hot = torch.nn.functional.one_hot(
+        dir_targets, cfg.num_direction_bins).to(p["dir_cls_preds"].dtype)
+    dir_w = (labels > 0).to(box_preds.dtype)
+    dir_w = dir_w / torch.clamp_min(dir_w.sum(-1, keepdim=True), 1.0)
+    dir_loss = losses_mod.WeightedSoftmaxClassificationLoss()(
+        p["dir_cls_preds"], dir_one_hot, dir_w).sum() / B
+
+    total = (cfg.cls_weight * cls_loss + cfg.loc_weight * loc_loss
+             + cfg.dir_weight * dir_loss)
+    return total, {"loss_cls": cls_loss, "loss_loc": loc_loss,
+                   "loss_dir": dir_loss, "loss": total}
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

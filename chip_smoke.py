@@ -38,9 +38,27 @@
    ``asbuilt_pillars.config`` with the trained checkpoint (host reader,
    network and ``predict`` on the card, point refinement, AP) and holds
    every AP to the value the JAX package's ``evaluate`` gives;
-6. holds each kernel against its plain PyTorch version on the card, on
-   the inputs the serving runs gave it (for the pillar scatter also with
-   the rows shuffled; for the rotated IoU the pillar and SECOND inputs, a
+6. trains ``asbuilt_pillars.config`` at full width through ``train()``
+   (60 steps of a one-cycle run from seeded weights, B = 2, into a
+   temporary model directory; grad on in its own scope), the counters set
+   to 0 just before and read just after (K1's scatter and its backward,
+   the gather kernel, once a step each); reports steps/s, the loss of
+   each 10-step window, the host prep of a batch against the device step
+   (CUDA events on one batch) and a profile of one step (busy share, top
+   kernels, events); checks that the loss is finite and its last window
+   below its first, that the network ran with TF32 off, and that one step
+   on the card matches the port's CPU step from the same weights and
+   batch (loss terms, every gradient, the parameters after the update and
+   the BatchNorm statistics; every PFN gradient nonzero); runs
+   ``evaluate`` on the port's own checkpoint (AP printed, not held); and
+   restarts with a larger ``max_steps``, which must resume at the saved
+   step;
+7. holds each kernel against its plain PyTorch version on the card, on
+   the inputs the main paths gave it (for the pillar scatter also with
+   the rows shuffled, and its backward on the training step's canvas
+   gradient, shuffled and with negative ids, timed against its bound and
+   the scatter timed against zeros + ``index_copy_`` in alternation, 30
+   turns each; for the rotated IoU the pillar and SECOND inputs, a
    1000 x 1000 set with degenerate boxes and one of nearly touching pairs,
    each with the outputs equal bit for bit and the share of the pairs
    each of its rejection tests takes; for the two sparse GEMMs every join
@@ -58,10 +76,11 @@
    memsets and copies a call launches, the ``ms`` it reports), L2 flushed
    before each call; checks the flat pillar VFE path against the padded
    one on a served request, and that it gives the same bits twice;
-7. times an empty kernel (one block, and the grids of K1 and K5) as the
+8. times an empty kernel (one block, and the grids of K1 and K5) as the
    launch floor beside those two;
-8. prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
-   six main paths, ``launches_by_path`` each path's own count), the card's
+9. prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
+   seven main paths, ``launches_by_path`` each path's own count; K1's
+   entry carries its backward's ``backward_*`` numbers), the card's
    name and power limit as ``nvidia-smi`` reports them, and last
    ``{"ok": true, "device": ...}``.
 
@@ -71,12 +90,15 @@ phase fails.
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import dataclasses
+import functools
 import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
 from pathlib import Path
@@ -90,7 +112,7 @@ from automatic_as_built_reconstruction_tpu_torch.data.kitti_like import (
     make_scene)
 from automatic_as_built_reconstruction_tpu_torch.device import fp32_math
 from automatic_as_built_reconstruction_tpu_torch.models import (
-    middle, pointpillars)
+    middle, pointpillars, voxelnet as voxelnet_mod)
 from automatic_as_built_reconstruction_tpu_torch.models.voxelnet import (
     VoxelNet, middle_plan, predict)
 from automatic_as_built_reconstruction_tpu_torch.ops import (
@@ -101,6 +123,8 @@ from automatic_as_built_reconstruction_tpu_torch.parallel import (
     PodInference, inference, pod_inference_from_checkpoint)
 from automatic_as_built_reconstruction_tpu_torch.parallel.inference import (
     detections_mismatch)
+from automatic_as_built_reconstruction_tpu_torch.train import (
+    train as train_mod)
 from automatic_as_built_reconstruction_tpu_torch.train.train import evaluate
 
 ROOT = Path(__file__).resolve().parent
@@ -161,6 +185,25 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_TF32_3X_PER_S = 495e12 / 3
 L2_FLUSH_BYTES = 64 << 20        # > the H100's 50 MB L2
+# pillar training: steps of the one-cycle run from seeded weights, its
+# display window (the loss check compares the first and last windows),
+# and the steps the restart adds
+TRAIN_STEPS, TRAIN_DISPLAY, TRAIN_RESUME_STEPS = 60, 10, 5
+# one training step on the card against the port's CPU step from the same
+# weights and batch (train_step_mismatch says how each is held): loss
+# terms; gradients against a float64 step (the floor of the card's worst
+# error, as a share of a tensor's max |g|); the float64 steps of the two
+# devices; parameters after the update
+# and BatchNorm statistics, where an element whose gradient is near zero
+# (|g| < TRAIN_G_NOISE * max|g|) or differs between the devices by more
+# than TRAIN_G_AGREE of itself may take another Adam step (about
+# lr * g / |g|)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_ATOL_SHARE = 1e-3
+TRAIN_F64_RTOL = 1e-9
+TRAIN_PARAM_TOL = dict(rtol=1e-5, atol=1e-7)
+TRAIN_G_NOISE, TRAIN_G_AGREE = 1e-3, 1e-3
+K1_TURNS = 30                    # K1 against index_copy_, in alternation
 
 
 def log(msg: str) -> None:
@@ -353,6 +396,17 @@ def fmt_kernels(per_kernel: dict) -> str:
 
 
 @contextlib.contextmanager
+def substituted(module, name: str, fn):
+    """``module.name`` replaced by ``fn`` inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
 def recording(module, name: str, calls: list):
     """Record the arguments of every call to ``module.name``."""
     orig = getattr(module, name)
@@ -361,6 +415,10 @@ def recording(module, name: str, calls: list):
         calls.append((args, kwargs))
         return orig(*args, **kwargs)
 
+    # the wrapper shares the function's attributes: a kernel wrapper that
+    # counts its launches through its own module-level name still counts
+    # them on itself
+    rec.__dict__ = orig.__dict__
     setattr(module, name, rec)
     try:
         yield
@@ -372,10 +430,12 @@ def recording(module, name: str, calls: list):
 # serving
 # --------------------------------------------------------------------------
 
-# the port's kernel wrappers (K5 is three: its key route's key kernel and
+# the port's kernel wrappers (K1 is two: the scatter and, in training, its
+# backward, the gather; K5 is three: its key route's key kernel and
 # segment-and-mean kernel, and the first-appearance route's table kernel),
-# and where the serving path looks each kernel or function up
+# and where the main paths look each kernel or function up
 KERNELS = {"pillar_scatter": pillar_scatter.scatter_sorted_to_canvas,
+           "pillar_gather": pillar_scatter.pillar_gather,
            "rotated_iou": rotated_iou.rotate_iou_matrix,
            "keymatch_gemm": sparse_gather_gemm.keymatch_gemm,
            "gather_gemm": sparse_gather_gemm.gather_gemm,
@@ -383,6 +443,7 @@ KERNELS = {"pillar_scatter": pillar_scatter.scatter_sorted_to_canvas,
            "voxel_mean": voxel_mean.segment_mean,
            "voxel_mean_table": voxel_mean.mean_from_table}
 CALL_SITES = {"pillar_scatter": (pointpillars, "scatter_sorted_to_canvas"),
+              "pillar_gather": (pillar_scatter, "pillar_gather"),
               "rotated_iou": (nms, "rotate_iou_matrix"),
               "keymatch_gemm": (middle, "keymatch_gemm"),
               "gather_gemm": (middle, "gather_gemm"),
@@ -468,17 +529,18 @@ def stage_split_ms(pod, points, num_valid) -> dict:
             "decode_nms": (t3 - t2) * 1e3}
 
 
-def profile_request(what: str, pod, request, card: str,
-                    latency_ms: float) -> None:
-    """One request under torch.profiler: device busy time, its share of
-    the profiled wall time and of the unprofiled request latency, and the
-    kernels that take it."""
+def profile_call(what: str, call, card: str, latency_ms: float) -> dict:
+    """One ``call()`` under torch.profiler: device busy time, its share of
+    the profiled wall time and of the unprofiled latency, and the kernels
+    that take it.  -> {"wall_ms", "busy_ms", "busy_share", "events",
+    "top"}."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pod(*request)
+        call()
+        torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     per_kernel, n = {}, 0
     for e in prof.events():
@@ -487,12 +549,15 @@ def profile_request(what: str, pod, request, card: str,
             per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
                                   + e.time_range.elapsed_us() / 1e3)
     busy = sum(per_kernel.values())
-    log(f"{what} [{card}]: profiled request: wall {wall_ms:.3f} ms, device "
+    top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10])
+    log(f"{what} [{card}]: profiled call: wall {wall_ms:.3f} ms, device "
         f"busy {busy:.3f} ms ({100 * busy / wall_ms:.1f} % of the profiled "
         f"wall, idle {100 - 100 * busy / wall_ms:.1f} %; "
         f"{100 * busy / latency_ms:.1f} % of the unprofiled median "
         f"latency {latency_ms:.3f} ms), {n} device events; top: "
-        f"{fmt_kernels(dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:10]))}")
+        f"{fmt_kernels(top)}")
+    return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
+            "events": n, "top": top}
 
 
 def serve(card: str):
@@ -762,9 +827,36 @@ def serve_second(card: str):
 # kernels vs plain versions
 # --------------------------------------------------------------------------
 
-def phase_k1(call, launches: int, card: str):
+def k1_in_turns(kernel, library) -> dict:
+    """K1 and its library yardstick timed in alternation (kernel, library,
+    library, kernel, ...), K1_TURNS of each, CUDA events around each call
+    with L2 flushed before it.  -> {"kernel": [median, min, max],
+    "library": [...]}."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for fn in (kernel, library, kernel, library):
+        fn()
+    times = {"kernel": [], "library": []}
+    order = ("kernel", "library", "library", "kernel")
+    for i in range(2 * K1_TURNS):
+        name = order[i % 4]
+        fn = kernel if name == "kernel" else library
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[name].append(start.elapsed_time(end))
+    return {k: [float(np.median(v)), min(v), max(v)]
+            for k, v in times.items()}
+
+
+def phase_k1(call, gather_call, launches: int, gather_launches: int,
+             card: str):
     """-> (kernels-line entry with event times, {key: fn} to time on the
-    device)."""
+    device).  The backward (the gather kernel) on the canvas gradient and
+    ids training gave it."""
     (feats, lin, hw), _ = call
     B, V, C = feats.shape
     got = pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw)
@@ -801,21 +893,63 @@ def phase_k1(call, launches: int, card: str):
 
     if not torch.equal(library().view(B, hw, C), ref):
         raise AssertionError("index_copy_ yardstick != plain version")
+
+    # the backward on the training step's canvas gradient and ids, and on
+    # the same with the rows shuffled and dropped ids in between
+    (dcanvas, glin), _ = gather_call
+    gB, ghw, gC = dcanvas.shape
+    gV = glin.shape[1]
+    gok = (glin >= 0) & (glin < ghw)
+    bad_ids = torch.where(torch.arange(gV, device=glin.device) % 7 == 0,
+                          -1 - torch.arange(gV, device=glin.device) % 3,
+                          glin)
+    gperm = torch.randperm(gV, device=glin.device,
+                           generator=torch.Generator(glin.device)
+                           .manual_seed(1))
+    for what, ids in (("training", glin),
+                      ("rows shuffled", glin[:, gperm].contiguous()),
+                      ("negative ids", bad_ids.int().contiguous())):
+        g = pillar_scatter.pillar_gather(dcanvas, ids)
+        r = pillar_scatter.pillar_gather_plain(dcanvas, ids)
+        torch.cuda.synchronize()
+        if not torch.equal(g, r):
+            raise AssertionError(f"pillar_gather kernel != plain ({what})")
+    grows = int(gok.sum())
+    log(f"K1 pillar_gather [{card}]: B={gB} V={gV} C={gC} hw={ghw}, "
+        f"{grows} valid rows: kernel == plain exactly on the training "
+        f"call, with the rows shuffled and with negative ids")
+
     fns = {"ms": lambda: pillar_scatter.scatter_sorted_to_canvas(
                feats, lin, hw),
            "plain_ms": lambda: pillar_scatter.scatter_sorted_to_canvas_plain(
                feats, lin, hw),
-           "library_ms": library}
+           "library_ms": library,
+           "backward_ms": lambda: pillar_scatter.pillar_gather(dcanvas,
+                                                              glin),
+           "backward_plain_ms": lambda: pillar_scatter.pillar_gather_plain(
+               dcanvas, glin)}
     ev = {k: cuda_ms(fn) for k, fn in fns.items()}
+    turns = k1_in_turns(fns["ms"], library)
     # bytes this data needs: the occupied rows' features, every id, the
     # whole canvas written once
     nbytes = rows * C * 4 + B * V * 4 + B * hw * C * 4
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    # the backward: the valid rows' cells read, every id, every row written
+    gbytes = grows * gC * 4 + gB * gV * 4 + gB * gV * gC * 4
+    gbound_ms = gbytes / PEAK_BYTES_PER_S * 1e3
     log(f"K1 pillar_scatter [{card}]: B={B} V={V} C={C} hw={hw}, "
         f"{rows} occupied rows; kernel == plain exactly; events: kernel "
         f"{fmt_range(ev['ms'])}, plain {fmt_range(ev['plain_ms'])}, "
         f"index_copy_ {fmt_range(ev['library_ms'])}; bound "
         f"{bound_ms:.5f} ms ({nbytes} bytes)")
+    log(f"K1 pillar_scatter [{card}]: in alternation, {K1_TURNS} turns "
+        f"each: kernel {fmt_range(turns['kernel'])}, zeros + index_copy_ "
+        f"{fmt_range(turns['library'])}")
+    log(f"K1 pillar_gather [{card}]: events: kernel "
+        f"{fmt_range(ev['backward_ms'])}, plain "
+        f"{fmt_range(ev['backward_plain_ms'])}; bound {gbound_ms:.5f} ms "
+        f"({gbytes} bytes); no single PyTorch call zeroes the dropped rows, "
+        f"so no library time")
     entry = {"name": "pillar_scatter", "route": "cuda",
              "source": "automatic_as_built_reconstruction_tpu_torch/csrc/"
                        "pillar_scatter.cu",
@@ -823,8 +957,14 @@ def phase_k1(call, launches: int, card: str):
                          "pillar_scatter.py:61",
              "launches": launches, "max_abs_err": 0.0,
              "bound_ms": bound_ms, "bound_by": "bytes",
+             "in_turns_event_ms": turns,
              # as csrc/pillar_scatter.cu launches it
-             "grid": [-(-B * V * (C // 4) // 256), 256]}
+             "grid": [-(-B * V * (C // 4) // 256), 256],
+             "backward_kernel": "pillar_gather_kernel",
+             "backward_launches": gather_launches,
+             "backward_max_abs_err": 0.0,
+             "backward_bound_ms": gbound_ms, "backward_bound_by": "bytes",
+             "backward_library_ms": None}
     return entry, fns, ev
 
 
@@ -1518,6 +1658,255 @@ def run_evaluate(card: str) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# pillar training
+# --------------------------------------------------------------------------
+
+def step_grads(bundle, state, example) -> tuple:
+    """Loss terms and gradients of one forward in train mode, the model's
+    state (BatchNorm statistics included) put back after.  -> ({term:
+    float}, {param name: grad on the host})."""
+    model = state.model.train()
+    saved = copy.deepcopy(model.state_dict())
+    names, params = zip(*model.named_parameters())
+    with fp32_math(), torch.enable_grad():
+        preds = model(example["voxels"], example["num_points"],
+                      example["coordinates"])
+        loss, terms = voxelnet_mod.compute_loss(preds, example,
+                                                bundle.model_cfg)
+        grads = torch.autograd.grad(loss, params)
+    model.load_state_dict(saved)
+    return ({k: float(v.detach()) for k, v in terms.items()},
+            {n: g.detach().cpu() for n, g in zip(names, grads)})
+
+
+def device_step(config, batch, dev: str, steps: int,
+                dtype=torch.float32) -> dict:
+    """From the seeded weights of ``train()`` (seed 0) on ``dev``: the loss
+    terms and gradients of ``batch``, and, in float32, the state after
+    one ``make_train_step`` (on the host) and the learning rate it took.
+    In float64 the model and batch are cast and the scatter must be the
+    plain version (the kernel is fp32): no update."""
+    bundle = train_mod.Bundle(config)
+    state = train_mod.init_state(bundle, rng_seed=0, total_steps=steps,
+                                 device=dev)
+    example = train_mod.to_device(batch, dev)
+    if dtype != torch.float32:
+        state.model.to(dtype)
+        example = {k: v.to(dtype) if v.is_floating_point() else v
+                   for k, v in example.items()}
+    terms, grads = step_grads(bundle, state, example)
+    out = {"terms": terms, "grads": grads}
+    if dtype == torch.float32:
+        train_mod.make_train_step(bundle)(state, example)
+        out["state"] = {k: v.cpu() for k, v in
+                        state.model.state_dict().items()}
+        out["lr"] = state.schedule(0)
+    return out
+
+
+def train_step_mismatch(config, batch, steps: int) -> tuple:
+    """One training step of ``config`` on the card and on the CPU from the
+    same seeded weights and the same batch.  -> (summary dict, first
+    mismatch or None).
+
+    Loss terms: TRAIN_LOSS_RTOL.  Gradients: at full width a float32
+    gradient of this network at its initial weights is itself off its
+    float64 value by up to ~14 % of the tensor's max |g| in the deepest
+    RPN blocks, in other tensors on each device and batch, so the two
+    float32 steps cannot agree to rounding.  Each side is held to a
+    float64 step instead: the float64 steps on the card and on the CPU
+    (the same code, the plain scatter) agree to TRAIN_F64_RTOL, and the
+    card's worst float32 error against it (over the tensors, as a share
+    of each tensor's max |g|) is at most twice the CPU's worst plus
+    TRAIN_GRAD_ATOL_SHARE.  Every PFN gradient is nonzero on the card.
+    After the AdamW update (the same map on both devices, held to optax
+    on the CPU) the parameters agree to TRAIN_PARAM_TOL where the two
+    float32 gradients agree to TRAIN_G_AGREE and |g| >= TRAIN_G_NOISE *
+    max|g|; elsewhere Adam's first step (about lr * g / |g|) may differ,
+    bounded by 2 * lr; BatchNorm statistics to TRAIN_PARAM_TOL."""
+    c32 = device_step(config, batch, "cpu", steps)
+    g32 = device_step(config, batch, "cuda", steps)
+    plain = pillar_scatter.scatter_sorted_to_canvas_plain
+    with substituted(pointpillars, "scatter_sorted_to_canvas", plain):
+        c64 = device_step(config, batch, "cpu", steps, torch.float64)
+        g64 = device_step(config, batch, "cuda", steps, torch.float64)
+    ct, gt = c32["terms"], g32["terms"]
+    summary = {"loss_cpu": ct["loss"], "loss_cuda": gt["loss"],
+               "terms_rel_err": {k: abs(gt[k] - ct[k]) / abs(ct[k])
+                                 for k in ct}}
+    bad = None
+    for k in ct:
+        if not abs(gt[k] - ct[k]) <= TRAIN_LOSS_RTOL * abs(ct[k]):
+            bad = bad or f"loss term {k}: card {gt[k]} vs CPU {ct[k]}"
+    gg = g32["grads"]
+    pfn = [n for n in gg if n.startswith("voxel_feature_extractor")]
+    summary["pfn_grad_min_abs_max"] = min(float(gg[n].abs().max())
+                                          for n in pfn)
+    per_tensor, f64_err = {}, 0.0
+    for n, truth in c64["grads"].items():
+        scale = float(truth.abs().max())
+        if not bool(gg[n].abs().max() > 0):
+            bad = bad or f"gradient of {n} is zero on the card"
+        d64 = float((g64["grads"][n] - truth).abs().max()) / scale
+        f64_err = max(f64_err, d64)
+        if not d64 <= TRAIN_F64_RTOL:
+            bad = bad or f"float64 gradient of {n}: card vs CPU {d64}"
+        per_tensor[n] = (
+            float((gg[n].double() - truth).abs().max()) / scale,
+            float((c32["grads"][n].double() - truth).abs().max()) / scale)
+    worst_card = max(e[0] for e in per_tensor.values())
+    worst_cpu = max(e[1] for e in per_tensor.values())
+    if not worst_card <= 2 * worst_cpu + TRAIN_GRAD_ATOL_SHARE:
+        bad = bad or (f"float32 gradients: the card's worst error "
+                      f"{worst_card:.3g} of a tensor's max|g| against "
+                      f"float64, the CPU's {worst_cpu:.3g}")
+    excused = 0
+    lr = c32["lr"]
+    for n, want in c32["state"].items():
+        got = g32["state"][n]
+        if not want.is_floating_point():
+            if not torch.equal(got, want):
+                bad = bad or f"{n}: {got} vs {want}"
+            continue
+        close = torch.isclose(got, want, **TRAIN_PARAM_TOL)
+        if n in gg:
+            gc = c32["grads"][n]
+            noise = (((gg[n] - gc).abs() > TRAIN_G_AGREE * gc.abs())
+                     | (gc.abs() < TRAIN_G_NOISE * gc.abs().max()))
+            excused += int((noise & ~close).sum())
+            close |= noise & ((got - want).abs() <= 2 * lr * 1.01)
+        if not bool(close.all()):
+            bad = bad or f"{n} after the update: max abs diff " \
+                         f"{float((got - want).abs().max())}"
+    summary["f64_card_vs_cpu_max_rel"] = f64_err
+    summary["f32_vs_f64_worst"] = {"card": worst_card, "cpu": worst_cpu}
+    summary["f32_vs_f64_by_tensor"] = {
+        n: {"card": e[0], "cpu": e[1]}
+        for n, e in sorted(per_tensor.items(),
+                           key=lambda kv: -max(kv[1]))[:4]}
+    summary["excused_params"] = excused
+    return summary, bad
+
+
+def train_pillars(card: str, config=CONFIG, steps: int = TRAIN_STEPS,
+                  display: int = TRAIN_DISPLAY,
+                  resume_steps: int = TRAIN_RESUME_STEPS) -> dict:
+    """The pillar training path: ``train()`` on ``config`` from seeded
+    weights into a temporary model directory, with every kernel counter
+    set to 0 just before and read just after; the loss check; the device
+    step timed on one batch (``main`` profiles one more at its end); one
+    step on the card against the port's CPU step; ``evaluate`` on the
+    port's own checkpoint; a restart that resumes.  Grad on in its own
+    scope.  -> {"launches", "calls", "report", "step": one more training
+    step on the timed batch, for the profile}."""
+    report = {}
+    with torch.enable_grad(), tempfile.TemporaryDirectory() as tmp:
+        model_dir = Path(tmp) / "pillars"
+        calls = {"pillar_scatter": [], "pillar_gather": []}
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            seen = stack.enter_context(flags_in_modules())
+            for name in calls:
+                module, attr = CALL_SITES[name]
+                stack.enter_context(recording(module, attr, calls[name]))
+            state = train_mod.train(config, model_dir, max_steps=steps,
+                                    display_step=display, device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {name: fn.launches for name, fn in KERNELS.items()}
+        log(f"pillar training [{card}]: {steps} steps of train() in "
+            f"{wall:.2f} s wall (Bundle, reader, seeded init and the final "
+            f"checkpoint included): {steps / wall:.3f} steps/s; launches "
+            f"{launches}")
+        want = dict.fromkeys(KERNELS, 0) | {"pillar_scatter": steps,
+                                            "pillar_gather": steps}
+        if launches != want or state.step != steps:
+            raise AssertionError(f"pillar training launched {launches} in "
+                                 f"{state.step} steps, expected {want}")
+        if seen != {(False, False)}:
+            raise AssertionError(f"pillar training: the network ran with "
+                                 f"TF32 flags {sorted(seen)}")
+        windows = [json.loads(line) for line in
+                   (model_dir / "metrics.jsonl").read_text().splitlines()]
+        windows = [w for w in windows if w["prefix"] == "train"]
+        keys = ("loss", "loss_cls", "loss_loc", "loss_dir", "grad_norm",
+                "num_pos", "steps_per_sec", "host_prep_ms", "feed_ms",
+                "step_ms")
+        for w in windows:
+            log(f"pillar training [{card}]: window to step {w['step']}: "
+                + json.dumps({k: round(w[k], 5) for k in keys}))
+        first, last = windows[0]["loss"], windows[-1]["loss"]
+        if not all(math.isfinite(w["loss"]) for w in windows):
+            raise AssertionError("pillar training: a loss is not finite")
+        if not last < first:
+            raise AssertionError(f"pillar training: mean loss of the last "
+                                 f"{display} steps {last} is not below the "
+                                 f"first {display} steps' {first}")
+        host_prep = float(np.median([w["host_prep_ms"] for w in windows]))
+        report.update(steps=steps, wall_s=wall, steps_per_sec=steps / wall,
+                      window_steps_per_sec=[w["steps_per_sec"]
+                                            for w in windows],
+                      loss_first_window=first, loss_last_window=last,
+                      host_prep_ms=host_prep,
+                      step_launch_ms=float(np.median(
+                          [w["step_ms"] for w in windows])))
+        log(f"pillar training [{card}]: mean loss of steps 1-{display} "
+            f"{first:.5f} -> steps {steps - display + 1}-{steps} {last:.5f}"
+            f" (falls); host prep of a batch (median of the windows) "
+            f"{host_prep:.2f} ms")
+
+        # the device step on one batch: CUDA events (synchronised); main()
+        # profiles one more at the end, with the serving paths (the
+        # profiler's tracing slows the launches after it)
+        bundle = train_mod.Bundle(config)
+        _, loader = bundle.input_reader(training=True, seed=1)
+        batch = next(iter(loader))
+        example = train_mod.to_device(batch, "cuda")
+        step_fn = train_mod.make_train_step(bundle)
+        ev = cuda_ms(lambda: step_fn(state, example), iters=10, warmup=2)
+        report.update(device_step_ms=ev,
+                      host_prep_share=host_prep / (host_prep + ev[0]))
+        log(f"pillar training [{card}]: device step (B=2, synchronised, "
+            f"events) {fmt_range(ev)}; host prep {host_prep:.2f} ms a "
+            f"batch = {100 * report['host_prep_share']:.1f} % of host prep "
+            f"+ device step")
+
+        summary, bad = train_step_mismatch(config, batch, steps)
+        log(f"pillar training [{card}]: one step on the card vs the port's "
+            f"CPU step (same seeded weights and batch): "
+            + json.dumps(summary))
+        if bad is not None:
+            raise AssertionError(f"train step, card vs CPU: {bad}")
+
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = evaluate(config, model_dir, device="cuda")
+        log(f"pillar training [{card}]: evaluate on the port's checkpoint "
+            f"(step {steps}) in {time.perf_counter() - t0:.1f} s, launches "
+            f"{ {n: fn.launches for n, fn in KERNELS.items()} }; AP (not "
+            f"held: {steps} steps from seeded weights): "
+            + json.dumps(result))
+        report["evaluate_ap"] = result
+
+        state2 = train_mod.train(config, model_dir,
+                                 max_steps=steps + resume_steps,
+                                 display_step=resume_steps, device="cuda")
+        text = (model_dir / "log.txt").read_text()
+        if (state2.step != steps + resume_steps
+                or f"resumed from checkpoint at step {steps}" not in text):
+            raise AssertionError(f"restart: step {state2.step}, log "
+                                 f"{text[-300:]}")
+        log(f"pillar training [{card}]: a restart with max_steps "
+            f"{steps + resume_steps} resumed at step {steps} and ended at "
+            f"{state2.step}")
+    return {"launches": launches, "calls": calls, "report": report,
+            "step": lambda: step_fn(state, example)}
+
+
 def device_time(what: str, card: str, fn):
     ms, per_kernel = device_ms(fn)
     log(f"{what} [{card}]: device time per call "
@@ -1538,11 +1927,13 @@ def main() -> int:
         pod, requests, latency_ms, launches, k1_call, k2_call = serve(card)
         second = serve_second(card)
         ev_launches = run_evaluate(card)
+        training = train_pillars(card)
         km, gg = second["km_launches"], second["gg_launches"]
         fm, dyn = second["fm_launches"], second["dyn_launches"]
         per_path = {"pillar serving": launches, "evaluate": ev_launches,
                     "second key-match": km, "second gather-GEMM": gg,
-                    "second fused_mean": fm, "second dynamic": dyn}
+                    "second fused_mean": fm, "second dynamic": dyn,
+                    "pillar training": training["launches"]}
         total = {name: sum(p[name] for p in per_path.values())
                  for name in KERNELS}
         log(f"launches by path: {json.dumps(per_path)}; summed {total}")
@@ -1550,7 +1941,9 @@ def main() -> int:
         k5 = phase_k5(second["fm_calls"]["voxel_mean"][0],
                       second["requests"], requests[0], pod.cfg,
                       second["pod"].cfg, total, card)
-        phases = [phase_k1(k1_call, total["pillar_scatter"], card),
+        phases = [phase_k1(k1_call, training["calls"]["pillar_gather"][0],
+                           total["pillar_scatter"], total["pillar_gather"],
+                           card),
                   phase_k2(k2_call, second["km_calls"]["rotated_iou"][0],
                            total["rotated_iou"], card),
                   phase_sparse_gemm("keymatch_gemm",
@@ -1574,6 +1967,9 @@ def main() -> int:
                       else key[:-3] + "_event_ms"] = ev[key]
             entry["launches_by_path"] = {
                 path: n[entry["name"]] for path, n in per_path.items()}
+            if "backward_kernel" in entry:
+                entry["backward_launches_by_path"] = {
+                    path: n["pillar_gather"] for path, n in per_path.items()}
             entry["ms_from"] = ("torch.profiler device time" if measured
                                 else "cuda events (median)")
             kernels.append(entry)
@@ -1584,18 +1980,18 @@ def main() -> int:
         for e in launch_bound:
             e["floor_ms"] = floors["one block"]
             e["grid_floor_ms"] = floors[e["name"]]
-        profile_request("serving", pod, requests[2], card, latency_ms)
-        profile_request("second key-match", second["pod"],
-                        second["requests"][2], card, second["latency_ms"])
-        profile_request("second gather-GEMM", second["gg"],
-                        second["requests"][2], card,
-                        second["gg_latency_ms"])
-        profile_request("second fused_mean", second["fused"],
-                        second["requests"][2], card,
-                        second["fm_latency_ms"])
-        profile_request("second dynamic", second["dyn"],
-                        second["requests"][2], card,
-                        second["dyn_latency_ms"])
+        with torch.enable_grad():
+            profile_call("pillar training step", training["step"], card,
+                         training["report"]["device_step_ms"][0])
+        profile_call("serving", lambda: pod(*requests[2]), card, latency_ms)
+        for what, key, lat in (("second key-match", "pod", "latency_ms"),
+                               ("second gather-GEMM", "gg", "gg_latency_ms"),
+                               ("second fused_mean", "fused",
+                                "fm_latency_ms"),
+                               ("second dynamic", "dyn", "dyn_latency_ms")):
+            profile_call(what, functools.partial(second[key],
+                                                 *second["requests"][2]),
+                         card, second[lat])
     except Exception:  # noqa: BLE001 - any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -551,3 +551,96 @@ def test_flat_pfn_is_the_same_bits_on_every_run(cuda):
     for again in runs[1:]:
         for name, t in runs[0].items():
             assert torch.equal(t, again[name]), name
+
+
+def _served_pillar_ids(cuda, seeds):
+    """Cell ids [B, V] of the pillar path's device voxelizer on synthetic
+    scans at the served width (V = 25 600, 160 x 160 cells)."""
+    from automatic_as_built_reconstruction_tpu_torch.data.building import (
+        generate_building_scene, pad_batch)
+    from automatic_as_built_reconstruction_tpu_torch.ops.voxelize import (
+        voxelize)
+    from automatic_as_built_reconstruction_tpu_torch.parallel.inference \
+        import build_from_config
+
+    _, cfg, _ = build_from_config(chip_smoke.CONFIG)
+    pts, nv = (torch.as_tensor(a, device=cuda) for a in
+               pad_batch([generate_building_scene(s) for s in seeds]))
+    vox = voxelize(pts, nv, voxel_size=cfg.voxel_size, pc_range=cfg.pc_range,
+                   grid_size=cfg.grid_size, max_points=chip_smoke.MAX_POINTS,
+                   max_voxels=chip_smoke.MAX_VOXELS)
+    H, W = cfg.bev_shape
+    valid = vox.coords[..., 1] >= 0
+    lin = torch.where(valid, vox.coords[..., 1] * W + vox.coords[..., 2],
+                      H * W)
+    return lin.int(), H * W
+
+
+def test_pillar_gather_kernel_equals_plain(cuda):
+    """K1's backward on the served pillar ids (B = 4), as they come, with
+    the rows shuffled, and with negative ids among them: equal to the
+    plain version bit for bit, one launch a call."""
+    lin, hw = _served_pillar_ids(cuda, (0, 1, 2, 3))
+    B, V = lin.shape
+    g = torch.Generator(device=cuda).manual_seed(0)
+    dcanvas = torch.randn(B, hw, 64, device=cuda, generator=g)
+    shuffled = lin[:, torch.randperm(V, device=cuda, generator=g)]
+    negative = torch.where(torch.arange(V, device=cuda) % 5 == 0,
+                           -1 - torch.arange(V, device=cuda) % 4, lin).int()
+    assert int((lin < hw).sum()) > 1000 and bool((lin == hw).any())
+    for ids in (lin, shuffled.contiguous(), negative):
+        before = pillar_scatter.pillar_gather.launches
+        got = pillar_scatter.pillar_gather(dcanvas, ids)
+        ref = pillar_scatter.pillar_gather_plain(dcanvas, ids)
+        torch.cuda.synchronize()
+        assert pillar_scatter.pillar_gather.launches == before + 1
+        assert torch.equal(got, ref)
+    # a non-contiguous incoming gradient (the NCHW view's strides)
+    nchw = dcanvas.view(B, 160, 160, 64).permute(0, 3, 1, 2).contiguous()
+    strided = nchw.permute(0, 2, 3, 1).view(B, hw, 64)
+    assert not strided.is_contiguous()
+    assert torch.equal(pillar_scatter.pillar_gather(strided, lin),
+                       pillar_scatter.pillar_gather_plain(dcanvas, lin))
+
+
+def test_pillar_scatter_has_a_gradient_on_the_card(cuda):
+    """The repair: on the card K1's canvas carries a grad_fn whose backward
+    is the gather kernel, and after one backward() every PFN parameter
+    has a nonzero gradient."""
+    from automatic_as_built_reconstruction_tpu_torch.train import train
+
+    bundle = train.Bundle(chip_smoke.CONFIG)
+    state = train.init_state(bundle, rng_seed=0, total_steps=10,
+                             device=cuda)
+    _, loader = bundle.input_reader(training=True, seed=0)
+    example = train.to_device(next(iter(loader)), cuda)
+    lin = torch.zeros(2, 8, dtype=torch.int32, device=cuda)
+    feats = torch.zeros(2, 8, 64, device=cuda, requires_grad=True)
+    assert pillar_scatter.scatter_sorted_to_canvas(
+        feats, lin, 16).grad_fn is not None
+    before = pillar_scatter.pillar_gather.launches
+    metrics = train.make_train_step(bundle)(state, example)
+    torch.cuda.synchronize()
+    assert pillar_scatter.pillar_gather.launches == before + 1
+    assert math.isfinite(float(metrics["loss"]))
+    _, grads = chip_smoke.step_grads(bundle, state, example)
+    pfn = [n for n in grads if n.startswith("voxel_feature_extractor")]
+    assert len(pfn) == 3                    # linear, BN scale and bias
+    for n in pfn:
+        assert float(grads[n].abs().max()) > 0, n
+
+
+def test_full_width_train_step_matches_cpu(cuda):
+    """One training step of asbuilt_pillars at full width on the card
+    against the port's CPU step, from the same seeded weights and batch:
+    loss terms, gradients (each device against a float64 step), the
+    float64 steps of the two devices, parameters after the update and
+    BatchNorm statistics, held as chip_smoke.train_step_mismatch says."""
+    from automatic_as_built_reconstruction_tpu_torch.train import train
+
+    bundle = train.Bundle(chip_smoke.CONFIG)
+    _, loader = bundle.input_reader(training=True, seed=3)
+    summary, bad = chip_smoke.train_step_mismatch(
+        chip_smoke.CONFIG, next(iter(loader)), chip_smoke.TRAIN_STEPS)
+    print(summary)
+    assert bad is None, bad

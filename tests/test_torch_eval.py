@@ -120,6 +120,29 @@ def test_d3_box_overlap_equals_reference(criterion):
     assert (got > 0.05).sum() > 10
 
 
+def test_iou_of_boxes_with_infinite_sizes_equals_reference():
+    """Boxes of infinite size (an untrained box head's exp overflows):
+    the port skips their clip, and every overlap stays 0 as the
+    reference's clip gives it; a NaN box overlaps nothing."""
+    rng = np.random.default_rng(4)
+    a, q = _boxes_3d(rng, 12), _boxes_3d(rng, 9)
+    a[::3, 3] = np.inf
+    a[1, 4] = np.inf
+    got = geometry.rotate_iou_matrix(a[:, [0, 1, 3, 4, 6]],
+                                     q[:, [0, 1, 3, 4, 6]])
+    with np.errstate(invalid="ignore"):
+        ref = jax_geometry.rotate_iou_matrix(a[:, [0, 1, 3, 4, 6]],
+                                             q[:, [0, 1, 3, 4, 6]])
+        with numpy_reference():
+            ref3 = jax_geometry.d3_box_overlap(a, q)
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(geometry.d3_box_overlap(a, q), ref3)
+    assert not got[[0, 1, 3, 6, 9]].any() and got.any()
+    a[2, 0] = np.nan
+    assert not geometry.rotate_iou_matrix(a[:, [0, 1, 3, 4, 6]],
+                                          q[:, [0, 1, 3, 4, 6]])[2].any()
+
+
 # --------------------------------------------------------------------------
 # core/box_ops.py
 # --------------------------------------------------------------------------
@@ -294,10 +317,11 @@ def test_prep_pointcloud_inference_branch_equals_reference(variant):
         assert got["anchors_mask"].any() and not got["anchors_mask"].all()
     assert dataclasses.asdict(preprocess.PrepConfig()) == dataclasses.asdict(
         jax_preprocess.PrepConfig())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError):    # the gt database sampler
         preprocess.prep_pointcloud(sensor, bundle.voxel_generator,
                                    bundle.target_assigner,
-                                   preprocess.PrepConfig(**kw), training=True)
+                                   preprocess.PrepConfig(**kw), training=True,
+                                   db_sampler=object())
 
 
 def test_input_reader_matches_reference_batches():
@@ -321,8 +345,12 @@ def test_input_reader_matches_reference_batches():
                 np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
     assert tbatches[1]["voxels"].shape[0] == 1
     assert tbatches[0]["metadata"][0]["scene_id"] == 7 * 100003
-    with pytest.raises(NotImplementedError):
-        tbundle.input_reader(training=True)
+    with pytest.raises(NotImplementedError):    # the gt database sampler
+        input_reader_builder.build(
+            {"preprocess": {"database_sampler": {
+                "database_info_path": "dbinfos.pkl"}}}, True,
+            tbundle.voxel_generator, tbundle.target_assigner,
+            tbundle.feature_map_size)
 
 
 @pytest.mark.parametrize("pool", [dict(num_workers=3),

@@ -38,14 +38,29 @@ import automatic_as_built_reconstruction_tpu_torch.ops.voxelize
 import automatic_as_built_reconstruction_tpu_torch.train.input_pipeline
 import automatic_as_built_reconstruction_tpu_torch.train.train
 import automatic_as_built_reconstruction_tpu_torch.utils.eval
+import automatic_as_built_reconstruction_tpu_torch.builder.box_coder_builder
+import automatic_as_built_reconstruction_tpu_torch.builder.losses_builder
+import automatic_as_built_reconstruction_tpu_torch.builder.optimizer_builder
+import automatic_as_built_reconstruction_tpu_torch.builder.similarity_calculator_builder
+import automatic_as_built_reconstruction_tpu_torch.builder.target_assigner_builder
+import automatic_as_built_reconstruction_tpu_torch.core.augment
+import automatic_as_built_reconstruction_tpu_torch.core.box_coders
+import automatic_as_built_reconstruction_tpu_torch.core.region_similarity
+import automatic_as_built_reconstruction_tpu_torch.core.target_assign
+import automatic_as_built_reconstruction_tpu_torch.models.losses
+import automatic_as_built_reconstruction_tpu_torch.train.checkpoint
+import automatic_as_built_reconstruction_tpu_torch.train.metrics
+import automatic_as_built_reconstruction_tpu_torch.utils.progress
 import chip_smoke
 import rotated_iou_ablation
 import sparse_gemm_ablation
+import train_precision
 import voxel_mean_ablation
 bad = sorted(m for m in sys.modules
-             if m in ("jax", "flax", "optax", "jaxlib", "google.protobuf")
+             if m in ("jax", "flax", "optax", "orbax", "jaxlib",
+                      "google.protobuf")
              or m == "automatic_as_built_reconstruction_tpu"
-             or m.startswith(("jax.", "flax.",
+             or m.startswith(("jax.", "flax.", "optax.", "orbax.",
                               "automatic_as_built_reconstruction_tpu.")))
 print("BAD", bad)
 sys.exit(1 if bad else 0)
@@ -79,11 +94,11 @@ def test_every_module_of_the_port_is_checked():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in pkg.rglob("*.py") if p.name != "__init__.py"
         and "_build" not in p.parts)
-    assert len(mods) > 35
+    assert len(mods) > 48
     code = ("import sys, importlib\n"
             + "".join(f"importlib.import_module({m!r})\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'jaxlib', 'flax', 'optax', "
+              "('jax', 'jaxlib', 'flax', 'optax', 'orbax', "
               "'automatic_as_built_reconstruction_tpu') "
               "or m.startswith('google.protobuf'))\n"
               "print('BAD', bad)\nsys.exit(1 if bad else 0)\n")
