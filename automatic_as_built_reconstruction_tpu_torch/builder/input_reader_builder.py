@@ -1,10 +1,13 @@
 """Input reader config message -> (PrepDataset, BatchLoader), as the JAX
-package's ``builder/input_reader_builder.py::build`` does, for the
-training and evaluation readers of ``BuildingDataset`` configs: 256
-synthetic training scenes (seed 0), shuffled, repeated, the last partial
-batch dropped; 32 val scenes (seed 7) in order, once.  The ground-truth
-database sampler, bucketed shapes, host rulebooks and ``KittiDataset``
-are not ported and raise ``NotImplementedError``."""
+package's ``builder/input_reader_builder.py::build`` does: the dataset
+(``BuildingDataset``: 256 synthetic training scenes from seed 0 or 32 val
+scenes from seed 7; ``KittiDataset``: the info pickle of the config),
+the training reader shuffled, repeated and its last partial batch
+dropped, the eval reader in order, once; the ground-truth database
+sampler of a training reader, its generator seeded
+``np.random.default_rng(seed)`` as the reference seeds it; the loader's
+worker pools.  Bucketed shapes and host rulebooks are not ported and
+raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import functools
@@ -13,23 +16,26 @@ import numpy as np
 
 from ..core import box_ops
 from ..data import building  # noqa: F401 - registers BuildingDataset
+from ..data import kitti_dataset  # noqa: F401 - registers KittiDataset
 from ..data.dataset import get_dataset_class
 from ..data.preprocess import PrepConfig, prep_pointcloud
 from ..train.input_pipeline import BatchLoader, PrepDataset
+from . import dbsampler_builder
 from .config_io import as_list, f32
 
 
 def _build_dataset(ds_cfg: dict, class_names, training: bool):
-    name = ds_cfg.get("dataset_class_name") or "KittiDataset"
-    if name != "BuildingDataset":
-        raise NotImplementedError(
-            f"dataset {name}: only BuildingDataset is ported")
-    cls = get_dataset_class(name)
-    return cls(root_path=ds_cfg.get("kitti_root_path") or None,
-               info_path=ds_cfg.get("kitti_info_path") or None,
-               class_names=class_names or building.CLASSES,
-               num_synthetic=256 if training else 32,
-               synthetic_seed=0 if training else 7)
+    cls = get_dataset_class(ds_cfg.get("dataset_class_name")
+                            or "KittiDataset")
+    if cls.__name__ == "BuildingDataset":
+        return cls(root_path=ds_cfg.get("kitti_root_path") or None,
+                   info_path=ds_cfg.get("kitti_info_path") or None,
+                   class_names=class_names or building.CLASSES,
+                   num_synthetic=256 if training else 32,
+                   synthetic_seed=0 if training else 7)
+    return cls(root_path=ds_cfg.get("kitti_root_path"),
+               info_path=ds_cfg.get("kitti_info_path"),
+               class_names=class_names)
 
 
 def _prep_config(pp: dict, class_names, out_size_factor) -> PrepConfig:
@@ -85,13 +91,15 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
     dataset = _build_dataset(input_cfg.get("dataset", {}), class_names,
                              training)
     pp = input_cfg.get("preprocess", {})
-    if training and pp.get("database_sampler", {}).get(
-            "database_info_path"):
-        raise NotImplementedError("the ground-truth database sampler is not "
-                                  "ported")
     if training and as_list(pp.get("static_shape_buckets")):
         raise NotImplementedError("bucketed static shapes are not ported")
     prep_cfg = _prep_config(pp, class_names or ["Car"], out_size_factor=1)
+
+    db_sampler = None
+    if training and pp.get("database_sampler", {}).get(
+            "database_info_path"):
+        db_sampler = dbsampler_builder.build(
+            pp["database_sampler"], rng=np.random.default_rng(seed))
 
     # anchor cache: computed once for the fixed feature map
     ret = target_assigner.generate_anchors(feature_map_size)
@@ -106,7 +114,8 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
     prep_fn = functools.partial(
         prep_pointcloud, voxel_generator=voxel_generator,
         target_assigner=target_assigner, prep_cfg=prep_cfg,
-        training=training, anchor_cache=anchor_cache)
+        training=training, anchor_cache=anchor_cache,
+        db_sampler=db_sampler)
     prep_ds = PrepDataset(dataset, lambda sd, rng: prep_fn(sd, rng=rng))
     loader = BatchLoader(
         prep_ds, batch_size=int(input_cfg.get("batch_size", 0)) or 2,

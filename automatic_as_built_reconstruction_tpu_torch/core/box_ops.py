@@ -10,10 +10,12 @@ package's ``core/box_ops.py`` (parity is tested exactly): the numpy
 residual encodings the box coders use (``second_box_encode`` /
 ``_decode``, ``bev_box_encode`` / ``_decode``), the axis-aligned
 ``iou_2d`` of the nearest-IoU similarity and the gt filters of the
-training branch.  ``points_in_rbbox`` runs its numpy arithmetic as
-torch CPU ops (the same bits, on every core).  The torch decode
-``predict`` runs is in ``ops/box_ops.py``; the camera and image
-functions wait for the KITTI dataset.
+training branch, and the KITTI camera and image functions
+(``camera_to_lidar`` ... ``image_bbox_to_camera_frustum``) the KITTI
+dataset, its offline prep and the synthetic clone use.
+``points_in_rbbox`` runs its numpy arithmetic as torch CPU ops (the same
+bits, on every core).  The torch decode ``predict`` runs is in
+``ops/box_ops.py``.
 """
 from __future__ import annotations
 
@@ -385,6 +387,93 @@ def iou_2d(boxes: np.ndarray, query_boxes: np.ndarray,
     return np.where(union > 0, inter / np.maximum(union, 1e-12), 0.0)
 
 
+# ---------------------------------------------------------------------------
+# camera <-> lidar transforms + image projection (KITTI)
+# ---------------------------------------------------------------------------
+
+
+def camera_to_lidar(points, r_rect, velo2cam):
+    """[N,3] cam-frame points -> lidar frame given rectification + extrinsic."""
+    points = np.asarray(points)
+    n = points.shape[0]
+    pts = np.concatenate([points[:, :3], np.ones((n, 1), points.dtype)], axis=1)
+    lidar = pts @ np.linalg.inv((r_rect @ velo2cam).T)
+    return lidar[:, :3]
+
+
+def lidar_to_camera(points, r_rect, velo2cam):
+    points = np.asarray(points)
+    n = points.shape[0]
+    pts = np.concatenate([points[:, :3], np.ones((n, 1), points.dtype)], axis=1)
+    cam = pts @ (r_rect @ velo2cam).T
+    return cam[:, :3]
+
+
+def box_camera_to_lidar(data, r_rect, velo2cam):
+    """KITTI camera boxes [N,7] (x,y,z,l,h,w,ry) -> lidar [N,7] (x,y,z,w,l,h,yaw)."""
+    xyz = data[:, 0:3]
+    l, h, w = data[:, 3:4], data[:, 4:5], data[:, 5:6]
+    r = data[:, 6:7]
+    xyz_lidar = camera_to_lidar(xyz, r_rect, velo2cam)
+    return np.concatenate([xyz_lidar, w, l, h, -r - np.pi / 2], axis=1)
+
+
+def box_lidar_to_camera(data, r_rect, velo2cam):
+    """Lidar boxes [N,7] (x,y,z,w,l,h,yaw) -> camera [N,7] (x,y,z,l,h,w,ry)."""
+    xyz_lidar = data[:, 0:3]
+    w, l, h = data[:, 3:4], data[:, 4:5], data[:, 5:6]
+    r = data[:, 6:7]
+    xyz = lidar_to_camera(xyz_lidar, r_rect, velo2cam)
+    return np.concatenate([xyz, l, h, w, -r - np.pi / 2], axis=1)
+
+
+def project_to_image(points_3d, proj_mat):
+    """[N,3] cam points -> [N,2] pixel coords via 3x4 or 4x4 projection."""
+    points_3d = np.asarray(points_3d)
+    n = points_3d.shape[0]
+    pts = np.concatenate([points_3d, np.ones((n, 1), points_3d.dtype)], axis=-1)
+    pts2d = pts @ proj_mat.T
+    return pts2d[:, :2] / np.maximum(pts2d[:, 2:3], 1e-8)
+
+
+def center_to_minmax_2d(centers, dims):
+    return np.concatenate([centers - dims / 2, centers + dims / 2], axis=-1)
+
+
+def remove_outside_points(points, r_rect, velo2cam, P2, image_shape):
+    """Frustum-crop a velodyne scan to the camera FOV. [ref: create_data]."""
+    image_bbox = np.array([0, 0, image_shape[1], image_shape[0]],
+                          dtype=P2.dtype)
+    frustum = image_bbox_to_camera_frustum(P2, image_bbox)
+    frustum = camera_to_lidar(frustum, r_rect, velo2cam)
+    from . import geometry  # geometry imports this module
+    frustum_surfaces = geometry.corner_to_surfaces_3d_jit(frustum[None, ...])
+    indices = geometry.points_in_convex_polygon_3d(points[:, :3], frustum_surfaces)
+    return points[indices.reshape(-1)]
+
+
+def image_bbox_to_camera_frustum(proj, bbox, near=0.001, far=100.0):
+    """Camera-frame corners of the viewing frustum through an image rect.
+
+    A rectified pixel (u, v) at depth z satisfies
+    ``proj @ [X, 1] = z * [u, v, 1]``, so the camera-frame unprojection
+    is simply ``X = M^-1 (z [u, v, 1] - b)`` with ``M`` proj's left 3x3
+    block and ``b`` its last column — no intrinsics/rotation split
+    needed.  Returns [8, 3]: the four bbox corners (clockwise from the
+    top-left) on the near plane, then on the far plane.
+    """
+    m_inv = np.linalg.inv(proj[:3, :3])
+    shift = proj[:3, 3]
+    u0, v0, u1, v1 = (np.asarray(bbox, proj.dtype)[i] for i in range(4))
+    px = np.array([[u0, v0], [u0, v1], [u1, v1], [u1, v0]], proj.dtype)
+    planes = []
+    for z in (near, far):
+        uvz = np.concatenate(
+            [px * z, np.full((4, 1), z, proj.dtype)], axis=1)
+        planes.append((uvz - shift) @ m_inv.T)
+    return np.concatenate(planes, axis=0)
+
+
 def filter_gt_box_outside_range(gt_boxes, limit_range):
     """Keep boxes whose BEV center lies inside [x0,y0,x1,y1]."""
     bev = gt_boxes[:, [0, 1]]
@@ -397,3 +486,8 @@ def remove_points_outside_range(points, pc_range):
             & (points[:, 1] >= pc_range[1]) & (points[:, 1] < pc_range[4])
             & (points[:, 2] >= pc_range[2]) & (points[:, 2] < pc_range[5]))
     return points[mask]
+
+
+def remove_points_in_boxes(points, boxes):
+    masks = points_in_rbbox(points, boxes)
+    return points[np.logical_not(masks.any(-1))]

@@ -3,19 +3,57 @@ enumeration) that the evaluation uses.
 
 The port's copy of the JAX package's ``core/geometry.py``:
 ``rotated_box_intersection_area``, ``rotate_iou_matrix`` and
-``d3_box_overlap``, and the separating-axis ``box_collision_test`` of the
-per-object noise augmentation.  All NumPy, the same formulas in the same
+``d3_box_overlap``, the separating-axis ``box_collision_test`` of the
+per-object noise augmentation and the ground-truth sampler, and the
+convex-polyhedron point test the KITTI prep crops scans to the camera's
+frustum with.  All NumPy, the same formulas in the same
 order, so the results equal the reference's numpy path exactly.  (The
 reference's ``d3_box_overlap`` and ``box_collision_test`` take a float32
 C++ kernel where its native library built; this copy keeps to the numpy
-forms.)  The convex-polygon point tests have no caller in the port
-(``box_ops.points_in_rbbox`` transforms points into the box frame).
+forms.)
 """
 from __future__ import annotations
 
 import numpy as np
 
 from . import box_ops
+
+# ---------------------------------------------------------------------------
+# convex polyhedron point tests
+# ---------------------------------------------------------------------------
+
+
+def corner_to_surfaces_3d_jit(corners: np.ndarray) -> np.ndarray:
+    """[N,8,3] box corners -> [N,6,4,3] quad surfaces (outward normals).
+
+    Corner order follows :func:`box_ops.corners_nd` 3D ordering.
+    """
+    idx = np.array([
+        [0, 1, 2, 3],  # bottom (z-)
+        [7, 6, 5, 4],  # top (z+)
+        [0, 3, 7, 4],
+        [1, 5, 6, 2],
+        [0, 4, 5, 1],
+        [3, 2, 6, 7],
+    ])
+    return corners[:, idx, :]
+
+
+def surface_equ_3d(surfaces: np.ndarray):
+    """[N,S,4,3] planar surfaces -> normals [N,S,3] and d [N,S] (n.x + d = 0)."""
+    sv0 = surfaces[:, :, 0, :] - surfaces[:, :, 1, :]
+    sv1 = surfaces[:, :, 1, :] - surfaces[:, :, 2, :]
+    normal = np.cross(sv0, sv1)
+    d = -np.einsum("nsk,nsk->ns", normal, surfaces[:, :, 0, :])
+    return normal, d
+
+
+def points_in_convex_polygon_3d(points: np.ndarray, surfaces: np.ndarray):
+    """[P,3] points vs [N,6,4,3] box surfaces -> [P,N] bool."""
+    normal, d = surface_equ_3d(surfaces)
+    sign = np.einsum("pk,nsk->pns", points, normal) + d[None]
+    return (sign <= 1e-6).all(axis=-1)
+
 
 # ---------------------------------------------------------------------------
 # rotated-box IoU — NumPy oracle (vertex enumeration, nms_gpu-style)

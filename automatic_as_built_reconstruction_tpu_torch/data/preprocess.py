@@ -2,7 +2,8 @@
 
 The port's copy of the JAX package's ``data/preprocess.py``.  One function
 (:func:`prep_pointcloud`) does, in order: (training) gt class filter ->
-``min_points_in_gt`` -> point dropping in gt boxes -> frustum dropout ->
+``min_points_in_gt`` -> ground-truth database paste-in (``db_sampler``)
+-> point dropping in gt boxes -> frustum dropout ->
 per-object noise -> global flip / rotation / scaling / translation ->
 range filter -> yaw wrap; then point shuffle -> host voxelization -> (key
 sort) -> padding to the static capacities (max_voxels /
@@ -10,9 +11,8 @@ max_points_per_voxel, so that batches stack into fixed-shape buffers;
 validity is carried in counts and -1 coords) -> anchors (cached) ->
 anchor mask (BEV density integral image) -> (training) target
 assignment.  Every rng call is the reference's, in its order, so one
-seed gives the reference's example.  The ground-truth database sampler
-and host-built sparse rulebooks are not ported and raise
-``NotImplementedError``.
+seed (and one sampler state) gives the reference's example.  Host-built
+sparse rulebooks are not ported and raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -75,9 +75,6 @@ def prep_pointcloud(input_dict: dict,
     With ``training`` also ``labels`` [A], ``reg_targets`` [A, code],
     ``importance`` [A], ``gt_boxes`` [G, 7] and ``gt_names`` [G].
     """
-    if db_sampler is not None:
-        raise NotImplementedError("the ground-truth database sampler is not "
-                                  "ported")
     if middle_plan is not None or middle_plan_buckets is not None:
         raise NotImplementedError("host-built rulebooks are not ported")
     rng = rng or np.random.default_rng()
@@ -90,7 +87,7 @@ def prep_pointcloud(input_dict: dict,
         gt_boxes = np.asarray(annos["boxes"], np.float32).reshape(-1, 7).copy()
         gt_names = np.asarray(annos["names"]).reshape(-1)
 
-        # keep known classes
+        # keep known classes (+ sampler-relevant names)
         selected = np.array(
             [i for i, n in enumerate(gt_names) if n in class_names
              or not prep_cfg.remove_unknown], dtype=np.int64)
@@ -100,6 +97,17 @@ def prep_pointcloud(input_dict: dict,
             counts = box_ops.points_in_rbbox(points, gt_boxes).sum(0)
             keep = counts >= prep_cfg.min_points_in_gt
             gt_boxes, gt_names = gt_boxes[keep], gt_names[keep]
+
+        if db_sampler is not None:
+            sampled = db_sampler.sample_all(gt_boxes, gt_names,
+                                            points.shape[1])
+            if sampled is not None:
+                gt_boxes = np.concatenate([gt_boxes, sampled["gt_boxes"]])
+                gt_names = np.concatenate([gt_names, sampled["gt_names"]])
+                if prep_cfg.remove_points_after_sample:
+                    points = box_ops.remove_points_in_boxes(
+                        points, sampled["gt_boxes"])
+                points = np.concatenate([sampled["points"], points])
 
         if prep_cfg.gt_points_drop_percentage > 0:
             points = augment.drop_points_in_gt(

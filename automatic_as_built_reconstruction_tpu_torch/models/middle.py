@@ -58,9 +58,10 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         in_dtype = x.dtype
-        x = x.float()
+        # statistics and normalisation in fp32 (fp64 stays fp64)
+        x = x.to(torch.promote_types(in_dtype, torch.float32))
         if self.training:
-            m = mask[..., None].float()
+            m = mask[..., None].to(x.dtype)
             cnt = m.sum().clamp_min(1.0)
             mean = (x * m).sum(dim=(0, 1)) / cnt
             var = (torch.square(x - mean) * m).sum(dim=(0, 1)) / cnt
@@ -202,7 +203,8 @@ class SparseMiddle(nn.Module):
         """
         if rulebooks is not None:
             raise NotImplementedError("host-built rulebooks are not ported")
-        feats = voxel_features.float()
+        feats = voxel_features.to(torch.promote_types(voxel_features.dtype,
+                                                      torch.float32))
         cur_coords = coords
         valid = coords[..., 0] >= 0
         use_km = self.use_keymatch and self.use_pallas_gemm

@@ -430,7 +430,7 @@ def gathered_matmul(features: torch.Tensor, gather_idx: torch.Tensor,
     """``out[r] = sum_k found[k, r] * features[idx[k, r]] @ W[k]`` as one
     masked gather into [R, K*Cin] and one matmul: features [..., N, Cin],
     idx/found [..., K, R], weights [K, Cin, Cout] -> [..., R, Cout]
-    float32."""
+    float32 (float64 for float64 features)."""
     K, Cin, Cout = weights.shape
     R = gather_idx.shape[-1]
     lead = features.shape[:-2]
@@ -438,7 +438,8 @@ def gathered_matmul(features: torch.Tensor, gather_idx: torch.Tensor,
     g = torch.gather(features, -2, idx[..., None].expand(*lead, K * R, Cin))
     g = torch.where(found[..., None], g.unflatten(-2, (K, R)), 0.0)
     g = g.transpose(-3, -2).reshape(*lead, R, K * Cin)
-    return (g @ weights.reshape(K * Cin, Cout).to(g.dtype)).float()
+    out = g @ weights.reshape(K * Cin, Cout).to(g.dtype)
+    return out.to(torch.promote_types(out.dtype, torch.float32))
 
 
 def submanifold_conv(features: torch.Tensor, rulebook: SubmanifoldRulebook,

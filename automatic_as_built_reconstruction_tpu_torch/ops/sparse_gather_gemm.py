@@ -28,8 +28,20 @@ what share of the tensor-core work the data needs.
 
 Both take an optional leading batch dimension on everything but the
 weights (the JAX package maps the kernel over the batch; here the batch
-is the launch grid's second axis).  No gradient yet: with grad mode on,
-the wrappers refuse inputs that require grad.
+is the launch grid's second axis).
+
+Both are differentiable in features and weights, as the JAX package's
+``custom_vjp`` makes them (``_gather_gemm_bwd`` :411, ``_keymatch_bwd``
+:1237): with grad recorded they run as autograd Functions whose
+backward takes the join's rulebook (key-match: through
+``ops.sparse_conv._merge_lookup``, as the reference does) into
+``csrc/sparse_join_grad.cu``: ``dfeatures`` as the forward gather-GEMM
+kernel over the inverted rulebook (:func:`rulebook_inverse`, then
+:func:`join_grad_features`) and ``dW`` by a per-tap reduction kernel
+(:func:`join_grad_weights`), neither computed where it is not needed.
+On the CPU the Functions run the plain forward and
+:func:`join_backward_plain`, which mirrors the reference's backward line
+for line.
 """
 from __future__ import annotations
 
@@ -46,6 +58,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _GATHER_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # feats, in_keys, q_keys, sorted_flag, W, out | B, N, R, K, Cin, Cout | stream
 _KEYMATCH_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+# idx, found, inv, inv_found, collisions | B, K, R, N | stream
+_INVERSE_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+# feats, idx, found, dout, partial, dW | B, N, R, K, Cin, Cout | stream
+_TAP_GRAD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 KERNEL_COUTS = (8, 16, 32, 64, 128)
 MAX_SMEM_BYTES = 232448          # what one block may use on an H100
 TILE_R = 64                      # output rows per block of the kernel
@@ -114,11 +130,6 @@ def _check_cuda(features, weights, others: dict):
                         f"{features.dtype} / {weights.dtype}")
     if weights.device != features.device:
         raise ValueError("features and weights on different devices")
-    if torch.is_grad_enabled() and (features.requires_grad
-                                    or weights.requires_grad):
-        raise NotImplementedError(
-            "the sparse GEMM kernels have no backward yet: call them under "
-            "torch.no_grad(), or on tensors that do not require grad")
     K, Cin, Cout = weights.shape
     if Cout not in KERNEL_COUTS:
         raise ValueError(f"kernel takes Cout in {KERNEL_COUTS}, got {Cout}")
@@ -134,30 +145,8 @@ def _check_smem(K: int, Cin: int, Cout: int) -> None:
                          f"memory than a block has ({MAX_SMEM_BYTES} bytes)")
 
 
-def gather_gemm(features: torch.Tensor, gather_idx: torch.Tensor,
-                found: torch.Tensor, weights: torch.Tensor,
-                interpret=None, tile: int = 256, window: int = 768,
-                shared: bool = True) -> torch.Tensor:
-    """features [N, Cin] x rulebook ([K, R] idx + found) x weights
-    [K, Cin, Cout] -> [R, Cout] float32:
-    ``out[r] = sum_k found[k, r] * features[idx[k, r]] @ W[k]`` (no bias,
-    no validity mask: the caller applies them).  An entry whose index lies
-    outside ``[0, N)`` counts as not found.  With one leading batch
-    dimension on features, idx and found: [B, R, Cout].
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 features and weights, int32 idx, bool found, Cout in
-    ``KERNEL_COUTS``) or raise.  ``interpret``, ``tile``, ``window`` and
-    ``shared`` select among the TPU kernel's forms and are ignored.
-    """
-    _check_common(features, gather_idx, weights, "gather_idx")
-    if found.shape != gather_idx.shape:
-        raise ValueError(f"found {tuple(found.shape)} != gather_idx "
-                         f"{tuple(gather_idx.shape)}")
-    if not features.is_cuda:
-        return gather_gemm_plain(features, gather_idx, found, weights)
-    _check_cuda(features, weights, {"gather_idx": (gather_idx, torch.int32),
-                                    "found": (found, torch.bool)})
+def _launch_gather(features, gather_idx, found, weights) -> torch.Tensor:
+    """The gather-GEMM kernel on checked CUDA tensors (no count)."""
     K, Cin, Cout = weights.shape
     _check_smem(K, Cin, Cout)
     batched = features.dim() == 3
@@ -175,8 +164,116 @@ def gather_gemm(features: torch.Tensor, gather_idx: torch.Tensor,
                  found.data_ptr(), weights.data_ptr(), out.data_ptr(),
                  B, N, R, K, Cin, Cout, stream)
     _build.check(err, "gather_gemm_launch")
+    return out
+
+
+def _gather_forward(features, gather_idx, found, weights) -> torch.Tensor:
+    if not features.is_cuda:
+        return gather_gemm_plain(features, gather_idx, found, weights)
+    _check_cuda(features, weights, {"gather_idx": (gather_idx, torch.int32),
+                                    "found": (found, torch.bool)})
+    out = _launch_gather(features, gather_idx, found, weights)
     gather_gemm.launches += 1
     return out
+
+
+def _keymatch_forward(features, in_keys, q_keys, weights) -> torch.Tensor:
+    if not features.is_cuda:
+        return keymatch_gemm_plain(features, in_keys, q_keys, weights)
+    _check_cuda(features, weights, {"in_keys": (in_keys, torch.int32),
+                                    "q_keys": (q_keys, torch.int32)})
+    K, Cin, Cout = weights.shape
+    _check_smem(K, Cin, Cout)
+    batched = features.dim() == 3
+    B = features.shape[0] if batched else 1
+    N, M = features.shape[-2], q_keys.shape[-1]
+    features, in_keys = features.contiguous(), in_keys.contiguous()
+    q_keys, weights = q_keys.contiguous(), weights.contiguous()
+    ascending = (in_keys[..., 1:] >= in_keys[..., :-1]).all()   # on device
+    out = torch.empty((B, M, Cout) if batched else (M, Cout),
+                      dtype=torch.float32, device=features.device)
+    fn = _build.function("sparse_gather_gemm", "keymatch_gemm_launch",
+                         _KEYMATCH_ARGTYPES)
+    with torch.cuda.device(features.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(features.data_ptr(), in_keys.data_ptr(), q_keys.data_ptr(),
+                 ascending.data_ptr(), weights.data_ptr(), out.data_ptr(),
+                 B, N, M, K, Cin, Cout, stream)
+    _build.check(err, "keymatch_gemm_launch")
+    keymatch_gemm.launches += 1
+    return out
+
+
+def _records_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def _join_grads(ctx, features, idx, found, weights, dout):
+    """(dfeatures or None, dW or None) of a join with rulebook (idx,
+    found), each only where the Function's input needs it."""
+    need_f, need_w = ctx.needs_input_grad[0], ctx.needs_input_grad[3]
+    dout = dout.contiguous().to(features.dtype)
+    dfeats = (join_grad_features(dout, idx, found, weights,
+                                 features.shape[-2]) if need_f else None)
+    dW = join_grad_weights(features, idx, found, dout) if need_w else None
+    return dfeats, dW
+
+
+class _GatherGemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, gather_idx, found, weights):
+        ctx.save_for_backward(features, gather_idx, found, weights)
+        return _gather_forward(features, gather_idx, found, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        features, idx, found, weights = ctx.saved_tensors
+        dfeats, dW = _join_grads(ctx, features, idx, found, weights, dout)
+        return dfeats, None, None, dW
+
+
+class _KeymatchGemm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, features, in_keys, q_keys, weights):
+        ctx.save_for_backward(features, in_keys, q_keys, weights)
+        return _keymatch_forward(features, in_keys, q_keys, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        features, in_keys, q_keys, weights = ctx.saved_tensors
+        K, R = q_keys.shape[-2:]
+        idx, hit = _merge_lookup(in_keys, q_keys.flatten(-2))
+        dfeats, dW = _join_grads(ctx, features,
+                                 idx.unflatten(-1, (K, R)).contiguous(),
+                                 hit.unflatten(-1, (K, R)).contiguous(),
+                                 weights, dout)
+        return dfeats, None, None, dW
+
+
+def gather_gemm(features: torch.Tensor, gather_idx: torch.Tensor,
+                found: torch.Tensor, weights: torch.Tensor,
+                interpret=None, tile: int = 256, window: int = 768,
+                shared: bool = True) -> torch.Tensor:
+    """features [N, Cin] x rulebook ([K, R] idx + found) x weights
+    [K, Cin, Cout] -> [R, Cout] float32:
+    ``out[r] = sum_k found[k, r] * features[idx[k, r]] @ W[k]`` (no bias,
+    no validity mask: the caller applies them).  An entry whose index lies
+    outside ``[0, N)`` counts as not found.  With one leading batch
+    dimension on features, idx and found: [B, R, Cout].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (float32 features and weights, int32 idx, bool found, Cout in
+    ``KERNEL_COUTS``) or raise.  Differentiable in features and weights
+    (the module docstring).  ``interpret``, ``tile``, ``window`` and
+    ``shared`` select among the TPU kernel's forms and are ignored.
+    """
+    _check_common(features, gather_idx, weights, "gather_idx")
+    if found.shape != gather_idx.shape:
+        raise ValueError(f"found {tuple(found.shape)} != gather_idx "
+                         f"{tuple(gather_idx.shape)}")
+    if _records_grad(features, weights):
+        return _GatherGemm.apply(features, gather_idx, found, weights)
+    return _gather_forward(features, gather_idx, found, weights)
 
 
 gather_gemm.launches = 0
@@ -202,43 +299,216 @@ def keymatch_gemm(features: torch.Tensor, in_keys: torch.Tensor,
     key-order voxelizer and the sorted strided sites give) by bisection;
     a check on the device, with no host synchronisation, tells it when
     they are not ascending, and it then scans them, which is exact for any
-    order and slow.  ``interpret``, ``tile``, ``window``, ``shared``,
-    ``subwindow`` and ``group`` select among the TPU kernel's forms and are
-    ignored, except that ``group`` must divide K as there.
+    order and slow.  Differentiable in features and weights (the module
+    docstring); a row with no key gets no gradient.  ``interpret``,
+    ``tile``, ``window``, ``shared``, ``subwindow`` and ``group`` select
+    among the TPU kernel's forms and are ignored, except that ``group``
+    must divide K as there.
     """
     _check_common(features, q_keys, weights, "q_keys")
     if in_keys.shape != features.shape[:-1]:
         raise ValueError(f"in_keys {tuple(in_keys.shape)}: want "
                          f"{tuple(features.shape[:-1])}")
-    K, Cin, Cout = weights.shape
+    K = weights.shape[0]
     if int(group) > 1 and K % int(group):
         raise ValueError(f"group={group} must divide K={K}")
-    if not features.is_cuda:
-        return keymatch_gemm_plain(features, in_keys, q_keys, weights)
-    _check_cuda(features, weights, {"in_keys": (in_keys, torch.int32),
-                                    "q_keys": (q_keys, torch.int32)})
-    _check_smem(K, Cin, Cout)
-    batched = features.dim() == 3
-    B = features.shape[0] if batched else 1
-    N, M = features.shape[-2], q_keys.shape[-1]
-    features, in_keys = features.contiguous(), in_keys.contiguous()
-    q_keys, weights = q_keys.contiguous(), weights.contiguous()
-    ascending = (in_keys[..., 1:] >= in_keys[..., :-1]).all()   # on device
-    out = torch.empty((B, M, Cout) if batched else (M, Cout),
-                      dtype=torch.float32, device=features.device)
-    fn = _build.function("sparse_gather_gemm", "keymatch_gemm_launch",
-                         _KEYMATCH_ARGTYPES)
-    with torch.cuda.device(features.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(features.data_ptr(), in_keys.data_ptr(), q_keys.data_ptr(),
-                 ascending.data_ptr(), weights.data_ptr(), out.data_ptr(),
-                 B, N, M, K, Cin, Cout, stream)
-    _build.check(err, "keymatch_gemm_launch")
-    keymatch_gemm.launches += 1
-    return out
+    if _records_grad(features, weights):
+        return _KeymatchGemm.apply(features, in_keys, q_keys, weights)
+    return _keymatch_forward(features, in_keys, q_keys, weights)
 
 
 keymatch_gemm.launches = 0
+
+
+# ---- the backward ---------------------------------------------------------
+
+def grad_features_plain(dout, gather_idx, found, weights, N: int):
+    """dfeatures [..., N, Cin] of a join, as the reference's
+    ``_gather_gemm_bwd`` computes it: ``dfeats[idx[k, r]] += found[k, r]
+    * dout[r] @ W[k]^T`` (an einsum and a scatter-add), idx clipped to
+    ``[0, N)``, in dout's type."""
+    K, R = gather_idx.shape[-2:]
+    lead = dout.shape[:-2]
+    n_lead = int(np.prod(lead, dtype=np.int64))
+    Cin = weights.shape[1]
+    mask = found.to(dout.dtype)
+    idx = gather_idx.long().clamp(0, N - 1)
+    contrib = (torch.einsum("...ro,kio->...kri", dout, weights.to(dout.dtype))
+               * mask[..., None])
+    base = (torch.arange(n_lead, device=idx.device) * N).view(*lead, 1, 1)
+    dfeats = torch.zeros((n_lead * N, Cin), dtype=dout.dtype,
+                         device=dout.device)
+    dfeats.index_add_(0, (idx + base).reshape(-1), contrib.reshape(-1, Cin))
+    return dfeats.view(*lead, N, Cin)
+
+
+def grad_weights_plain(features, gather_idx, found, dout):
+    """dW [K, Cin, Cout] of a join, as the reference computes it: ``dW[k] =
+    (found * feats[idx[k]])^T @ dout`` (a gather and an einsum, summed over
+    the batch), idx clipped to ``[0, N)``, in the features' type."""
+    N, Cin = features.shape[-2:]
+    K, R = gather_idx.shape[-2:]
+    lead = features.shape[:-2]
+    idx = gather_idx.long().clamp(0, N - 1).flatten(-2)
+    gathered = torch.gather(features, -2, idx[..., None].expand(
+        *lead, K * R, Cin)).unflatten(-2, (K, R))
+    gathered = gathered * found.to(features.dtype)[..., None]
+    return torch.einsum("...kri,...ro->kio", gathered,
+                        dout.to(features.dtype))
+
+
+def join_backward_plain(features, gather_idx, found, weights, dout,
+                        need_features: bool = True,
+                        need_weights: bool = True):
+    """Plain PyTorch backward of a join, line for line the reference's
+    ``_gather_gemm_bwd``: features [..., N, Cin], idx / found [..., K, R],
+    weights [K, Cin, Cout], dout [..., R, Cout] -> (dfeatures [..., N,
+    Cin] or None, dW [K, Cin, Cout] or None), in the features' type.  A
+    batch element's rows take its own features; dW sums over the batch."""
+    dout = dout.to(features.dtype)
+    dfeats = (grad_features_plain(dout, gather_idx, found, weights,
+                                  features.shape[-2])
+              if need_features else None)
+    dW = (grad_weights_plain(features, gather_idx, found, dout)
+          if need_weights else None)
+    return dfeats, dW
+
+
+def rulebook_inverse_plain(gather_idx: torch.Tensor, found: torch.Tensor,
+                           N: int):
+    """Plain PyTorch version of :func:`rulebook_inverse`: (inv [..., K, N]
+    int32, -1 where no entry; inv_found bool).  Where two entries of a tap
+    take one slot, one of them wins here; the kernel counts them."""
+    R = gather_idx.shape[-1]
+    idx = torch.where(found, gather_idx.long().clamp(0, N - 1), N)
+    rows = torch.arange(R, dtype=torch.int32, device=idx.device)
+    inv = torch.full((*idx.shape[:-1], N + 1), -1, dtype=torch.int32,
+                     device=idx.device)
+    inv.scatter_(-1, idx, rows.expand(idx.shape).contiguous())
+    inv = inv[..., :N].contiguous()
+    return inv, inv >= 0
+
+
+_COLLISIONS: dict = {}
+
+
+def rulebook_collisions(device) -> int:
+    """How many rulebook entries the inverse kernel found in a slot another
+    entry of their tap already held, summed over every call on ``device``
+    so far (0 for a convolution's rulebooks).  Synchronises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t = _COLLISIONS.get(dev)
+    return 0 if t is None else int(t)
+
+
+def rulebook_inverse(gather_idx: torch.Tensor, found: torch.Tensor, N: int):
+    """The inverse of a join's rulebook: idx / found [..., K, R] (int32,
+    bool) -> (inv [..., K, N] int32, inv_found [..., K, N] bool) with
+    ``inv[k, idx[k, r]] = r`` where ``found`` (idx clipped to ``[0, N)``).
+    CUDA tensors launch ``rulebook_inverse_kernel``; CPU tensors take the
+    plain version."""
+    if not gather_idx.is_cuda:
+        return rulebook_inverse_plain(gather_idx, found, N)
+    if gather_idx.dtype != torch.int32 or found.dtype != torch.bool:
+        raise TypeError(f"kernel takes int32 idx and bool found, got "
+                        f"{gather_idx.dtype} / {found.dtype}")
+    K, R = gather_idx.shape[-2:]
+    B = int(np.prod(gather_idx.shape[:-2], dtype=np.int64))
+    gather_idx, found = gather_idx.contiguous(), found.contiguous()
+    dev = gather_idx.device
+    inv = torch.empty((*gather_idx.shape[:-1], N), dtype=torch.int32,
+                      device=dev)
+    inv_found = torch.empty(inv.shape, dtype=torch.bool, device=dev)
+    if dev not in _COLLISIONS:
+        _COLLISIONS[dev] = torch.zeros((), dtype=torch.int32, device=dev)
+    fn = _build.function("sparse_join_grad", "rulebook_inverse_launch",
+                         _INVERSE_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(gather_idx.data_ptr(), found.data_ptr(), inv.data_ptr(),
+                 inv_found.data_ptr(), _COLLISIONS[dev].data_ptr(), B, K, R,
+                 N, stream)
+    _build.check(err, "rulebook_inverse_launch")
+    rulebook_inverse.launches += 1
+    return inv, inv_found
+
+
+rulebook_inverse.launches = 0
+
+
+def join_grad_features(dout: torch.Tensor, gather_idx: torch.Tensor,
+                       found: torch.Tensor, weights: torch.Tensor,
+                       N: int) -> torch.Tensor:
+    """dfeatures [..., N, Cin] of a join: dout [..., R, Cout], rulebook
+    [..., K, R], weights [K, Cin, Cout].  CUDA tensors: the rulebook's
+    inverse (:func:`rulebook_inverse`), then the gather-GEMM kernel on
+    (dout, inverse, W[k]^T), which needs Cin in ``KERNEL_COUTS``; CPU
+    tensors take :func:`join_backward_plain`."""
+    if not dout.is_cuda:
+        return grad_features_plain(dout, gather_idx, found, weights, N)
+    _check_cuda(dout, weights, {"gather_idx": (gather_idx, torch.int32),
+                                "found": (found, torch.bool)})
+    Cin = weights.shape[1]
+    if Cin not in KERNEL_COUTS:
+        raise ValueError(f"the features' gradient takes Cin in "
+                         f"{KERNEL_COUTS}, got {Cin}")
+    inv, inv_found = rulebook_inverse(gather_idx, found, N)
+    wt = weights.transpose(1, 2).contiguous()        # [K, Cout, Cin]
+    out = _launch_gather(dout, inv, inv_found, wt)
+    join_grad_features.launches += 1
+    return out
+
+
+join_grad_features.launches = 0
+
+
+def join_grad_weights(features: torch.Tensor, gather_idx: torch.Tensor,
+                      found: torch.Tensor, dout: torch.Tensor
+                      ) -> torch.Tensor:
+    """dW [K, Cin, Cout] of a join: features [..., N, Cin], rulebook [...,
+    K, R], dout [..., R, Cout].  CUDA tensors launch the per-tap reduction
+    kernels (partials, then their sum in a fixed order); CPU tensors take
+    :func:`join_backward_plain`."""
+    if not features.is_cuda:
+        return grad_weights_plain(features, gather_idx, found, dout)
+    for name, (t, dtype) in {"features": (features, torch.float32),
+                             "dout": (dout, torch.float32),
+                             "gather_idx": (gather_idx, torch.int32),
+                             "found": (found, torch.bool)}.items():
+        if t.dtype != dtype:
+            raise TypeError(f"kernel takes {dtype} {name}, got {t.dtype}")
+        if t.device != features.device:
+            raise ValueError(f"features and {name} on different devices")
+    K = gather_idx.shape[-2]
+    N, Cin = features.shape[-2:]
+    R, Cout = dout.shape[-2:]
+    if max(Cin, Cout) > 128:
+        raise ValueError(f"the weights' gradient takes Cin and Cout up to "
+                         f"128, got {Cin} and {Cout}")
+    B = int(np.prod(features.shape[:-2], dtype=np.int64))
+    features, dout = features.contiguous(), dout.contiguous()
+    gather_idx, found = gather_idx.contiguous(), found.contiguous()
+    parts = _build.function("sparse_join_grad", "tap_grad_parts",
+                            (_I, _I, _I))(B, R, K)
+    dev = features.device
+    partial = torch.empty((K, parts, Cin, Cout), dtype=torch.float32,
+                          device=dev)
+    dW = torch.empty((K, Cin, Cout), dtype=torch.float32, device=dev)
+    fn = _build.function("sparse_join_grad", "tap_grad_launch",
+                         _TAP_GRAD_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(features.data_ptr(), gather_idx.data_ptr(), found.data_ptr(),
+                 dout.data_ptr(), partial.data_ptr(), dW.data_ptr(), B, N, R,
+                 K, Cin, Cout, stream)
+    _build.check(err, "tap_grad_launch")
+    join_grad_weights.launches += 1
+    return dW
+
+
+join_grad_weights.launches = 0
 
 
 def keymatch_found(in_keys: torch.Tensor, q_keys: torch.Tensor
@@ -269,5 +539,8 @@ def tile_occupancy(found: torch.Tensor):
 
 
 __all__ = ["KERNEL_COUTS", "TILE_R", "count_hits", "gather_gemm",
-           "gather_gemm_plain", "group_perm", "keymatch_found",
-           "keymatch_gemm", "keymatch_gemm_plain", "tile_occupancy"]
+           "gather_gemm_plain", "grad_features_plain", "grad_weights_plain",
+           "group_perm", "join_backward_plain",
+           "join_grad_features", "join_grad_weights", "keymatch_found",
+           "keymatch_gemm", "keymatch_gemm_plain", "rulebook_collisions",
+           "rulebook_inverse", "rulebook_inverse_plain", "tile_occupancy"]

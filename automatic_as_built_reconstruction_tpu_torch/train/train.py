@@ -11,9 +11,13 @@ from ``<model_dir>/checkpoints``, display windows with precision /
 recall, time-based and per-eval checkpoints, a forced checkpoint at the
 end) and ``evaluate`` (the eval split through the host reader, the
 network and ``predict`` on the device, point-evidence refinement for the
-configured classes, then the dataset's AP) from a model directory of the
-port's checkpoints, a checkpoint pickle of the JAX package, or seeded
-weights.  The network runs in fp32 with TF32 off whatever the process's
+configured classes, then the dataset's AP: ``BuildingDataset``'s lidar
+AP, or ``KittiDataset``'s KITTI protocol table) from a model directory
+of the port's checkpoints, a checkpoint pickle of the JAX package, or
+seeded weights.  Pillar and SECOND configs train alike; SECOND's sparse
+middle trains in key-match mode through the joins' backward kernels,
+reports ``mid_capacity_saturated`` and aborts as the reference does when
+its site caps keep truncating.  The network runs in fp32 with TF32 off whatever the process's
 global flags (``device.fp32_math``).  Multi-device training, the
 reference's ``profile_steps`` trace and mixed precision are not ported.
 """
@@ -136,8 +140,9 @@ def make_train_step(bundle: Bundle):
     backward, the global-norm clip, AdamW at learning rate
     ``schedule(state.step)``), in fp32 with TF32 off.  ``metrics`` holds
     device tensors (no host sync): the loss terms, ``grad_norm`` (of the
-    clipped gradients), ``num_pos`` and the precision / recall counts
-    under ``pr``."""
+    clipped gradients), ``num_pos``, for the sparse middle
+    ``mid_capacity_saturated``, and the precision / recall counts under
+    ``pr``."""
     cfg = bundle.model_cfg
 
     def train_step(state: TrainState, example: Dict[str, torch.Tensor]):
@@ -148,6 +153,12 @@ def make_train_step(bundle: Bundle):
                           example["coordinates"])
             loss, metrics = voxelnet_mod.compute_loss(preds, example, cfg)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
+        # sparse-middle capacity telemetry: per strided block, the scans
+        # whose active sites filled its static capacity
+        sat = getattr(model.middle_feature_extractor, "capacity_saturated",
+                      None)
+        if sat:
+            metrics["mid_capacity_saturated"] = sum(sat.values())
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(params, grads)]
         grads = clip_by_global_norm(grads, CLIP_NORM)
@@ -382,6 +393,7 @@ def train(config_path, model_dir, *, resume: bool = True,
                                   if isinstance(v, (int, float))},
                            prefix="eval")
     finally:
+        batches.close()         # stops the loader's producer and its pool
         try:
             mgr.save(state.step, state, force=True)
         except ckpt_mod.StepAlreadyExistsError as e:   # a no-op run

@@ -15,7 +15,10 @@ The trainer starts where the JAX package's ``model.init`` starts, in
 distribution (not in values: the draws come from a ``torch.Generator``):
 lecun-normal kernels (a normal truncated at two standard deviations,
 scaled to variance 1 / fan_in), zero biases except the class head's
-focal prior, BatchNorm scale 1, bias 0, running mean 0, variance 1.
+focal prior, BatchNorm scale 1, bias 0, running mean 0, variance 1, and
+the sparse middle's kernels as ``models/middle.py::_sparse_kernel_init``
+draws them: a unit normal truncated at two standard deviations times
+sqrt(2 / (taps * Cin)).
 """
 from __future__ import annotations
 
@@ -91,17 +94,23 @@ def load_seeded(model: nn.Module, seed: int) -> None:
 def flax_init_state_dict(model: nn.Module,
                          seed: int) -> Dict[str, torch.Tensor]:
     """A full ``state_dict`` for ``model`` drawn from ``seed`` with flax's
-    default initialisers (the module docstring).  Dense layers only: the
-    sparse middle's training is not ported."""
+    default initialisers (the module docstring)."""
     gen = torch.Generator().manual_seed(seed)
     out: Dict[str, torch.Tensor] = {}
     for mod_name, mod in model.named_modules():
         base = f"{mod_name}." if mod_name else ""
-        if isinstance(mod, (MaskedBatchNorm, SparseConvWeight)):
-            raise NotImplementedError(
-                f"{mod_name}: the sparse middle's training init is not "
-                f"ported")
-        if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+        if isinstance(mod, MaskedBatchNorm):
+            out[f"{base}weight"] = torch.ones_like(mod.weight)
+            out[f"{base}bias"] = torch.zeros_like(mod.bias)
+            out[f"{base}running_mean"] = torch.zeros_like(mod.running_mean)
+            out[f"{base}running_var"] = torch.ones_like(mod.running_var)
+        elif isinstance(mod, SparseConvWeight):
+            shape = tuple(mod.weight.shape)       # (kz, ky, kx, Cin, Cout)
+            std = (2.0 / int(np.prod(shape[:4]))) ** 0.5
+            w = torch.empty(shape)
+            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+            out[f"{base}weight"] = w * std
+        elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
             out[f"{base}weight"] = torch.ones_like(mod.weight)
             out[f"{base}bias"] = torch.zeros_like(mod.bias)
             out[f"{base}running_mean"] = torch.zeros_like(mod.running_mean)

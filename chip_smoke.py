@@ -53,12 +53,37 @@
    ``evaluate`` on the port's own checkpoint (AP printed, not held); and
    restarts with a larger ``max_steps``, which must resume at the saved
    step;
+6b. trains SECOND (``car.fhd.config`` at full width: B = 6, 17 000
+   voxels, the SpMiddleFHD stack in key-match mode, RPN 128, 70 400
+   anchors, the gt-database sampler and the augmentation, three loader
+   threads) through ``train()`` for 40 steps on a synthetic KITTI clone
+   that the port's generator writes into a temporary directory (48
+   training and 12 validation frames from seed 0, with the offline prep:
+   infos, reduced clouds, the gt database); where the plan's own site
+   caps raise ``CapacitySaturationError`` it says so and takes the caps
+   the reference measured for this config.  The counters are set to 0
+   just before and read just after: the forward join and its backward
+   (dW every join, the rulebook's inverse and dfeatures every join but
+   the first) once a join a step, as the plan says.  It reports steps/s
+   of each window, host prep of a batch on one thread against the device
+   step (events) and, at the end, a profile of one step; checks the loss
+   (finite, the last window below the first), one step at B = 2 in
+   float32 on the kernels against float64 on the plain versions on the
+   card (loss terms, every gradient, the parameters after the update, the
+   BatchNorm statistics), records one step's backward calls for the
+   kernel phase, runs ``evaluate`` on the validation frames (the KITTI
+   table printed, not held; the detections of two frames against the
+   port's CPU run, as sets), holds the KITTI protocol on the validation
+   ground truth given as detections (precision 1 at every threshold it
+   samples) and restarts with a larger ``max_steps``, which must resume;
 7. holds each kernel against its plain PyTorch version on the card, on
    the inputs the main paths gave it (for the pillar scatter also with
    the rows shuffled, and its backward on the training step's canvas
    gradient, shuffled and with negative ids, timed against its bound and
    the scatter timed against zeros + ``index_copy_`` in alternation, 30
-   turns each; for the rotated IoU the pillar and SECOND inputs, a
+   turns each; the sparse joins' backward kernels at every join of a
+   SECOND training step, against the plain backward, with their device
+   time and bound; for the rotated IoU the pillar and SECOND inputs, a
    1000 x 1000 set with degenerate boxes and one of nearly touching pairs,
    each with the outputs equal bit for bit and the share of the pairs
    each of its rejection tests takes; for the two sparse GEMMs every join
@@ -79,8 +104,9 @@
 8. times an empty kernel (one block, and the grids of K1 and K5) as the
    launch floor beside those two;
 9. prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
-   seven main paths, ``launches_by_path`` each path's own count; K1's
-   entry carries its backward's ``backward_*`` numbers), the card's
+   eight main paths, ``launches_by_path`` each path's own count; K1's
+   entry carries its backward's ``backward_*`` numbers, the two sparse
+   GEMMs' entries those of the joins' shared backward), the card's
    name and power limit as ``nvidia-smi`` reports them, and last
    ``{"ok": true, "device": ...}``.
 
@@ -106,6 +132,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from automatic_as_built_reconstruction_tpu_torch.data import (
+    batching, synth_kitti)
 from automatic_as_built_reconstruction_tpu_torch.data.building import (
     generate_building_scene, pad_batch)
 from automatic_as_built_reconstruction_tpu_torch.data.kitti_like import (
@@ -123,8 +151,10 @@ from automatic_as_built_reconstruction_tpu_torch.parallel import (
     PodInference, inference, pod_inference_from_checkpoint)
 from automatic_as_built_reconstruction_tpu_torch.parallel.inference import (
     detections_mismatch)
+from automatic_as_built_reconstruction_tpu_torch.utils import (
+    eval as eval_mod)
 from automatic_as_built_reconstruction_tpu_torch.train import (
-    train as train_mod)
+    checkpoint as ckpt_mod, train as train_mod)
 from automatic_as_built_reconstruction_tpu_torch.train.train import evaluate
 
 ROOT = Path(__file__).resolve().parent
@@ -204,6 +234,36 @@ TRAIN_F64_RTOL = 1e-9
 TRAIN_PARAM_TOL = dict(rtol=1e-5, atol=1e-7)
 TRAIN_G_NOISE, TRAIN_G_AGREE = 1e-3, 1e-3
 K1_TURNS = 30                    # K1 against index_copy_, in alternation
+# the sparse joins' backward kernels against their plain version on the
+# same rulebook: rtol, and atol as a share of the gradient's max |g|.  A
+# dW entry is an fp32 sum over the hit rows of a tap (up to ~1.5e5 of them
+# at B = 6), which the kernel adds in passes of 128 rows and the plain
+# einsum in cuBLAS's blocks: the plain version alone is ~2e-5 of max |g|
+# from float64 at the largest join (both sides' float64 errors are logged
+# there)
+JOIN_GRAD_TOL = 1e-4
+# SECOND training: car.fhd.config on a synthetic KITTI clone of the port's
+# generator (frames from seed 0; the reference's rehearsal writes 400 and
+# 100), 40 steps of its 99 040 in 10-step windows, the steps a restart
+# adds; the site caps the reference measured for this config on its clone
+# (tools/kitti_rehearsal.py:155), taken only where the plan's own caps
+# raise CapacitySaturationError; the batch of the float32 / float64 step
+SECOND_TRAIN_CONFIG = (ROOT / "automatic_as_built_reconstruction_tpu_torch"
+                       / "configs" / "second" / "car" / "car.fhd.config")
+SYNTH_TRAIN, SYNTH_VAL = 48, 12
+SECOND_TRAIN_STEPS, SECOND_DISPLAY, SECOND_RESUME_STEPS = 40, 10, 2
+MEASURED_SITE_CAPS = (49280, 51968, 29696, 28800)
+SECOND_STEP_B = 2
+# the card's float32 SECOND step against the float64 step of the plain
+# versions on the card: a tensor's gradient within SECOND_GRAD_SHARE of
+# its max |g|, the median tensor within SECOND_GRAD_MEDIAN_SHARE.  Set
+# from this step's own sound runs on an H100 80GB HBM3 at 700 W (worst
+# 6.4e-4, median 2.1e-5 of max |g|, PERF.md), about 8x and 10x above
+# them: float32 rounding moves single ReLU inputs across zero in the
+# RPN's last blocks, which moves their gradients by a share of max |g|.
+# The same step with TF32 on (the lower-precision control) is printed
+# beside it; the kernels themselves are held per join below
+SECOND_GRAD_SHARE, SECOND_GRAD_MEDIAN_SHARE = 5e-3, 2e-4
 
 
 def log(msg: str) -> None:
@@ -431,14 +491,19 @@ def recording(module, name: str, calls: list):
 # --------------------------------------------------------------------------
 
 # the port's kernel wrappers (K1 is two: the scatter and, in training, its
-# backward, the gather; K5 is three: its key route's key kernel and
-# segment-and-mean kernel, and the first-appearance route's table kernel),
-# and where the main paths look each kernel or function up
+# backward, the gather; the sparse joins' backward is three: the rulebook
+# inverse, dfeatures through the gather-GEMM kernel, the dW reduction; K5
+# is three: its key route's key kernel and segment-and-mean kernel, and
+# the first-appearance route's table kernel), and where the main paths
+# look each kernel or function up
 KERNELS = {"pillar_scatter": pillar_scatter.scatter_sorted_to_canvas,
            "pillar_gather": pillar_scatter.pillar_gather,
            "rotated_iou": rotated_iou.rotate_iou_matrix,
            "keymatch_gemm": sparse_gather_gemm.keymatch_gemm,
            "gather_gemm": sparse_gather_gemm.gather_gemm,
+           "rulebook_inverse": sparse_gather_gemm.rulebook_inverse,
+           "join_grad_features": sparse_gather_gemm.join_grad_features,
+           "join_grad_weights": sparse_gather_gemm.join_grad_weights,
            "voxel_keys": voxel_mean.point_keys,
            "voxel_mean": voxel_mean.segment_mean,
            "voxel_mean_table": voxel_mean.mean_from_table}
@@ -447,6 +512,9 @@ CALL_SITES = {"pillar_scatter": (pointpillars, "scatter_sorted_to_canvas"),
               "rotated_iou": (nms, "rotate_iou_matrix"),
               "keymatch_gemm": (middle, "keymatch_gemm"),
               "gather_gemm": (middle, "gather_gemm"),
+              "join_grad_features": (sparse_gather_gemm,
+                                     "join_grad_features"),
+              "join_grad_weights": (sparse_gather_gemm, "join_grad_weights"),
               "voxel_mean": (inference, "fused_voxelize_mean")}
 
 
@@ -1662,14 +1730,15 @@ def run_evaluate(card: str) -> dict:
 # pillar training
 # --------------------------------------------------------------------------
 
-def step_grads(bundle, state, example) -> tuple:
-    """Loss terms and gradients of one forward in train mode, the model's
-    state (BatchNorm statistics included) put back after.  -> ({term:
-    float}, {param name: grad on the host})."""
+def step_grads(bundle, state, example, math=fp32_math) -> tuple:
+    """Loss terms and gradients of one forward in train mode under the
+    float flags of ``math``, the model's state (BatchNorm statistics
+    included) put back after.  -> ({term: float}, {param name: grad on
+    the host})."""
     model = state.model.train()
     saved = copy.deepcopy(model.state_dict())
     names, params = zip(*model.named_parameters())
-    with fp32_math(), torch.enable_grad():
+    with math(), torch.enable_grad():
         preds = model(example["voxels"], example["num_points"],
                       example["coordinates"])
         loss, terms = voxelnet_mod.compute_loss(preds, example,
@@ -1681,12 +1750,14 @@ def step_grads(bundle, state, example) -> tuple:
 
 
 def device_step(config, batch, dev: str, steps: int,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, update: bool = False,
+                math=fp32_math) -> dict:
     """From the seeded weights of ``train()`` (seed 0) on ``dev``: the loss
-    terms and gradients of ``batch``, and, in float32, the state after
-    one ``make_train_step`` (on the host) and the learning rate it took.
-    In float64 the model and batch are cast and the scatter must be the
-    plain version (the kernel is fp32): no update."""
+    terms and gradients of ``batch`` (under ``math``'s float flags), and,
+    in float32 (or with ``update``), the state after one
+    ``make_train_step`` (on the host) and the learning rate it took.  In
+    float64 the model and batch are cast and the kernels must be their
+    plain versions (the kernels are fp32)."""
     bundle = train_mod.Bundle(config)
     state = train_mod.init_state(bundle, rng_seed=0, total_steps=steps,
                                  device=dev)
@@ -1695,9 +1766,9 @@ def device_step(config, batch, dev: str, steps: int,
         state.model.to(dtype)
         example = {k: v.to(dtype) if v.is_floating_point() else v
                    for k, v in example.items()}
-    terms, grads = step_grads(bundle, state, example)
+    terms, grads = step_grads(bundle, state, example, math)
     out = {"terms": terms, "grads": grads}
-    if dtype == torch.float32:
+    if dtype == torch.float32 or update:
         train_mod.make_train_step(bundle)(state, example)
         out["state"] = {k: v.cpu() for k, v in
                         state.model.state_dict().items()}
@@ -1907,6 +1978,544 @@ def train_pillars(card: str, config=CONFIG, steps: int = TRAIN_STEPS,
             "step": lambda: step_fn(state, example)}
 
 
+# --------------------------------------------------------------------------
+# SECOND training
+# --------------------------------------------------------------------------
+
+def second_train_config(tmp: Path, root: Path, caps=None) -> Path:
+    """car.fhd.config with its data paths under ``root``, as
+    tools/kitti_rehearsal.py:69-73 rewrites them, and, where given, the
+    middle's ``out_site_caps``; nothing else changes."""
+    text = SECOND_TRAIN_CONFIG.read_text().replace('"data/kitti',
+                                                   f'"{root}')
+    if caps:
+        old = "      downsample_factor: 8\n"
+        if text.count(old) != 1:
+            raise AssertionError("car.fhd.config: no single "
+                                 "downsample_factor line")
+        text = text.replace(old, old + "      out_site_caps: ["
+                            + ", ".join(map(str, caps)) + "]\n")
+    path = tmp / ("car.fhd.caps.config" if caps else "car.fhd.config")
+    path.write_text(text)
+    return path
+
+
+def plain_keymatch(features, in_keys, q_keys, weights, *args):
+    """The key-match join's plain version in the middle's call form
+    (differentiable by autograd, any float type)."""
+    return sparse_gather_gemm.keymatch_gemm_plain(features, in_keys, q_keys,
+                                                  weights)
+
+
+def second_step_mismatch(config, batch, steps: int) -> tuple:
+    """One SECOND training step on the card from the seeded weights of
+    ``train()``: float32 on the kernels against float64 on the plain
+    versions, both on the card.  -> (summary, first mismatch or None).
+    Loss terms TRAIN_LOSS_RTOL; each gradient within SECOND_GRAD_SHARE of
+    its tensor's max |g| and the median tensor within
+    SECOND_GRAD_MEDIAN_SHARE; every gradient nonzero; the parameters
+    after the update and the BatchNorm statistics as
+    train_step_mismatch holds them.  The summary also gives the same
+    shares of the float32 step with TF32 on (the control: a step of lower
+    precision, which the limits should not pass)."""
+    g32 = device_step(config, batch, "cuda", steps)
+    with substituted(middle, "keymatch_gemm", plain_keymatch):
+        g64 = device_step(config, batch, "cuda", steps, torch.float64,
+                          update=True)
+    control = device_step(config, batch, "cuda", steps, math=tf32_on)
+    t32, t64 = g32["terms"], g64["terms"]
+    summary = {"loss_f32": t32["loss"], "loss_f64": t64["loss"],
+               "terms_rel_err": {k: abs(t32[k] - t64[k]) / abs(t64[k])
+                                 for k in t64}}
+    bad = None
+    for k in t64:
+        if not abs(t32[k] - t64[k]) <= TRAIN_LOSS_RTOL * abs(t64[k]):
+            bad = bad or f"loss term {k}: float32 {t32[k]} vs {t64[k]}"
+
+    def shares(grads: dict) -> dict:
+        """Each tensor's max error against float64, a share of max |g|."""
+        out = {}
+        for n, truth in g64["grads"].items():
+            scale = float(truth.abs().max())
+            if scale > 0:
+                out[n] = (float((grads[n].double() - truth).abs().max())
+                          / scale)
+        return out
+
+    for n, truth in g64["grads"].items():
+        if not (truth.abs().max() > 0 and g32["grads"][n].abs().max() > 0):
+            bad = bad or f"gradient of {n} is zero"
+    share = shares(g32["grads"])
+    worst = max(share.values())
+    median = float(np.median(list(share.values())))
+    if not (worst <= SECOND_GRAD_SHARE
+            and median <= SECOND_GRAD_MEDIAN_SHARE):
+        bad = bad or (f"float32 gradients against float64: worst "
+                      f"{worst:.3g}, median {median:.3g} of max |g|")
+    tf32 = list(shares(control["grads"]).values())
+    c_worst, c_median = max(tf32), float(np.median(tf32))
+    summary.update(control_tf32_grad_share_worst=c_worst,
+                   control_tf32_grad_share_median=c_median,
+                   control_tf32_within_limits=(
+                       c_worst <= SECOND_GRAD_SHARE
+                       and c_median <= SECOND_GRAD_MEDIAN_SHARE))
+    excused, lr = 0, g32["lr"]
+    for n, want in g64["state"].items():
+        got = g32["state"][n]
+        if not want.is_floating_point():
+            if not torch.equal(got, want):
+                bad = bad or f"{n}: {got} vs {want}"
+            continue
+        got, want = got.double(), want.double()
+        close = torch.isclose(got, want, **TRAIN_PARAM_TOL)
+        if n in g64["grads"]:
+            g, truth = g32["grads"][n].double(), g64["grads"][n]
+            noise = (((g - truth).abs() > TRAIN_G_AGREE * truth.abs())
+                     | (truth.abs() < TRAIN_G_NOISE * truth.abs().max()))
+            excused += int((noise & ~close).sum())
+            close |= noise & ((got - want).abs() <= 2 * lr * 1.01)
+        if not bool(close.all()):
+            bad = bad or (f"{n} after the update: max abs diff "
+                          f"{float((got - want).abs().max())}")
+    summary.update(grad_share_worst=worst, grad_share_median=median,
+                   grad_share_top={n: share[n] for n in sorted(
+                       share, key=share.get, reverse=True)[:4]},
+                   excused_params=excused)
+    return summary, bad
+
+
+def join_bound(feats, idx, found, dout, dfeatures: bool = True) -> dict:
+    """What the backward of one join needs, from its own hits.  Each half
+    does the needed flops 2 * hits * Cin * Cout, bounded at the 3xTF32
+    rate as K3/K4 are (the fp32 SIMT rate beside it for dW, whose kernel
+    runs there), and moves each of its inputs once and its output once:
+    dW reads the features, dout and the rulebook and writes dW; dfeatures
+    reads dout, the rulebook and W and writes dfeatures.  A half's bound
+    is the larger of its two times; the backward's is their sum (dW alone
+    where the input needs no gradient)."""
+    Cin, Cout = feats.shape[-1], dout.shape[-1]
+    hits = int(found.sum())
+    book = idx.numel() * idx.element_size() + found.numel()
+    w_bytes = idx.shape[-2] * Cin * Cout * 4
+    flops = 2 * hits * Cin * Cout
+    ops_ms = flops / PEAK_TF32_3X_PER_S * 1e3
+    out = {"hits": hits, "flops": flops}
+    for half, nbytes in (("dw", feats.numel() * 4 + dout.numel() * 4 + book
+                          + w_bytes),
+                         ("dfeatures", dout.numel() * 4 + book + w_bytes
+                          + feats.numel() * 4)):
+        if half == "dfeatures" and not dfeatures:
+            out.update(dfeatures_bytes=0, dfeatures_bound_ms=0.0)
+            continue
+        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        out.update({f"{half}_bytes": nbytes,
+                    f"{half}_bound_ms": max(ops_ms, bytes_ms),
+                    f"{half}_bound_by": ("operations" if ops_ms >= bytes_ms
+                                         else "bytes")})
+    out["dw_bound_fp32_simt_ms"] = max(flops / PEAK_FP32_PER_S * 1e3,
+                                       out["dw_bytes"] / PEAK_BYTES_PER_S
+                                       * 1e3)
+    out["bound_ms"] = out["dw_bound_ms"] + out["dfeatures_bound_ms"]
+    larger = ("dw" if out["dw_bound_ms"] >= out["dfeatures_bound_ms"]
+              else "dfeatures")
+    out["bound_by"] = out[f"{larger}_bound_by"]
+    return out
+
+
+@torch.no_grad()
+def phase_join_backward(wcalls: list, fcalls: list, card: str) -> tuple:
+    """The backward kernels against the plain backward at every join of
+    one training step (B = 6): dW (``join_grad_weights``) and dfeatures
+    (``join_grad_features``: the rulebook's inverse and the gather
+    kernel), rtol and atol JOIN_GRAD_TOL of max |g|; each join's device
+    time and bound.  -> (the kernels line's backward fields, {key: fn} and
+    event times for the largest join)."""
+    sgg = sparse_gather_gemm
+    by_rulebook = {id(c[0][1]): c for c in fcalls}
+    worst, per_join, bounds = 0.0, [], []
+    for (feats, idx, found, dout), _ in wcalls:
+        got = sgg.join_grad_weights(feats, idx, found, dout)
+        ref = sgg.grad_weights_plain(feats, idx, found, dout)
+        checks = [("dW", got, ref)]
+        fcall = by_rulebook.get(id(idx))
+        if fcall is not None:
+            (fdout, fidx, ffound, w, N), _ = fcall
+            checks.append(("dfeatures",
+                           sgg.join_grad_features(fdout, fidx, ffound, w, N),
+                           sgg.grad_features_plain(fdout, fidx, ffound, w,
+                                                   N)))
+        torch.cuda.synchronize()
+        what = (f"B={feats.shape[0]} N={feats.shape[1]} R={idx.shape[-1]} "
+                f"K={idx.shape[-2]} Cin={feats.shape[-1]} "
+                f"Cout={dout.shape[-1]}")
+        errs = {}
+        for name, g, r in checks:
+            scale = float(r.abs().max())
+            err = float((g - r).abs().max())
+            errs[name] = err / scale if scale else err
+            close = torch.isclose(g, r, rtol=JOIN_GRAD_TOL,
+                                  atol=JOIN_GRAD_TOL * scale)
+            if not (scale > 0 and bool(close.all())):
+                raise AssertionError(f"join backward {what}: {name} kernel "
+                                     f"vs plain: max abs err {err} (max "
+                                     f"|g| {scale})")
+            worst = max(worst, errs[name])
+
+        def kernels():
+            sgg.join_grad_weights(feats, idx, found, dout)
+            if fcall is not None:
+                sgg.join_grad_features(fdout, fidx, ffound, w, N)
+
+        ms, _ = device_ms(kernels)
+        # the voxel means need no gradient: no dfeatures at the first join
+        b = join_bound(feats, idx, found, dout, fcall is not None)
+        per_join.append(ms)
+        bounds.append(b["bound_ms"])
+        log(f"join backward [{card}]: {what}: dW"
+            f"{' + dfeatures' if fcall is not None else ''} kernel vs plain "
+            f"max err {json.dumps(errs)} of max |g|; device "
+            f"{'not measured' if ms is None else f'{ms:.5f} ms'}; bound "
+            f"{b['bound_ms']:.5f} ms by {b['bound_by']} (dW "
+            f"{b['dw_bound_ms']:.5f} by {b['dw_bound_by']}, at the SIMT "
+            f"rate {b['dw_bound_fp32_simt_ms']:.5f}; dfeatures "
+            f"{b['dfeatures_bound_ms']:.5f}; {b['hits']} hits, "
+            f"{b['flops']} needed flops, {b['dw_bytes']} bytes a half)")
+    largest = max(wcalls, key=lambda c: int(c[0][2].sum())
+                  * c[0][0].shape[-1] * c[0][3].shape[-1])
+    feats, idx, found, dout = largest[0]
+    (fdout, fidx, ffound, w, N), _ = by_rulebook[id(idx)]
+    b = join_bound(feats, idx, found, dout)
+    # which side is nearer float64, at the largest join
+    f64 = {"dW": sgg.grad_weights_plain(feats.double(), idx, found,
+                                        dout.double()),
+           "dfeatures": sgg.grad_features_plain(fdout.double(), fidx, ffound,
+                                                w.double(), N)}
+    f32 = {"dW": (sgg.join_grad_weights(feats, idx, found, dout),
+                  sgg.grad_weights_plain(feats, idx, found, dout)),
+           "dfeatures": (sgg.join_grad_features(fdout, fidx, ffound, w, N),
+                         sgg.grad_features_plain(fdout, fidx, ffound, w, N))}
+    vs64 = {k: {side: float((g.double() - f64[k]).abs().max()
+                            / f64[k].abs().max())
+                for side, g in zip(("kernel", "plain"), f32[k])}
+            for k in f64}
+    del f64, f32
+    log(f"join backward [{card}]: largest join, max error against float64 "
+        f"as a share of max |g|: {json.dumps(vs64)}")
+    fns = {"backward_ms": lambda: (
+               sgg.join_grad_weights(feats, idx, found, dout),
+               sgg.join_grad_features(fdout, fidx, ffound, w, N)),
+           "backward_plain_ms": lambda: (
+               sgg.grad_weights_plain(feats, idx, found, dout),
+               sgg.grad_features_plain(fdout, fidx, ffound, w, N)),
+           "backward_dw_ms": lambda: sgg.join_grad_weights(
+               feats, idx, found, dout),
+           "backward_dfeatures_ms": lambda: sgg.join_grad_features(
+               fdout, fidx, ffound, w, N)}
+    ev = {k: cuda_ms(fn, iters=10, warmup=2) for k, fn in fns.items()}
+    shape = (f"B={feats.shape[0]} N={feats.shape[1]} R={idx.shape[-1]} "
+             f"K={idx.shape[-2]} Cin={feats.shape[-1]} Cout={dout.shape[-1]}")
+    log(f"join backward [{card}]: largest join {shape}: events "
+        + "; ".join(f"{k[:-3]} {fmt_range(v)}" for k, v in ev.items())
+        + f"; bound {b['bound_ms']:.5f} ms; {len(wcalls)} joins, "
+        f"{len(fcalls)} with dfeatures; per join device ms {per_join}")
+    fields = {"backward_kernel": "rulebook_inverse_kernel + "
+                                 "gather_gemm_kernel (dfeatures), "
+                                 "tap_grad_partial_kernel + "
+                                 "tap_grad_sum_kernel (dW)",
+              "backward_source": "automatic_as_built_reconstruction_tpu_"
+                                 "torch/csrc/sparse_join_grad.cu",
+              "backward_shape": shape,
+              "backward_max_err_of_max_g": worst,
+              "backward_vs_float64": vs64,
+              "backward_bound_ms": b["bound_ms"],
+              "backward_bound_by": b["bound_by"],
+              "backward_dw_bound_ms": b["dw_bound_ms"],
+              "backward_dw_bound_by": b["dw_bound_by"],
+              "backward_dw_bound_fp32_simt_ms": b["dw_bound_fp32_simt_ms"],
+              "backward_dfeatures_bound_ms": b["dfeatures_bound_ms"],
+              "backward_dfeatures_bound_by": b["dfeatures_bound_by"],
+              "backward_per_join_ms": per_join,
+              "backward_per_join_bound_ms": bounds,
+              "backward_library_ms": None}
+    return fields, fns, ev
+
+
+def perfect_eval(val_info_path: Path, card: str) -> dict:
+    """The KITTI protocol with the validation ground truth as detections
+    (distinct scores): every threshold the protocol samples has precision
+    1 and the last recall 1, so AP is 100 wherever the ground truth fills
+    the 41 recall slots (at least ~40 objects of the difficulty) and
+    100 * (slots filled) / 41 otherwise.  -> the AP table."""
+    import pickle
+
+    with open(val_info_path, "rb") as f:
+        gt = [i["annos"] for i in pickle.load(f)]
+    dt, s = [], 1.0
+    for a in gt:
+        keep = a["name"] != "DontCare"
+        d = {k: a[k][keep] for k in ("name", "truncated", "occluded",
+                                     "alpha", "bbox", "dimensions",
+                                     "location", "rotation_y")}
+        d["score"] = s - 1e-3 * np.arange(int(keep.sum()))
+        s -= 1e-3 * int(keep.sum())
+        dt.append(d)
+    result = eval_mod.get_official_eval_result(gt, dt, ["Car"])
+    for metric, mname in ((0, "bbox"), (1, "bev"), (2, "3d")):
+        for diff, dname in enumerate(eval_mod.DIFFICULTY_NAMES):
+            r = eval_mod.eval_class(gt, dt, "Car", diff, metric,
+                                    eval_mod.OVERLAPS["Car"][metric])
+            T = len(r["thresholds"])
+            if r["num_valid_gt"] == 0:
+                continue
+            filled = len(range(0, min(T, 41), 4))
+            ap = result[f"Car.{mname}.{dname}"]
+            if not ((r["precision"][:T] == 1).all()
+                    and r["recall"][T - 1] == 1.0
+                    and abs(ap - 100.0 * filled / 11) < 1e-9):
+                raise AssertionError(
+                    f"perfect detections: Car {mname} {dname}: AP {ap}, "
+                    f"{T} thresholds, precision {r['precision'][:T]}, "
+                    f"recall {r['recall'][:T]}")
+            log(f"perfect detections [{card}]: Car {mname} {dname}: "
+                f"{r['num_valid_gt']} objects, {T} thresholds, precision 1 "
+                f"at each, AP {ap:.4f}"
+                f"{' (100: every recall slot filled)' if T == 41 else ''}")
+    log(f"perfect detections [{card}]: KITTI table\n" + result["result_str"])
+    return result
+
+
+def train_second(card: str) -> dict:
+    """The SECOND training path: a synthetic KITTI clone (the port's
+    generator and offline prep) in a temporary directory; ``train()`` on
+    car.fhd.config at full width (B = 6, the sampler, the augmentation,
+    the loader's three workers) with every kernel counter set to 0 just
+    before and read just after; the loss check; host prep against the
+    device step; one training step's backward calls recorded for the
+    kernel phase; one step at B = 2, float32 on the kernels against
+    float64 on the plain versions; ``evaluate`` on the 12 validation
+    frames (the KITTI table; two frames' detections against the port's
+    CPU run); perfect detections; a restart that resumes.  -> {"launches",
+    "report", "wcalls", "fcalls", "step": one more step, for the
+    profile}."""
+    report = {}
+    sgg = sparse_gather_gemm
+    with torch.enable_grad(), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "kitti"
+        t0 = time.perf_counter()
+        n_labels = synth_kitti.write_clone(root, SYNTH_TRAIN, SYNTH_VAL,
+                                           seed=0)
+        log(f"second training [{card}]: synthetic KITTI clone, "
+            f"{SYNTH_TRAIN} + {SYNTH_VAL} frames ({n_labels} labels), "
+            f"infos, reduced clouds and gt database in "
+            f"{time.perf_counter() - t0:.1f} s")
+        config = second_train_config(tmp, root)
+        bundle = train_mod.Bundle(config)
+        cfg = bundle.model_cfg
+        if not (cfg.sparse_keymatch and cfg.sparse_use_pallas_gemm
+                and cfg.sparse_dense_tail_blocks == 0):
+            raise AssertionError("car.fhd.config is not in key-match mode")
+        plan = middle_plan(cfg, 17000)
+        joins = sum(b.n_subm + 1 for b in plan)
+        log(f"second training [{card}]: plan caps "
+            f"{[b.out_cap for b in plan]}, {joins} joins a step")
+        model_dir = tmp / "second"
+
+        def run_train(config, **kw):
+            for fn in KERNELS.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            with flags_in_modules() as seen:
+                state = train_mod.train(config, model_dir,
+                                        max_steps=SECOND_TRAIN_STEPS,
+                                        display_step=SECOND_DISPLAY,
+                                        device="cuda", **kw)
+                torch.cuda.synchronize()
+            return state, time.perf_counter() - t0, seen
+
+        try:
+            state, wall, seen = run_train(config)
+            report["site_caps"] = "plan"
+        except train_mod.CapacitySaturationError as e:
+            log(f"second training [{card}]: the plan's site caps raised "
+                f"CapacitySaturationError ({e}); substituting the caps the "
+                f"reference measured for car.fhd.config "
+                f"(tools/kitti_rehearsal.py:155): {MEASURED_SITE_CAPS}")
+            config = second_train_config(tmp, root, MEASURED_SITE_CAPS)
+            state, wall, seen = run_train(config, resume=False)
+            report["site_caps"] = list(MEASURED_SITE_CAPS)
+        steps = SECOND_TRAIN_STEPS
+        launches = {name: fn.launches for name, fn in KERNELS.items()}
+        log(f"second training [{card}]: {steps} steps of train() in "
+            f"{wall:.2f} s wall (Bundle, reader, seeded init and the final "
+            f"checkpoint included): {steps / wall:.3f} steps/s; launches "
+            f"{launches}")
+        want = dict.fromkeys(KERNELS, 0) | {
+            "keymatch_gemm": joins * steps, "join_grad_weights": joins * steps,
+            "join_grad_features": (joins - 1) * steps,
+            "rulebook_inverse": (joins - 1) * steps}
+        if launches != want or state.step != steps:
+            raise AssertionError(f"second training launched {launches} in "
+                                 f"{state.step} steps, expected {want}")
+        if seen != {(False, False)}:
+            raise AssertionError(f"second training: the network ran with "
+                                 f"TF32 flags {sorted(seen)}")
+        windows = [json.loads(line) for line in
+                   (model_dir / "metrics.jsonl").read_text().splitlines()]
+        windows = [w for w in windows if w["prefix"] == "train"]
+        keys = ("loss", "loss_cls", "loss_loc", "loss_dir", "grad_norm",
+                "num_pos", "mid_capacity_saturated", "steps_per_sec",
+                "host_prep_ms", "feed_ms", "step_ms")
+        for w in windows:
+            log(f"second training [{card}]: window to step {w['step']}: "
+                + json.dumps({k: round(w[k], 5) for k in keys}))
+        first, last = windows[0]["loss"], windows[-1]["loss"]
+        if not all(math.isfinite(w["loss"]) for w in windows):
+            raise AssertionError("second training: a loss is not finite")
+        if not last < first:
+            raise AssertionError(f"second training: mean loss of the last "
+                                 f"window {last} is not below the first's "
+                                 f"{first}")
+        wait = float(np.median([w["host_prep_ms"] for w in windows]))
+
+        # host prep of one batch on one thread against the device step
+        prep_ds, loader = bundle.input_reader(training=True, seed=1)
+        stream = loader._index_stream()
+        t_prep = []
+        examples = []
+        reader = bundle.config["train_input_reader"]
+        for _ in range(reader["batch_size"]):
+            t0 = time.perf_counter()
+            examples.append(prep_ds.example(*next(stream)))
+            t_prep.append((time.perf_counter() - t0) * 1e3)
+        prep_batch = float(np.sum(t_prep))
+        example = train_mod.to_device(batching.merge_batch(examples), "cuda")
+        step_fn = train_mod.make_train_step(train_mod.Bundle(config))
+        ev = cuda_ms(lambda: step_fn(state, example), iters=5, warmup=1)
+        report.update(steps=steps, wall_s=wall, steps_per_sec=steps / wall,
+                      window_steps_per_sec=[w["steps_per_sec"]
+                                            for w in windows],
+                      loss_windows=[w["loss"] for w in windows],
+                      loader_wait_ms=wait, prep_ms_one_thread=prep_batch,
+                      device_step_ms=ev,
+                      host_prep_share=prep_batch / (prep_batch + ev[0]))
+        log(f"second training [{card}]: mean loss {first:.5f} (steps 1-"
+            f"{SECOND_DISPLAY}) -> {last:.5f} (steps {steps - SECOND_DISPLAY
+            + 1}-{steps}); the loader's wait a batch (median of the windows, "
+            f"{reader['num_workers']} workers) {wait:.2f} ms; prep of one "
+            f"batch of {len(examples)} on one thread "
+            f"{prep_batch:.1f} ms (examples {[round(t, 1) for t in t_prep]}); "
+            f"device step (B={len(examples)}, synchronised, events) "
+            f"{fmt_range(ev)}: host prep on one thread is "
+            f"{100 * report['host_prep_share']:.1f} % of prep + device step")
+
+        # one step's backward calls, for the kernel phase
+        wcalls, fcalls = [], []
+        with recording(sgg, "join_grad_weights", wcalls), \
+                recording(sgg, "join_grad_features", fcalls):
+            step_fn(state, example)
+        torch.cuda.synchronize()
+        if (len(wcalls), len(fcalls)) != (joins, joins - 1):
+            raise AssertionError(f"one step recorded {len(wcalls)} dW and "
+                                 f"{len(fcalls)} dfeatures calls, expected "
+                                 f"{joins} and {joins - 1}")
+        if sgg.rulebook_collisions("cuda"):
+            raise AssertionError("a join's rulebook is not a convolution's: "
+                                 f"{sgg.rulebook_collisions('cuda')} "
+                                 f"collisions")
+
+        # one step at B = 2: float32 on the kernels, float64 plain
+        pair = batching.merge_batch(examples[:SECOND_STEP_B])
+        summary, bad = second_step_mismatch(config, pair, steps)
+        log(f"second training [{card}]: one step (B={SECOND_STEP_B}) float32 "
+            f"on the kernels vs float64 on the plain versions, both on the "
+            f"card: " + json.dumps(summary))
+        if bad is not None:
+            raise AssertionError(f"second train step, float32 vs float64: "
+                                 f"{bad}")
+        report["f32_vs_f64"] = summary
+
+        # evaluate on the validation frames; two frames against the CPU
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = evaluate(config, model_dir, device="cuda")
+        ev_launches = {n: fn.launches for n, fn in KERNELS.items()}
+        batches = -(-SYNTH_VAL // bundle.config["eval_input_reader"][
+            "batch_size"])
+        want = dict.fromkeys(KERNELS, 0) | {"keymatch_gemm": joins * batches,
+                                            "rotated_iou": batches}
+        if ev_launches != want:
+            raise AssertionError(f"second evaluate launched {ev_launches}, "
+                                 f"expected {want}")
+        log(f"second training [{card}]: evaluate on the {SYNTH_VAL} "
+            f"validation frames (checkpoint at step {steps}) in "
+            f"{time.perf_counter() - t0:.1f} s, launches {ev_launches}; "
+            f"KITTI table (not held):\n" + result["result_str"])
+        report["evaluate_ap"] = {k: v for k, v in result.items()
+                                 if k != "result_str"}
+        # validation frames 0 and 1 through the checkpoint on the CPU and
+        # on the card: the heads, and the detections at the config's score
+        # threshold and, as 40 steps score few boxes above it, at the
+        # middle of the widest gap among the CPU's 64 highest scores
+        eb = train_mod.Bundle(config)
+        vds, _ = eb.input_reader(training=False)
+        val = batching.merge_batch([vds.example(i, i) for i in range(2)])
+        heads, dets, thresholds = {}, {}, [cfg.nms_score_threshold]
+        for dev in ("cpu", "cuda"):
+            eb.model.to(dev)
+            ckpt_mod.CheckpointManager(model_dir).restore_model(eb.model)
+            ex = train_mod.to_device(val, dev)
+            with torch.no_grad(), fp32_math():
+                preds = eb.model.eval()(ex["voxels"], ex["num_points"],
+                                        ex["coordinates"])
+                if dev == "cpu":
+                    top = torch.sigmoid(preds["cls_preds"]).flatten().topk(
+                        64).values.double()
+                    i = int((top[:-1] - top[1:]).argmax())
+                    thresholds.append(float(top[i] + top[i + 1]) / 2)
+                for thr in thresholds:
+                    out = predict(preds, ex["anchors"], dataclasses.replace(
+                        cfg, nms_score_threshold=thr))
+                    dets[dev, thr] = {k: v.cpu().numpy()
+                                      for k, v in out.items()}
+            heads[dev] = {k: v.float().cpu() for k, v in preds.items()}
+        err, bad_head = heads_mismatch(heads["cuda"], heads["cpu"])
+        if bad_head is not None:
+            raise AssertionError(f"second evaluate: head {bad_head} card vs "
+                                 f"CPU {err}, tolerance {HEAD_TOL}")
+        counts = {}
+        for thr in thresholds:
+            diff = detections_mismatch(dets["cuda", thr], dets["cpu", thr],
+                                       cfg.num_class)
+            if diff is not None:
+                raise AssertionError(f"second evaluate: card vs CPU "
+                                     f"detections (score >= {thr}) on two "
+                                     f"validation frames: {diff}")
+            counts[thr] = int(dets["cpu", thr]["valid"].sum())
+        log(f"second training [{card}]: validation frames 0 and 1: heads "
+            f"card vs CPU max abs diff {err} (within {HEAD_TOL}); "
+            f"detections equal the CPU run's as sets ({counts} boxes by "
+            f"score threshold)")
+        report["perfect_ap"] = {k: v for k, v in perfect_eval(
+            root / "kitti_infos_val.pkl", card).items() if k != "result_str"}
+
+        state2 = train_mod.train(config, model_dir,
+                                 max_steps=steps + SECOND_RESUME_STEPS,
+                                 display_step=SECOND_RESUME_STEPS,
+                                 device="cuda")
+        text = (model_dir / "log.txt").read_text()
+        if (state2.step != steps + SECOND_RESUME_STEPS
+                or f"resumed from checkpoint at step {steps}" not in text):
+            raise AssertionError(f"second restart: step {state2.step}, log "
+                                 f"{text[-300:]}")
+        log(f"second training [{card}]: a restart with max_steps "
+            f"{steps + SECOND_RESUME_STEPS} resumed at step {steps} and "
+            f"ended at {state2.step}")
+    return {"launches": launches, "report": report, "wcalls": wcalls,
+            "fcalls": fcalls, "step": lambda: step_fn(state, example)}
+
+
 def device_time(what: str, card: str, fn):
     ms, per_kernel = device_ms(fn)
     log(f"{what} [{card}]: device time per call "
@@ -1928,12 +2537,14 @@ def main() -> int:
         second = serve_second(card)
         ev_launches = run_evaluate(card)
         training = train_pillars(card)
+        second_training = train_second(card)
         km, gg = second["km_launches"], second["gg_launches"]
         fm, dyn = second["fm_launches"], second["dyn_launches"]
         per_path = {"pillar serving": launches, "evaluate": ev_launches,
                     "second key-match": km, "second gather-GEMM": gg,
                     "second fused_mean": fm, "second dynamic": dyn,
-                    "pillar training": training["launches"]}
+                    "pillar training": training["launches"],
+                    "second training": second_training["launches"]}
         total = {name: sum(p[name] for p in per_path.values())
                  for name in KERNELS}
         log(f"launches by path: {json.dumps(per_path)}; summed {total}")
@@ -1953,6 +2564,20 @@ def main() -> int:
                                     second["gg_calls"]["gather_gemm"],
                                     total["gather_gemm"], card),
                   k5]
+        # the joins' backward, shared by the two families: its numbers go
+        # into both entries
+        bw_fields, bw_fns, bw_ev = phase_join_backward(
+            second_training["wcalls"], second_training["fcalls"], card)
+        del second_training["wcalls"], second_training["fcalls"]
+        bw_counters = ["rulebook_inverse", "join_grad_features",
+                       "join_grad_weights"]
+        for entry, fns, ev in phases[2:4]:
+            entry.update(bw_fields, backward_counters=bw_counters,
+                         backward_launches={c: total[c]
+                                            for c in bw_counters})
+            fns.update(bw_fns)
+            ev.update(bw_ev)
+        phases[0][0]["backward_counters"] = ["pillar_gather"]
         # last: the profiler's tracing slows later launches down.  Each
         # time in the kernels line is device time, with the event times
         # (median, min, max) beside it under *_event_ms.
@@ -1967,9 +2592,11 @@ def main() -> int:
                       else key[:-3] + "_event_ms"] = ev[key]
             entry["launches_by_path"] = {
                 path: n[entry["name"]] for path, n in per_path.items()}
-            if "backward_kernel" in entry:
+            if "backward_counters" in entry:
+                counters = entry.pop("backward_counters")
                 entry["backward_launches_by_path"] = {
-                    path: n["pillar_gather"] for path, n in per_path.items()}
+                    path: {c: n[c] for c in counters} if len(counters) > 1
+                    else n[counters[0]] for path, n in per_path.items()}
             entry["ms_from"] = ("torch.profiler device time" if measured
                                 else "cuda events (median)")
             kernels.append(entry)
@@ -1983,6 +2610,9 @@ def main() -> int:
         with torch.enable_grad():
             profile_call("pillar training step", training["step"], card,
                          training["report"]["device_step_ms"][0])
+            profile_call("second training step", second_training["step"],
+                         card,
+                         second_training["report"]["device_step_ms"][0])
         profile_call("serving", lambda: pod(*requests[2]), card, latency_ms)
         for what, key, lat in (("second key-match", "pod", "latency_ms"),
                                ("second gather-GEMM", "gg", "gg_latency_ms"),

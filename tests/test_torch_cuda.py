@@ -291,11 +291,97 @@ def test_sparse_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         sgg.keymatch_gemm(torch.zeros(2, feats.shape[1], 256, device=cuda),
                           in_keys, q_keys,
                           torch.zeros(27, 256, 128, device=cuda))
-    with pytest.raises(NotImplementedError):     # no backward yet
-        sgg.keymatch_gemm(feats, in_keys, q_keys, w.requires_grad_())
-    with torch.no_grad():                # fine where no grad is recorded
-        sgg.keymatch_gemm(feats, in_keys, q_keys, w)
+    with pytest.raises(ValueError):      # dfeatures: Cin the tile lacks
+        sgg.keymatch_gemm(feats[..., :12].contiguous().requires_grad_(),
+                          in_keys, q_keys, w[:, :12].contiguous()
+                          ).sum().backward()
+    with torch.no_grad():                # nothing recorded without grad
+        assert sgg.keymatch_gemm(feats, in_keys, q_keys,
+                                 w.requires_grad_()).grad_fn is None
     torch.cuda.synchronize()
+
+
+def _join_grad_launches():
+    return (sgg.rulebook_inverse.launches, sgg.join_grad_features.launches,
+            sgg.join_grad_weights.launches)
+
+
+@pytest.mark.parametrize("family", ["keymatch", "gather", "strided"])
+@pytest.mark.parametrize("K,cin,cout", [
+    (27, 4, 16), (27, 16, 16), (27, 16, 32), (27, 32, 64), (27, 64, 64),
+    (3, 64, 64)])
+def test_sparse_join_backward_kernels_equal_plain(cuda, family, K, cin,
+                                                  cout):
+    """The gradients of a join on the card (the rulebook's inverse and the
+    gather-GEMM kernel for dfeatures, the per-tap reduction for dW)
+    against the plain backward on the same rulebook: rtol and atol
+    chip_smoke.JOIN_GRAD_TOL of max|g|; pad rows get exactly 0; dfeatures
+    only where the input needs it (Cin = 4: the voxel means); the same
+    bits twice; no rulebook collision."""
+    if family == "strided" and K != 27:
+        pytest.skip("the strided joins are 27-tap")
+    feats, coords, valid, in_keys, q_keys, w, grid, kernel = _sparse_join(
+        cuda, K, cin, cout)
+    feats = feats + (~valid[..., None]) * torch.randn_like(feats)  # pads
+    need_f = cin != 4
+    if family == "strided":
+        layout = sparse_conv.build_strided_layout_merge(
+            coords, valid, grid, (3, 3, 3), (2, 2, 2), (1, 1, 1), 1024)
+        idx, found = layout.gather_idx, layout.found
+    elif family == "gather":
+        rb = sparse_conv.build_submanifold_rulebook_merge(coords, valid, grid,
+                                                          kernel)
+        idx, found = rb.gather_idx, rb.found
+    else:
+        i, h = sparse_conv._merge_lookup(in_keys, q_keys.flatten(-2))
+        idx, found = i.view(q_keys.shape), h.view(q_keys.shape)
+    g = torch.randn(*idx.shape[:-2], idx.shape[-1], cout, device=cuda)
+
+    def grads():
+        f = feats.clone().requires_grad_(need_f)
+        wt = w.clone().requires_grad_()
+        if family == "keymatch":
+            out = sgg.keymatch_gemm(f, in_keys, q_keys, wt)
+        else:
+            out = sgg.gather_gemm(f, idx, found, wt)
+        out.backward(g)
+        return f.grad, wt.grad
+
+    before = _join_grad_launches()
+    df, dw = grads()
+    torch.cuda.synchronize()
+    after = _join_grad_launches()
+    assert after == (before[0] + need_f, before[1] + need_f, before[2] + 1)
+    ref_f, ref_w = sgg.join_backward_plain(feats, idx, found, w, g)
+    tol = chip_smoke.JOIN_GRAD_TOL
+    torch.testing.assert_close(dw, ref_w, rtol=tol,
+                               atol=tol * float(ref_w.abs().max()))
+    if need_f:
+        torch.testing.assert_close(df, ref_f, rtol=tol,
+                                   atol=tol * float(ref_f.abs().max()))
+        assert bool((df[~valid] == 0).all()) and float(ref_f.abs().max()) > 0
+    else:
+        assert df is None
+    df2, dw2 = grads()
+    assert torch.equal(dw2, dw) and (df is None or torch.equal(df2, df))
+    assert sgg.rulebook_collisions(cuda) == 0
+
+
+def test_rulebook_inverse_kernel_counts_collisions(cuda):
+    """A rulebook that is no convolution's (two rows of a tap read one
+    input row): the inverse kernel counts the entry it cannot place;
+    elsewhere it equals the plain inverse."""
+    idx = torch.tensor([[[0, 1, 2, 3], [3, 3, 0, 1]]], dtype=torch.int32,
+                       device=cuda)
+    found = torch.tensor([[[1, 1, 0, 1], [1, 1, 1, 0]]], dtype=torch.bool,
+                         device=cuda)
+    before = sgg.rulebook_collisions(cuda)
+    inv, inv_found = sgg.rulebook_inverse(idx, found, 5)
+    assert sgg.rulebook_collisions(cuda) == before + 1
+    ref, ref_found = sgg.rulebook_inverse_plain(idx, found, 5)
+    assert torch.equal(inv_found, ref_found)
+    assert torch.equal(inv[0, 0], ref[0, 0])
+    assert int(inv[0, 1, 3]) in (0, 1) and int(inv[0, 1, 0]) == 2
 
 
 # --------------------------------------------------------------------------

@@ -317,11 +317,11 @@ def test_prep_pointcloud_inference_branch_equals_reference(variant):
         assert got["anchors_mask"].any() and not got["anchors_mask"].all()
     assert dataclasses.asdict(preprocess.PrepConfig()) == dataclasses.asdict(
         jax_preprocess.PrepConfig())
-    with pytest.raises(NotImplementedError):    # the gt database sampler
+    with pytest.raises(NotImplementedError):    # host-built rulebooks
         preprocess.prep_pointcloud(sensor, bundle.voxel_generator,
                                    bundle.target_assigner,
                                    preprocess.PrepConfig(**kw), training=True,
-                                   db_sampler=object())
+                                   middle_plan=object())
 
 
 def test_input_reader_matches_reference_batches():
@@ -345,20 +345,21 @@ def test_input_reader_matches_reference_batches():
                 np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
     assert tbatches[1]["voxels"].shape[0] == 1
     assert tbatches[0]["metadata"][0]["scene_id"] == 7 * 100003
-    with pytest.raises(NotImplementedError):    # the gt database sampler
+    with pytest.raises(NotImplementedError):    # host-built rulebooks
         input_reader_builder.build(
-            {"preprocess": {"database_sampler": {
-                "database_info_path": "dbinfos.pkl"}}}, True,
+            {"dataset": {"dataset_class_name": "BuildingDataset"}}, True,
             tbundle.voxel_generator, tbundle.target_assigner,
-            tbundle.feature_map_size)
+            tbundle.feature_map_size, middle_plan=object())
 
 
 @pytest.mark.parametrize("pool", [dict(num_workers=3),
                                   dict(process_workers=True)],
                          ids=["threads", "processes"])
 def test_batch_loader_warns_when_asked_for_a_pool(pool):
-    """The worker pools are not ported: asking for one warns and gives the
-    sequential loader's batches; the sequential form is silent."""
+    """A worker pool (threads or forked processes) gives the sequential
+    loader's batches, and neither form warns.  (The name dates from
+    before the pools were ported, when asking for one warned; it now
+    checks that no warning is left.)"""
     import warnings
 
     class Rows:
@@ -373,7 +374,6 @@ def test_batch_loader_warns_when_asked_for_a_pool(pool):
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         plain = list(input_pipeline.BatchLoader(ds, **common))
-    with pytest.warns(UserWarning, match="not ported"):
         pooled = list(input_pipeline.BatchLoader(ds, **common, **pool))
     assert len(pooled) == len(plain) == 2
     for a, b in zip(pooled, plain):

@@ -51,6 +51,13 @@ import automatic_as_built_reconstruction_tpu_torch.models.losses
 import automatic_as_built_reconstruction_tpu_torch.train.checkpoint
 import automatic_as_built_reconstruction_tpu_torch.train.metrics
 import automatic_as_built_reconstruction_tpu_torch.utils.progress
+import automatic_as_built_reconstruction_tpu_torch.builder.dbsampler_builder
+import automatic_as_built_reconstruction_tpu_torch.core.box_ops
+import automatic_as_built_reconstruction_tpu_torch.core.sample_ops
+import automatic_as_built_reconstruction_tpu_torch.data.create_data
+import automatic_as_built_reconstruction_tpu_torch.data.kitti_common
+import automatic_as_built_reconstruction_tpu_torch.data.kitti_dataset
+import automatic_as_built_reconstruction_tpu_torch.data.synth_kitti
 import chip_smoke
 import rotated_iou_ablation
 import sparse_gemm_ablation
@@ -94,7 +101,7 @@ def test_every_module_of_the_port_is_checked():
         ".".join(p.relative_to(REPO).with_suffix("").parts)
         for p in pkg.rglob("*.py") if p.name != "__init__.py"
         and "_build" not in p.parts)
-    assert len(mods) > 48
+    assert len(mods) > 54
     code = ("import sys, importlib\n"
             + "".join(f"importlib.import_module({m!r})\n" for m in mods)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -290,8 +290,7 @@ def test_training_reader_first_batches_equal_reference(bundles):
     B = 2) against the reference's BatchLoader."""
     jb, tb = bundles
     _, jloader = jb.input_reader(training=True, seed=0)
-    with pytest.warns(UserWarning, match="worker pools are not ported"):
-        _, tloader = tb.input_reader(training=True, seed=0)
+    _, tloader = tb.input_reader(training=True, seed=0)   # two threads
     jit, tit = iter(jloader), iter(tloader)
     for n in range(3):
         want, got = next(jit), next(tit)
