@@ -6,8 +6,10 @@ the training reader shuffled, repeated and its last partial batch
 dropped, the eval reader in order, once; the ground-truth database
 sampler of a training reader, its generator seeded
 ``np.random.default_rng(seed)`` as the reference seeds it; the loader's
-worker pools.  Bucketed shapes and host rulebooks are not ported and
-raise ``NotImplementedError``."""
+worker pools; a training reader's ``static_shape_buckets`` (the full
+voxel capacity added as the last bucket where the config's largest is
+below it).  Host rulebooks are not ported and raise
+``NotImplementedError``."""
 from __future__ import annotations
 
 import functools
@@ -91,8 +93,6 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
     dataset = _build_dataset(input_cfg.get("dataset", {}), class_names,
                              training)
     pp = input_cfg.get("preprocess", {})
-    if training and as_list(pp.get("static_shape_buckets")):
-        raise NotImplementedError("bucketed static shapes are not ported")
     prep_cfg = _prep_config(pp, class_names or ["Car"], out_size_factor=1)
 
     db_sampler = None
@@ -111,6 +111,18 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
         "matched_thresholds": ret["matched_thresholds"],
         "unmatched_thresholds": ret["unmatched_thresholds"],
     }
+    buckets = (tuple(int(b) for b in as_list(pp.get("static_shape_buckets")))
+               if training else ())
+    if buckets:
+        # the last bucket must be the full voxel capacity, or dense scans
+        # would be silently truncated below max_number_of_voxels
+        cap = prep_cfg.max_voxels
+        if max(buckets) < cap:
+            print(f"WARNING: static_shape_buckets max {max(buckets)} < "
+                  f"max_number_of_voxels {cap}; appending {cap} so dense "
+                  f"scans keep their full voxel budget")
+            buckets = buckets + (cap,)
+
     prep_fn = functools.partial(
         prep_pointcloud, voxel_generator=voxel_generator,
         target_assigner=target_assigner, prep_cfg=prep_cfg,
@@ -121,6 +133,6 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
         prep_ds, batch_size=int(input_cfg.get("batch_size", 0)) or 2,
         shuffle=training,
         num_workers=int(input_cfg.get("num_workers", 0)) or 1, seed=seed,
-        repeat=training, drop_last=training,
+        repeat=training, drop_last=training, buckets=buckets or None,
         process_workers=bool(input_cfg.get("process_workers", False)))
     return prep_ds, loader

@@ -2,8 +2,9 @@
 
 Every example is already padded to static capacity by ``prep_pointcloud``,
 so batching is a plain stack.  The port's copy of the JAX package's
-``data/batching.py``: ``merge_batch`` and ``device_example``; the bucketed
-shrinking and the host-rulebook padding come with training.
+``data/batching.py``: ``merge_batch``, ``device_example`` and the bucketed
+shrinking (``pick_bucket``, ``shrink_to_bucket``).  The host-rulebook
+padding (``pad_rulebooks_to_plan``) comes with host-rulebook training.
 """
 from __future__ import annotations
 
@@ -18,7 +19,6 @@ _STACK_KEYS = (
 _LIST_KEYS = ("metadata", "calib", "gt_boxes", "gt_names")
 
 
-
 def merge_batch(examples: List[Dict[str, np.ndarray]]) -> Dict[str, object]:
     out: Dict[str, object] = {}
     for k in examples[0].keys():
@@ -26,6 +26,36 @@ def merge_batch(examples: List[Dict[str, np.ndarray]]) -> Dict[str, object]:
             out[k] = np.stack([e[k] for e in examples])
         elif k in _LIST_KEYS:
             out[k] = [e[k] for e in examples]
+    return out
+
+
+_VOXEL_CAP_KEYS = ("voxels", "num_points", "coordinates")
+
+
+def pick_bucket(num_voxels: int, buckets) -> int:
+    """Smallest bucket >= the example's active voxel count (last bucket =
+    full capacity catches overflow)."""
+    for b in buckets:
+        if num_voxels <= b:
+            return int(b)
+    return int(buckets[-1])
+
+
+def shrink_to_bucket(example: Dict[str, np.ndarray],
+                     bucket: int) -> Dict[str, np.ndarray]:
+    """Slice the voxel-capacity arrays down to ``bucket`` rows.
+
+    Valid voxels are stored first, so slicing drops only padding (or, for
+    overflowing scans, the FCFS tail: the same semantics as a smaller
+    ``max_voxels``; ``num_voxels`` is clamped so downstream masks
+    agree)."""
+    out = dict(example)
+    for k in _VOXEL_CAP_KEYS:
+        if k in out and out[k].shape[0] > bucket:
+            out[k] = out[k][:bucket]
+    if "num_voxels" in out:
+        out["num_voxels"] = np.minimum(out["num_voxels"],
+                                       bucket).astype(np.int32)
     return out
 
 

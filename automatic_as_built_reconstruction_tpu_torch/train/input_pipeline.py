@@ -18,8 +18,13 @@ Without a ground-truth sampler every producer gives the same batches.  A
 sampler keeps one generator for all examples, as in the reference: in a
 thread pool the workers draw from it in the order they reach it, and
 each forked worker draws from its own copy of its state at the fork.
-The batches then depend on the pool, as the reference's do.  Bucketed
-padding is not ported.
+The batches then depend on the pool, as the reference's do.
+
+Bucketed padding (``buckets``): each batch is shrunk to the smallest
+bucket that holds its densest member (``batching.pick_bucket``,
+``shrink_to_bucket``) as it is merged, in every producer.  The
+host-rulebook padding to a bucket's plan (``bucket_plans``) is not
+ported.
 """
 from __future__ import annotations
 
@@ -75,8 +80,10 @@ class BatchLoader:
                  prefetch: int = 4, drop_last: bool = True,
                  repeat: bool = True, buckets=None, bucket_plans=None,
                  process_workers: bool = False):
-        if buckets or bucket_plans:
-            raise NotImplementedError("bucketed padding is not ported")
+        if bucket_plans:
+            raise NotImplementedError(
+                "bucket_plans (host rulebooks padded to a bucket's plan) "
+                "are not ported")
         self._ds = prep_dataset
         self._batch_size = batch_size
         self._shuffle = shuffle
@@ -86,6 +93,18 @@ class BatchLoader:
         self._prefetch = prefetch
         self._drop_last = drop_last
         self._repeat = repeat
+        # sorted voxel-capacity buckets, or None: full capacity
+        self._buckets = (tuple(sorted(int(b) for b in buckets))
+                         if buckets else None)
+
+    def _merge(self, batch: list) -> dict:
+        """Merge one batch, shrunk to the smallest bucket that holds its
+        densest member when buckets are set."""
+        if self._buckets:
+            bucket = batching.pick_bucket(
+                max(int(e["num_voxels"]) for e in batch), self._buckets)
+            batch = [batching.shrink_to_bucket(e, bucket) for e in batch]
+        return batching.merge_batch(batch)
 
     def _index_stream(self) -> Iterator[tuple]:
         rng = np.random.default_rng(self._seed)
@@ -142,11 +161,11 @@ class BatchLoader:
                     return
                 batch.append(self._ds.example(idx, seed))
                 if len(batch) == self._batch_size:
-                    if not self._put(q, stop, batching.merge_batch(batch)):
+                    if not self._put(q, stop, self._merge(batch)):
                         return
                     batch = []
             if batch and not self._drop_last:
-                self._put(q, stop, batching.merge_batch(batch))
+                self._put(q, stop, self._merge(batch))
         except Exception as e:  # surface worker errors to the consumer
             self._put(q, stop, e)
         finally:
@@ -193,11 +212,11 @@ class BatchLoader:
                                  pending[:self._batch_size]]
                         pending = pending[self._batch_size:]
                         if not self._put(q, stop,
-                                         batching.merge_batch(batch)):
+                                         self._merge(batch)):
                             break
                     elif exhausted:
                         if pending and not self._drop_last:
-                            self._put(q, stop, batching.merge_batch(
+                            self._put(q, stop, self._merge(
                                 [f.result() for f in pending]))
                         break
                 for f in pending:

@@ -295,7 +295,9 @@ def train(config_path, model_dir, *, resume: bool = True,
     the window's mean loss terms, ``grad_norm``, ``num_pos``, steps/s and
     the host-prep / feed / step milliseconds of a batch (the step's
     launch: nothing synchronises the device), and the precision / recall
-    of the class head.  ``saturation_abort_windows``:
+    of the class head; at the end, the run's batches by voxel capacity
+    (the buckets of ``static_shape_buckets``), a ``metrics.jsonl`` line
+    of prefix ``batches_by_voxel_capacity``.  ``saturation_abort_windows``:
     raise :class:`CapacitySaturationError` when ``mid_capacity_saturated``
     stays above 0 that many display windows in a row (0 disables; no
     pillar model reports it).  -> the final :class:`TrainState`.
@@ -334,6 +336,8 @@ def train(config_path, model_dir, *, resume: bool = True,
     timers = StageTimers()
     t_window = time.time()
     sat_windows = 0
+    # batches by voxel capacity: one entry without static_shape_buckets
+    capacities: Dict[int, int] = {}
     batches = iter(loader)
     try:
         while state.step < total_steps:
@@ -341,6 +345,8 @@ def train(config_path, model_dir, *, resume: bool = True,
                 batch = next(batches)
             with timers.time("feed"):
                 example = to_device(batch, dev)
+            v = int(example["voxels"].shape[1])
+            capacities[v] = capacities.get(v, 0) + 1
             with timers.time("step"):
                 metrics = train_step(state, example)
             # metrics stay device tensors until the window ends: reading
@@ -398,6 +404,9 @@ def train(config_path, model_dir, *, resume: bool = True,
             mgr.save(state.step, state, force=True)
         except ckpt_mod.StepAlreadyExistsError as e:   # a no-op run
             logger.text(f"final checkpoint save skipped: {e}")
+        logger.log(state.step, {str(v): n for v, n in
+                                sorted(capacities.items())},
+                   prefix="batches_by_voxel_capacity")
         logger.text(f"training finished at step {state.step}")
         logger.close()
     return state

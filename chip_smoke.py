@@ -76,6 +76,28 @@
    port's CPU run, as sets), holds the KITTI protocol on the validation
    ground truth given as detections (precision 1 at every threshold it
    samples) and restarts with a larger ``max_steps``, which must resume;
+6c. KITTI PointPillars and multi-class KITTI, on synthetic KITTI clones
+   of 48 + 12 frames from seed 0 written into a temporary directory:
+   ``pointpillars/car/xyres_16.config`` at full width (432 x 496 pillars,
+   PFN 64, RPNV2 with upsample strides 1/2/4, 107 136 anchors, the anchor
+   mask) trains for 60 steps through the port's command line, each verb a
+   child process (``python -m automatic_as_built_reconstruction_tpu_torch
+   .cli kitti_data_prep``, ``train``, ``evaluate``: B = 2, the buckets
+   4000 / 8000 / 12 000, the sampler and the augmentation; an exit hook
+   writes the child's launch counts and the TF32 flags its modules ran
+   under, which must be off): the loss falls, at least two
+   buckets occur (their histogram printed), the anchor mask drops
+   anchors, the KITTI table is printed, one step's float32 on the card is
+   held to float64 as in 6; the same config serves four requests of
+   eight validation frames (B = 8, the trainer's seed-0 initial weights)
+   twice over, detections against the port's CPU run;
+   ``pointpillars/all/xyres_16.config`` (321 408 anchors) trains 30 steps
+   on the multi-class clone and prints its three-class table, a step held
+   as in 6; ``second/all.fhd.config`` (B = 6, key-match, the three sample
+   groups) trains 20 steps with the plan's site caps (the caps
+   tools/run_multiclass_r5.sh:19 measured where a window saturates),
+   every join's backward kernels of one step against the plain backward,
+   one step at B = 2 held to float64 as in 6b, and prints its table;
 7. holds each kernel against its plain PyTorch version on the card, on
    the inputs the main paths gave it (for the pillar scatter also with
    the rows shuffled, and its backward on the training step's canvas
@@ -104,11 +126,12 @@
 8. times an empty kernel (one block, and the grids of K1 and K5) as the
    launch floor beside those two;
 9. prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
-   eight main paths, ``launches_by_path`` each path's own count; K1's
-   entry carries its backward's ``backward_*`` numbers, the two sparse
-   GEMMs' entries those of the joins' shared backward), the card's
-   name and power limit as ``nvidia-smi`` reports them, and last
-   ``{"ok": true, "device": ...}``.
+   main paths, ``launches_by_path`` each path's own count; K1's entry
+   carries its backward's ``backward_*`` numbers and has a second entry,
+   ``pillar_scatter@kitti``, at the KITTI request's shape with the KITTI
+   paths' launches; the two sparse GEMMs' entries carry those of the
+   joins' shared backward), the card's name and power limit as
+   ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result lines, when CUDA is unavailable or any
 phase fails.
@@ -122,6 +145,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -133,7 +157,7 @@ import numpy as np
 import torch
 
 from automatic_as_built_reconstruction_tpu_torch.data import (
-    batching, synth_kitti)
+    batching, kitti_dataset, synth_kitti)
 from automatic_as_built_reconstruction_tpu_torch.data.building import (
     generate_building_scene, pad_batch)
 from automatic_as_built_reconstruction_tpu_torch.data.kitti_like import (
@@ -150,12 +174,14 @@ from automatic_as_built_reconstruction_tpu_torch.ops.voxelize import (
 from automatic_as_built_reconstruction_tpu_torch.parallel import (
     PodInference, inference, pod_inference_from_checkpoint)
 from automatic_as_built_reconstruction_tpu_torch.parallel.inference import (
-    detections_mismatch)
+    build_from_config, detections_mismatch)
 from automatic_as_built_reconstruction_tpu_torch.utils import (
     eval as eval_mod)
 from automatic_as_built_reconstruction_tpu_torch.train import (
     checkpoint as ckpt_mod, train as train_mod)
 from automatic_as_built_reconstruction_tpu_torch.train.train import evaluate
+from automatic_as_built_reconstruction_tpu_torch.utils.seeded_init import (
+    load_flax_init)
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = (ROOT / "automatic_as_built_reconstruction_tpu_torch" / "configs"
@@ -264,6 +290,27 @@ SECOND_STEP_B = 2
 # The same step with TF32 on (the lower-precision control) is printed
 # beside it; the kernels themselves are held per join below
 SECOND_GRAD_SHARE, SECOND_GRAD_MEDIAN_SHARE = 5e-3, 2e-4
+# KITTI PointPillars (pointpillars/car/xyres_16.config, full width: 432 x
+# 496 pillars of 0.16 m, PFN 64, RPNV2 64/128/256 with upsample strides
+# 1/2/4, 107 136 anchors, the anchor mask) and the multi-class configs,
+# on synthetic KITTI clones of SYNTH_TRAIN + SYNTH_VAL frames: serving at
+# B = 8 (PP_REQUESTS requests of eight validation frames, ROUNDS times
+# over, seeded weights) and training through the command line (buckets
+# PP_BUCKETS, B = 2) for PP_TRAIN_STEPS steps in PP_DISPLAY-step windows;
+# pointpillars/all/xyres_16.config (321 408 anchors) for PP_ALL_STEPS
+# steps; second/all.fhd.config (B = 6, key-match) for ALL_FHD_STEPS steps
+# in ALL_FHD_DISPLAY-step windows, with the site caps that
+# tools/run_multiclass_r5.sh:19 measured where the plan's saturate
+CONFIGS = ROOT / "automatic_as_built_reconstruction_tpu_torch" / "configs"
+PP_CONFIG = CONFIGS / "pointpillars" / "car" / "xyres_16.config"
+PP_ALL_CONFIG = CONFIGS / "pointpillars" / "all" / "xyres_16.config"
+ALL_FHD_CONFIG = CONFIGS / "second" / "all.fhd.config"
+PP_MAX_VOXELS, PP_MAX_POINTS, PP_SERVE_B, PP_REQUESTS = 12000, 100, 8, 4
+PP_BUCKETS = (4000, 8000, 12000)
+PP_TRAIN_STEPS, PP_DISPLAY, PP_ALL_STEPS = 60, 10, 30
+ALL_FHD_STEPS, ALL_FHD_DISPLAY = 20, 5
+MULTICLASS_SITE_CAPS = (52352, 53888, 30464, 29184)
+CLI_TIMEOUT_S = 600
 
 
 def log(msg: str) -> None:
@@ -553,12 +600,13 @@ def drive(what: str, card: str, pod, requests, rounds: int, expect: dict):
                 f"path, expected "
                 f"{'at least one a request' if want is None else want}")
     n_scans = sum(len(nv) for _, nv in requests) * rounds
-    log(f"{what} [{card}]: {len(outs)} requests (B=2), latency ms median "
+    B = len(requests[0][1])
+    log(f"{what} [{card}]: {len(outs)} requests (B={B}), latency ms median "
         f"{np.median(lat):.3f}, mean {np.mean(lat):.3f}, range "
         f"{min(lat):.3f}-{max(lat):.3f}; {n_scans / total_s:.2f} scans/s "
         f"over {n_scans} scans; all ms {[round(x, 3) for x in lat]}")
     splits = [stage_split_ms(pod, *r) for r in requests]
-    log(f"{what} [{card}]: stage split ms (each B=2 request once, "
+    log(f"{what} [{card}]: stage split ms (each B={B} request once, "
         f"synchronised per stage) " + json.dumps(
             {k: [round(sp[k], 3) for sp in splits] for k in splits[0]}))
     return outs, lat, launches, calls
@@ -568,7 +616,8 @@ def check_outputs(what: str, outs, pod) -> None:
     """Shapes and finite boxes of every request's output."""
     C = pod.cfg.num_class
     for out in outs:
-        if out["box3d_lidar"].shape != (2, C * pod.cfg.nms_post_max_size, 7):
+        B = out["valid"].shape[0]
+        if out["box3d_lidar"].shape != (B, C * pod.cfg.nms_post_max_size, 7):
             raise AssertionError(f"{what}: bad output shape "
                                  f"{out['box3d_lidar'].shape}")
         if not np.isfinite(out["box3d_lidar"][out["valid"]]).all():
@@ -920,18 +969,20 @@ def k1_in_turns(kernel, library) -> dict:
             for k, v in times.items()}
 
 
-def phase_k1(call, gather_call, launches: int, gather_launches: int,
-             card: str):
-    """-> (kernels-line entry with event times, {key: fn} to time on the
-    device).  The backward (the gather kernel) on the canvas gradient and
-    ids training gave it."""
+def k1_forward(call, card: str, what: str) -> tuple:
+    """K1's forward on a recorded call: kernel == plain exactly, also with
+    the rows shuffled; the ``zeros`` + ``index_copy_`` yardstick equal to
+    both; event times of the three and the kernel against the yardstick
+    in turns; the bound in bytes.  -> (entry fields, {key: fn} to time on
+    the device, event times)."""
     (feats, lin, hw), _ = call
     B, V, C = feats.shape
     got = pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw)
     ref = pillar_scatter.scatter_sorted_to_canvas_plain(feats, lin, hw)
     torch.cuda.synchronize()
     if not torch.equal(got, ref):
-        raise AssertionError("pillar_scatter kernel != plain version")
+        raise AssertionError(f"{what}: pillar_scatter kernel != plain "
+                             f"version")
     # the same rows shuffled: unique ids in any order give the same canvas
     perm = torch.randperm(V, device=feats.device,
                           generator=torch.Generator(feats.device)
@@ -942,10 +993,12 @@ def phase_k1(call, gather_call, launches: int, gather_launches: int,
     if not (torch.equal(shuffled, ref) and torch.equal(
             shuffled, pillar_scatter.scatter_sorted_to_canvas_plain(
                 feats[:, perm], lin[:, perm], hw))):
-        raise AssertionError("pillar_scatter with shuffled rows != sorted")
+        raise AssertionError(f"{what}: pillar_scatter with shuffled rows != "
+                             f"sorted")
     descents = int((lin[:, perm][:, 1:] < lin[:, perm][:, :-1]).sum())
-    log(f"K1 pillar_scatter [{card}]: rows shuffled ({descents} descents in "
-        f"the ids): kernel == plain == the sorted call's canvas exactly")
+    log(f"K1 pillar_scatter {what} [{card}]: rows shuffled ({descents} "
+        f"descents in the ids): kernel == plain == the sorted call's canvas "
+        f"exactly")
     ok = (lin >= 0) & (lin < hw)
     rows = int(ok.sum())
     # library yardstick: one index_copy_ into the zeroed flat canvas
@@ -960,8 +1013,46 @@ def phase_k1(call, gather_call, launches: int, gather_launches: int,
         return canvas
 
     if not torch.equal(library().view(B, hw, C), ref):
-        raise AssertionError("index_copy_ yardstick != plain version")
+        raise AssertionError(f"{what}: index_copy_ yardstick != plain "
+                             f"version")
+    fns = {"ms": lambda: pillar_scatter.scatter_sorted_to_canvas(
+               feats, lin, hw),
+           "plain_ms": lambda: pillar_scatter.scatter_sorted_to_canvas_plain(
+               feats, lin, hw),
+           "library_ms": library}
+    ev = {k: cuda_ms(fn) for k, fn in fns.items()}
+    turns = k1_in_turns(fns["ms"], library)
+    # bytes this data needs: the occupied rows' features, every id, the
+    # whole canvas written once
+    nbytes = rows * C * 4 + B * V * 4 + B * hw * C * 4
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"K1 pillar_scatter {what} [{card}]: B={B} V={V} C={C} hw={hw}, "
+        f"{rows} occupied rows; kernel == plain exactly; events: kernel "
+        f"{fmt_range(ev['ms'])}, plain {fmt_range(ev['plain_ms'])}, "
+        f"index_copy_ {fmt_range(ev['library_ms'])}; bound "
+        f"{bound_ms:.5f} ms ({nbytes} bytes)")
+    log(f"K1 pillar_scatter {what} [{card}]: in alternation, {K1_TURNS} "
+        f"turns each: kernel {fmt_range(turns['kernel'])}, zeros + "
+        f"index_copy_ {fmt_range(turns['library'])}")
+    entry = {"name": "pillar_scatter", "route": "cuda",
+             "source": "automatic_as_built_reconstruction_tpu_torch/csrc/"
+                       "pillar_scatter.cu",
+             "replaces": "automatic_as_built_reconstruction_tpu/ops/pallas/"
+                         "pillar_scatter.py:61",
+             "shape": f"B={B} V={V} C={C} hw={hw}", "occupied_rows": rows,
+             "max_abs_err": 0.0, "bound_ms": bound_ms, "bound_by": "bytes",
+             "bytes": nbytes, "in_turns_event_ms": turns,
+             # as csrc/pillar_scatter.cu launches it
+             "grid": [-(-B * V * (C // 4) // 256), 256]}
+    return entry, fns, ev
 
+
+def phase_k1(call, gather_call, launches: int, gather_launches: int,
+             card: str):
+    """-> (kernels-line entry with event times, {key: fn} to time on the
+    device).  The backward (the gather kernel) on the canvas gradient and
+    ids training gave it."""
+    entry, fns, ev = k1_forward(call, card, "served pillar request")
     # the backward on the training step's canvas gradient and ids, and on
     # the same with the rows shuffled and dropped ids in between
     (dcanvas, glin), _ = gather_call
@@ -986,53 +1077,37 @@ def phase_k1(call, gather_call, launches: int, gather_launches: int,
     log(f"K1 pillar_gather [{card}]: B={gB} V={gV} C={gC} hw={ghw}, "
         f"{grows} valid rows: kernel == plain exactly on the training "
         f"call, with the rows shuffled and with negative ids")
-
-    fns = {"ms": lambda: pillar_scatter.scatter_sorted_to_canvas(
-               feats, lin, hw),
-           "plain_ms": lambda: pillar_scatter.scatter_sorted_to_canvas_plain(
-               feats, lin, hw),
-           "library_ms": library,
-           "backward_ms": lambda: pillar_scatter.pillar_gather(dcanvas,
-                                                              glin),
-           "backward_plain_ms": lambda: pillar_scatter.pillar_gather_plain(
-               dcanvas, glin)}
-    ev = {k: cuda_ms(fn) for k, fn in fns.items()}
-    turns = k1_in_turns(fns["ms"], library)
-    # bytes this data needs: the occupied rows' features, every id, the
-    # whole canvas written once
-    nbytes = rows * C * 4 + B * V * 4 + B * hw * C * 4
-    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bfns = {"backward_ms": lambda: pillar_scatter.pillar_gather(dcanvas,
+                                                               glin),
+            "backward_plain_ms": lambda: pillar_scatter.pillar_gather_plain(
+                dcanvas, glin)}
+    ev.update({k: cuda_ms(fn) for k, fn in bfns.items()})
+    fns.update(bfns)
     # the backward: the valid rows' cells read, every id, every row written
     gbytes = grows * gC * 4 + gB * gV * 4 + gB * gV * gC * 4
     gbound_ms = gbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"K1 pillar_scatter [{card}]: B={B} V={V} C={C} hw={hw}, "
-        f"{rows} occupied rows; kernel == plain exactly; events: kernel "
-        f"{fmt_range(ev['ms'])}, plain {fmt_range(ev['plain_ms'])}, "
-        f"index_copy_ {fmt_range(ev['library_ms'])}; bound "
-        f"{bound_ms:.5f} ms ({nbytes} bytes)")
-    log(f"K1 pillar_scatter [{card}]: in alternation, {K1_TURNS} turns "
-        f"each: kernel {fmt_range(turns['kernel'])}, zeros + index_copy_ "
-        f"{fmt_range(turns['library'])}")
     log(f"K1 pillar_gather [{card}]: events: kernel "
         f"{fmt_range(ev['backward_ms'])}, plain "
         f"{fmt_range(ev['backward_plain_ms'])}; bound {gbound_ms:.5f} ms "
         f"({gbytes} bytes); no single PyTorch call zeroes the dropped rows, "
         f"so no library time")
-    entry = {"name": "pillar_scatter", "route": "cuda",
-             "source": "automatic_as_built_reconstruction_tpu_torch/csrc/"
-                       "pillar_scatter.cu",
-             "replaces": "automatic_as_built_reconstruction_tpu/ops/pallas/"
-                         "pillar_scatter.py:61",
-             "launches": launches, "max_abs_err": 0.0,
-             "bound_ms": bound_ms, "bound_by": "bytes",
-             "in_turns_event_ms": turns,
-             # as csrc/pillar_scatter.cu launches it
-             "grid": [-(-B * V * (C // 4) // 256), 256],
-             "backward_kernel": "pillar_gather_kernel",
-             "backward_launches": gather_launches,
-             "backward_max_abs_err": 0.0,
-             "backward_bound_ms": gbound_ms, "backward_bound_by": "bytes",
-             "backward_library_ms": None}
+    entry.update(launches=launches, backward_kernel="pillar_gather_kernel",
+                 backward_launches=gather_launches,
+                 backward_max_abs_err=0.0, backward_bound_ms=gbound_ms,
+                 backward_bound_by="bytes", backward_library_ms=None)
+    return entry, fns, ev
+
+
+def phase_k1_kitti(call, per_path: dict, card: str):
+    """K1 at the KITTI pillar shape (a served request of
+    pointpillars/car/xyres_16.config: B = 8, V = 12 000, the largest
+    bucket, 64 channels, a 496 x 432 canvas): its own kernels-line entry,
+    whose launches are K1's forward launches on the KITTI paths
+    (``per_path``)."""
+    entry, fns, ev = k1_forward(call, card, "KITTI request")
+    entry.update(name="pillar_scatter@kitti", counter="pillar_scatter",
+                 paths=list(per_path),
+                 launches=sum(n["pillar_scatter"] for n in per_path.values()))
     return entry, fns, ev
 
 
@@ -1900,22 +1975,8 @@ def train_pillars(card: str, config=CONFIG, steps: int = TRAIN_STEPS,
         if seen != {(False, False)}:
             raise AssertionError(f"pillar training: the network ran with "
                                  f"TF32 flags {sorted(seen)}")
-        windows = [json.loads(line) for line in
-                   (model_dir / "metrics.jsonl").read_text().splitlines()]
-        windows = [w for w in windows if w["prefix"] == "train"]
-        keys = ("loss", "loss_cls", "loss_loc", "loss_dir", "grad_norm",
-                "num_pos", "steps_per_sec", "host_prep_ms", "feed_ms",
-                "step_ms")
-        for w in windows:
-            log(f"pillar training [{card}]: window to step {w['step']}: "
-                + json.dumps({k: round(w[k], 5) for k in keys}))
+        windows = training_windows(model_dir, "pillar training", card)
         first, last = windows[0]["loss"], windows[-1]["loss"]
-        if not all(math.isfinite(w["loss"]) for w in windows):
-            raise AssertionError("pillar training: a loss is not finite")
-        if not last < first:
-            raise AssertionError(f"pillar training: mean loss of the last "
-                                 f"{display} steps {last} is not below the "
-                                 f"first {display} steps' {first}")
         host_prep = float(np.median([w["host_prep_ms"] for w in windows]))
         report.update(steps=steps, wall_s=wall, steps_per_sec=steps / wall,
                       window_steps_per_sec=[w["steps_per_sec"]
@@ -1924,10 +1985,8 @@ def train_pillars(card: str, config=CONFIG, steps: int = TRAIN_STEPS,
                       host_prep_ms=host_prep,
                       step_launch_ms=float(np.median(
                           [w["step_ms"] for w in windows])))
-        log(f"pillar training [{card}]: mean loss of steps 1-{display} "
-            f"{first:.5f} -> steps {steps - display + 1}-{steps} {last:.5f}"
-            f" (falls); host prep of a batch (median of the windows) "
-            f"{host_prep:.2f} ms")
+        log(f"pillar training [{card}]: host prep of a batch (median of the "
+            f"windows) {host_prep:.2f} ms")
 
         # the device step on one batch: CUDA events (synchronised); main()
         # profiles one more at the end, with the serving paths (the
@@ -1982,20 +2041,20 @@ def train_pillars(card: str, config=CONFIG, steps: int = TRAIN_STEPS,
 # SECOND training
 # --------------------------------------------------------------------------
 
-def second_train_config(tmp: Path, root: Path, caps=None) -> Path:
-    """car.fhd.config with its data paths under ``root``, as
+def kitti_config(src: Path, tmp: Path, root: Path, caps=None) -> Path:
+    """The config ``src`` with its data paths under ``root``, as
     tools/kitti_rehearsal.py:69-73 rewrites them, and, where given, the
-    middle's ``out_site_caps``; nothing else changes."""
-    text = SECOND_TRAIN_CONFIG.read_text().replace('"data/kitti',
-                                                   f'"{root}')
+    sparse middle's ``out_site_caps``; nothing else changes.  Written
+    into ``tmp``."""
+    text = src.read_text().replace('"data/kitti', f'"{root}')
     if caps:
         old = "      downsample_factor: 8\n"
         if text.count(old) != 1:
-            raise AssertionError("car.fhd.config: no single "
-                                 "downsample_factor line")
+            raise AssertionError(f"{src.name}: no single downsample_factor "
+                                 f"line")
         text = text.replace(old, old + "      out_site_caps: ["
                             + ", ".join(map(str, caps)) + "]\n")
-    path = tmp / ("car.fhd.caps.config" if caps else "car.fhd.config")
+    path = tmp / (src.stem + (".caps" if caps else "") + ".config")
     path.write_text(text)
     return path
 
@@ -2122,6 +2181,37 @@ def join_bound(feats, idx, found, dout, dfeatures: bool = True) -> dict:
     return out
 
 
+def check_join(wcall, fcall) -> tuple:
+    """One join's backward kernels against the plain backward: dW and,
+    where the join's input needs a gradient, dfeatures, rtol and atol
+    JOIN_GRAD_TOL of max |g|.  -> (the join's shape, {half: max error as
+    a share of max |g|})."""
+    sgg = sparse_gather_gemm
+    (feats, idx, found, dout), _ = wcall
+    checks = [("dW", sgg.join_grad_weights(feats, idx, found, dout),
+               sgg.grad_weights_plain(feats, idx, found, dout))]
+    if fcall is not None:
+        (fdout, fidx, ffound, w, N), _ = fcall
+        checks.append(("dfeatures",
+                       sgg.join_grad_features(fdout, fidx, ffound, w, N),
+                       sgg.grad_features_plain(fdout, fidx, ffound, w, N)))
+    torch.cuda.synchronize()
+    what = (f"B={feats.shape[0]} N={feats.shape[1]} R={idx.shape[-1]} "
+            f"K={idx.shape[-2]} Cin={feats.shape[-1]} Cout={dout.shape[-1]}")
+    errs = {}
+    for name, g, r in checks:
+        scale = float(r.abs().max())
+        err = float((g - r).abs().max())
+        errs[name] = err / scale if scale else err
+        close = torch.isclose(g, r, rtol=JOIN_GRAD_TOL,
+                              atol=JOIN_GRAD_TOL * scale)
+        if not (scale > 0 and bool(close.all())):
+            raise AssertionError(f"join backward {what}: {name} kernel vs "
+                                 f"plain: max abs err {err} (max |g| "
+                                 f"{scale})")
+    return what, errs
+
+
 @torch.no_grad()
 def phase_join_backward(wcalls: list, fcalls: list, card: str) -> tuple:
     """The backward kernels against the plain backward at every join of
@@ -2133,33 +2223,13 @@ def phase_join_backward(wcalls: list, fcalls: list, card: str) -> tuple:
     sgg = sparse_gather_gemm
     by_rulebook = {id(c[0][1]): c for c in fcalls}
     worst, per_join, bounds = 0.0, [], []
-    for (feats, idx, found, dout), _ in wcalls:
-        got = sgg.join_grad_weights(feats, idx, found, dout)
-        ref = sgg.grad_weights_plain(feats, idx, found, dout)
-        checks = [("dW", got, ref)]
+    for wcall in wcalls:
+        (feats, idx, found, dout), _ = wcall
         fcall = by_rulebook.get(id(idx))
+        what, errs = check_join(wcall, fcall)
+        worst = max(worst, *errs.values())
         if fcall is not None:
             (fdout, fidx, ffound, w, N), _ = fcall
-            checks.append(("dfeatures",
-                           sgg.join_grad_features(fdout, fidx, ffound, w, N),
-                           sgg.grad_features_plain(fdout, fidx, ffound, w,
-                                                   N)))
-        torch.cuda.synchronize()
-        what = (f"B={feats.shape[0]} N={feats.shape[1]} R={idx.shape[-1]} "
-                f"K={idx.shape[-2]} Cin={feats.shape[-1]} "
-                f"Cout={dout.shape[-1]}")
-        errs = {}
-        for name, g, r in checks:
-            scale = float(r.abs().max())
-            err = float((g - r).abs().max())
-            errs[name] = err / scale if scale else err
-            close = torch.isclose(g, r, rtol=JOIN_GRAD_TOL,
-                                  atol=JOIN_GRAD_TOL * scale)
-            if not (scale > 0 and bool(close.all())):
-                raise AssertionError(f"join backward {what}: {name} kernel "
-                                     f"vs plain: max abs err {err} (max "
-                                     f"|g| {scale})")
-            worst = max(worst, errs[name])
 
         def kernels():
             sgg.join_grad_weights(feats, idx, found, dout)
@@ -2302,14 +2372,8 @@ def train_second(card: str) -> dict:
     with torch.enable_grad(), tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         root = tmp / "kitti"
-        t0 = time.perf_counter()
-        n_labels = synth_kitti.write_clone(root, SYNTH_TRAIN, SYNTH_VAL,
-                                           seed=0)
-        log(f"second training [{card}]: synthetic KITTI clone, "
-            f"{SYNTH_TRAIN} + {SYNTH_VAL} frames ({n_labels} labels), "
-            f"infos, reduced clouds and gt database in "
-            f"{time.perf_counter() - t0:.1f} s")
-        config = second_train_config(tmp, root)
+        write_clone(root, False, "second training", card)
+        config = kitti_config(SECOND_TRAIN_CONFIG, tmp, root)
         bundle = train_mod.Bundle(config)
         cfg = bundle.model_cfg
         if not (cfg.sparse_keymatch and cfg.sparse_use_pallas_gemm
@@ -2341,7 +2405,8 @@ def train_second(card: str) -> dict:
                 f"CapacitySaturationError ({e}); substituting the caps the "
                 f"reference measured for car.fhd.config "
                 f"(tools/kitti_rehearsal.py:155): {MEASURED_SITE_CAPS}")
-            config = second_train_config(tmp, root, MEASURED_SITE_CAPS)
+            config = kitti_config(SECOND_TRAIN_CONFIG, tmp, root,
+                                  MEASURED_SITE_CAPS)
             state, wall, seen = run_train(config, resume=False)
             report["site_caps"] = list(MEASURED_SITE_CAPS)
         steps = SECOND_TRAIN_STEPS
@@ -2360,22 +2425,7 @@ def train_second(card: str) -> dict:
         if seen != {(False, False)}:
             raise AssertionError(f"second training: the network ran with "
                                  f"TF32 flags {sorted(seen)}")
-        windows = [json.loads(line) for line in
-                   (model_dir / "metrics.jsonl").read_text().splitlines()]
-        windows = [w for w in windows if w["prefix"] == "train"]
-        keys = ("loss", "loss_cls", "loss_loc", "loss_dir", "grad_norm",
-                "num_pos", "mid_capacity_saturated", "steps_per_sec",
-                "host_prep_ms", "feed_ms", "step_ms")
-        for w in windows:
-            log(f"second training [{card}]: window to step {w['step']}: "
-                + json.dumps({k: round(w[k], 5) for k in keys}))
-        first, last = windows[0]["loss"], windows[-1]["loss"]
-        if not all(math.isfinite(w["loss"]) for w in windows):
-            raise AssertionError("second training: a loss is not finite")
-        if not last < first:
-            raise AssertionError(f"second training: mean loss of the last "
-                                 f"window {last} is not below the first's "
-                                 f"{first}")
+        windows = training_windows(model_dir, "second training", card)
         wait = float(np.median([w["host_prep_ms"] for w in windows]))
 
         # host prep of one batch on one thread against the device step
@@ -2399,9 +2449,8 @@ def train_second(card: str) -> dict:
                       loader_wait_ms=wait, prep_ms_one_thread=prep_batch,
                       device_step_ms=ev,
                       host_prep_share=prep_batch / (prep_batch + ev[0]))
-        log(f"second training [{card}]: mean loss {first:.5f} (steps 1-"
-            f"{SECOND_DISPLAY}) -> {last:.5f} (steps {steps - SECOND_DISPLAY
-            + 1}-{steps}); the loader's wait a batch (median of the windows, "
+        log(f"second training [{card}]: the loader's wait a batch (median "
+            f"of the windows, "
             f"{reader['num_workers']} workers) {wait:.2f} ms; prep of one "
             f"batch of {len(examples)} on one thread "
             f"{prep_batch:.1f} ms (examples {[round(t, 1) for t in t_prep]}); "
@@ -2516,12 +2565,576 @@ def train_second(card: str) -> dict:
             "fcalls": fcalls, "step": lambda: step_fn(state, example)}
 
 
+# --------------------------------------------------------------------------
+# KITTI PointPillars and multi-class KITTI
+# --------------------------------------------------------------------------
+
+def write_clone(root: Path, multiclass: bool, what: str, card: str,
+                prep: bool = True) -> None:
+    """A synthetic KITTI clone of SYNTH_TRAIN + SYNTH_VAL frames from seed
+    0 (the port's generator), with the offline prep where ``prep``."""
+    t0 = time.perf_counter()
+    n = synth_kitti.write_clone(root, SYNTH_TRAIN, SYNTH_VAL, seed=0,
+                                multiclass=multiclass, prep=prep)
+    log(f"{what} [{card}]: synthetic KITTI clone"
+        f"{' (Car, Pedestrian, Cyclist)' if multiclass else ''}, "
+        f"{SYNTH_TRAIN} + {SYNTH_VAL} frames ({n} labels)"
+        f"{', infos, reduced clouds and gt database' if prep else ''} in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def training_windows(model_dir: Path, what: str, card: str) -> list:
+    """The train windows of ``metrics.jsonl``, logged; the loss finite and
+    the last window's below the first's."""
+    windows = [json.loads(line) for line in
+               (model_dir / "metrics.jsonl").read_text().splitlines()]
+    windows = [w for w in windows if w["prefix"] == "train"]
+    keys = ("loss", "loss_cls", "loss_loc", "loss_dir", "grad_norm",
+            "num_pos", "mid_capacity_saturated", "steps_per_sec",
+            "host_prep_ms", "feed_ms", "step_ms")
+    for w in windows:
+        log(f"{what} [{card}]: window to step {w['step']}: "
+            + json.dumps({k: round(w[k], 5) for k in keys if k in w}))
+    first, last = windows[0]["loss"], windows[-1]["loss"]
+    if not all(math.isfinite(w["loss"]) for w in windows):
+        raise AssertionError(f"{what}: a loss is not finite")
+    if not last < first:
+        raise AssertionError(f"{what}: mean loss of the last window {last} "
+                             f"is not below the first's {first}")
+    log(f"{what} [{card}]: mean loss {first:.5f} (first window) -> "
+        f"{last:.5f} (last window): falls")
+    return windows
+
+
+def capacity_histogram(model_dir: Path) -> dict:
+    """The last run's batches by voxel capacity, as ``train()`` writes
+    them into ``metrics.jsonl``.  -> {capacity: batches}."""
+    lines = [json.loads(line) for line in
+             (model_dir / "metrics.jsonl").read_text().splitlines()]
+    last = [w for w in lines
+            if w["prefix"] == "batches_by_voxel_capacity"][-1]
+    return {int(k): int(v) for k, v in last.items()
+            if k not in ("step", "prefix")}
+
+
+def kitti_requests(root: Path, n_requests: int, B: int) -> list:
+    """``n_requests`` requests of B validation frames of the clone (the
+    r-th from frame r on, cyclically), each frame padded to the largest
+    frame's point count."""
+    ds = kitti_dataset.KittiDataset(root, root / "kitti_infos_val.pkl",
+                                    ["Car"])
+    frames = [ds.get_sensor_data(i)["lidar"]["points"]
+              for i in range(len(ds))]
+    P = max(len(f) for f in frames)
+    requests = []
+    for r in range(n_requests):
+        pts = np.zeros((B, P, frames[0].shape[1]), np.float32)
+        nv = np.zeros(B, np.int32)
+        for b in range(B):
+            f = frames[(r + b) % len(frames)]
+            pts[b, :len(f)] = f
+            nv[b] = len(f)
+        requests.append((pts, nv))
+    return requests
+
+
+def kitti_pod(device: str) -> PodInference:
+    """pointpillars/car/xyres_16.config at full width for serving (``hard``
+    voxelization, 12 000 pillars of 100 points) with the initial weights
+    ``train()`` draws from seed 0 (``utils/seeded_init.py::
+    load_flax_init``: scores about the focal prior, 0.01-0.25 on these
+    scans).  ``load_seeded``'s wider draws saturate the class head at
+    this width (logits up to +-98, a tenth of the anchors at a score of
+    exactly 1.0), and a checkpoint of a few dozen steps has BatchNorm
+    running statistics far from its batches' (heads of +-3000): neither
+    ranks its boxes alike on two devices."""
+    model, cfg, anchors = build_from_config(PP_CONFIG)
+    load_flax_init(model, 0)
+    return PodInference(model, cfg, anchors, device=device,
+                        max_voxels=PP_MAX_VOXELS,
+                        max_points_per_voxel=PP_MAX_POINTS)
+
+
+def serve_pp_kitti(card: str, root: Path) -> dict:
+    """pointpillars/car/xyres_16.config through PodInference at B = 8
+    (:func:`kitti_pod`): four requests of eight validation frames, twice
+    over after a warm-up, the counters set to 0 just before and read just
+    after; detections against the port's CPU run as sets, the heads of
+    one request within HEAD_TOL.  -> {"pod", "requests", "latency_ms",
+    "launches", "calls"}."""
+    t0 = time.perf_counter()
+    pod = kitti_pod("cuda")
+    requests = kitti_requests(root, PP_REQUESTS, PP_SERVE_B)
+    log(f"pp-KITTI serving: grid {pod.cfg.grid_size}, "
+        f"{pod.anchors.shape[0]} anchors, model + {len(requests)} requests "
+        f"of B={PP_SERVE_B} ready in {time.perf_counter() - t0:.1f} s; "
+        f"points per frame {requests[0][1].tolist()} (padded to "
+        f"{requests[0][0].shape[1]})")
+    outs, lat, launches, calls = drive(
+        "pp-KITTI serving", card, pod, requests, ROUNDS,
+        {"pillar_scatter": len(requests) * ROUNDS, "rotated_iou": None})
+    check_outputs("pp-KITTI serving", outs, pod)
+    cpu = kitti_pod("cpu")
+    t0 = time.perf_counter()
+    cpu_outs = [cpu(*req) for req in requests]
+    cpu_s = time.perf_counter() - t0
+    C = pod.cfg.num_class
+    for i, out in enumerate(outs):
+        diff = detections_mismatch(out, cpu_outs[i % len(requests)], C,
+                                   BOX_ATOL, SCORE_ATOL)
+        if diff is not None:
+            raise AssertionError(f"pp-KITTI request {i}, GPU vs CPU: {diff}")
+    n_det = [int(o["valid"].sum()) for o in cpu_outs]
+    if not min(n_det):
+        raise AssertionError(f"pp-KITTI serving: detections a request "
+                             f"{n_det}: nothing to compare")
+    err, bad = heads_mismatch(head_outputs(pod, requests[0]),
+                              head_outputs(cpu, requests[0]))
+    if bad is not None:
+        raise AssertionError(f"pp-KITTI serving: head {bad} card vs CPU "
+                             f"{err}, tolerance {HEAD_TOL}")
+    check_network_flags("pp-KITTI serving", pod, requests[0])
+    log(f"pp-KITTI serving: GPU detections match the port's CPU run "
+        f"({cpu_s:.1f} s for {len(requests)} requests) on all {len(outs)} "
+        f"requests as sets (boxes atol {BOX_ATOL}, scores atol "
+        f"{SCORE_ATOL}; {n_det} detections a request); heads of request 0 "
+        f"card vs CPU max abs diff {err} (within {HEAD_TOL})")
+    del cpu
+    return {"pod": pod, "requests": requests,
+            "latency_ms": float(np.median(lat)), "launches": launches,
+            "calls": calls}
+
+
+# the kernels' launch counters of a child process and the TF32 flags its
+# modules ran under: a hook that the child's interpreter loads as
+# ``sitecustomize`` (from a directory put first on its PYTHONPATH) records
+# the flags at the start of every module's forward, as flags_in_modules
+# does, and at exit writes each wrapper's count and the flags seen as
+# JSON.  Any other sitecustomize on the path runs first.
+COUNTS_HOOK = r"""
+import atexit, json, os, sys
+
+import torch
+
+_here = os.path.dirname(os.path.abspath(__file__))
+for _p in sys.path:
+    _f = os.path.join(_p or ".", "sitecustomize.py")
+    if os.path.abspath(_p or ".") != _here and os.path.exists(_f):
+        exec(compile(open(_f).read(), _f, "exec"),
+             {"__name__": "sitecustomize", "__file__": _f})
+        break
+
+
+_seen = set()
+torch.nn.modules.module.register_module_forward_pre_hook(
+    lambda *_: _seen.add((torch.backends.cudnn.allow_tf32,
+                          torch.backends.cuda.matmul.allow_tf32)))
+
+
+def _dump_launch_counts():
+    counts = {}
+    wrappers = json.loads(os.environ["ABR_KERNEL_WRAPPERS"])
+    for name, (module, attr) in wrappers.items():
+        mod = sys.modules.get(module)
+        counts[name] = int(getattr(getattr(mod, attr), "launches", 0)
+                           if mod is not None else 0)
+    with open(os.environ["ABR_LAUNCH_COUNTS"], "w") as f:
+        json.dump({"launches": counts, "tf32_seen": sorted(_seen)}, f)
+
+
+atexit.register(_dump_launch_counts)
+"""
+
+
+def cli(args: list, what: str, card: str, tmp: Path) -> tuple:
+    """``python -m automatic_as_built_reconstruction_tpu_torch.cli *args``
+    in a child process from the checkout, every kernel counter starting
+    at 0 there; every module of a network that the child ran saw TF32 off
+    (and ``train`` / ``evaluate`` ran one).  -> (its standard output,
+    {kernel: launches})."""
+    hook = tmp / "counts_hook"
+    hook.mkdir(exist_ok=True)
+    (hook / "sitecustomize.py").write_text(COUNTS_HOOK)
+    counts = tmp / "launch_counts.json"
+    counts.unlink(missing_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(hook), str(ROOT)] + ([env["PYTHONPATH"]]
+                                  if env.get("PYTHONPATH") else []))
+    env["ABR_LAUNCH_COUNTS"] = str(counts)
+    env["ABR_KERNEL_WRAPPERS"] = json.dumps(
+        {name: (fn.__module__, fn.__name__) for name, fn in KERNELS.items()})
+    cmd = [sys.executable, "-m", "automatic_as_built_reconstruction_tpu_torch"
+           ".cli", *map(str, args)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"{what}: {' '.join(cmd[1:])} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-3000:]}\n"
+                             f"{proc.stderr[-3000:]}")
+    dumped = json.loads(counts.read_text())
+    launches = dumped["launches"]
+    seen = {tuple(f) for f in dumped["tf32_seen"]}
+    network = args[0] in ("train", "evaluate")
+    if not seen <= {(False, False)} or (network and not seen):
+        raise AssertionError(f"{what}: cli {args[0]} ran modules with TF32 "
+                             f"flags {sorted(seen)}, expected only "
+                             f"(False, False)")
+    log(f"{what} [{card}]: python -m ...cli {' '.join(map(str, args[:1]))} "
+        f"in a child process: {wall:.1f} s wall (start-up included); "
+        f"launches {launches}; TF32 flags its modules saw {sorted(seen)}")
+    return proc.stdout, launches
+
+
+def expect_launches(what: str, launches: dict, want: dict) -> None:
+    want = dict.fromkeys(KERNELS, 0) | want
+    if launches != want:
+        raise AssertionError(f"{what} launched {launches}, expected {want}")
+
+
+def step_on_device(config, batch, steps: int, card: str, what: str) -> tuple:
+    """One more training step of ``config`` on ``batch`` from seeded
+    weights, timed with CUDA events.  -> (event times, the step as a
+    callable, for the profile)."""
+    bundle = train_mod.Bundle(config)
+    state = train_mod.init_state(bundle, rng_seed=0, total_steps=steps,
+                                 device="cuda")
+    example = train_mod.to_device(batch, "cuda")
+    step_fn = train_mod.make_train_step(bundle)
+    ev = cuda_ms(lambda: step_fn(state, example), iters=10, warmup=2)
+    log(f"{what} [{card}]: device step (B={batch['voxels'].shape[0]}, "
+        f"V={batch['voxels'].shape[1]}, synchronised, events) "
+        f"{fmt_range(ev)}")
+    return ev, lambda: step_fn(state, example)
+
+
+def hold_f32_step(config, batch, steps: int, card: str, what: str) -> dict:
+    """One step on the card against the port's CPU step, each held to a
+    float64 step (:func:`train_step_mismatch`)."""
+    t0 = time.perf_counter()
+    summary, bad = train_step_mismatch(config, batch, steps)
+    log(f"{what} [{card}]: one step (B={batch['voxels'].shape[0]}, "
+        f"V={batch['voxels'].shape[1]}) on the card vs the port's CPU step, "
+        f"float32 against float64 on both, in "
+        f"{time.perf_counter() - t0:.1f} s: " + json.dumps(summary))
+    if bad is not None:
+        raise AssertionError(f"{what} step, card vs CPU: {bad}")
+    return summary
+
+
+def train_pp_kitti(card: str, tmp: Path, root: Path) -> dict:
+    """KITTI PointPillars training through the port's command line:
+    ``kitti_data_prep`` on a fresh clone, ``train`` of
+    pointpillars/car/xyres_16.config at full width (B = 2, buckets
+    4000 / 8000 / 12 000, the sampler and the augmentation, two loader
+    threads) and ``evaluate`` on the validation frames (the KITTI table
+    printed, not held), each a child process; the loss falls, at least two
+    buckets occur, the anchor mask drops anchors; one step's float32 held
+    to float64.  -> {"launches", "report", "step"}."""
+    what = "pp-KITTI training"
+    write_clone(root, False, what, card, prep=False)
+    cli(["kitti_data_prep", "--root_path", root], what, card, tmp)
+    for name in ("kitti_infos_train.pkl", "kitti_infos_val.pkl",
+                 "kitti_dbinfos_train.pkl"):
+        if not (root / name).exists():
+            raise AssertionError(f"kitti_data_prep wrote no {name}")
+    config = kitti_config(PP_CONFIG, tmp, root)
+    model_dir = tmp / "pp_kitti"
+    steps = PP_TRAIN_STEPS
+    _, train_launches = cli(
+        ["train", "--config_path", config, "--model_dir", model_dir,
+         "--max_steps", steps, "--display_step", PP_DISPLAY], what, card,
+        tmp)
+    expect_launches(what, train_launches, {"pillar_scatter": steps,
+                                           "pillar_gather": steps})
+    windows = training_windows(model_dir, what, card)
+    hist = capacity_histogram(model_dir)
+    log(f"{what} [{card}]: batches by bucket (voxel capacity) over the "
+        f"{steps} steps: {hist}")
+    if (len(hist) < 2 or sum(hist.values()) != steps
+            or not set(hist) <= set(PP_BUCKETS)):
+        raise AssertionError(f"{what}: buckets {hist}, want at least two of "
+                             f"{PP_BUCKETS} over {steps} batches")
+    out, eval_launches = cli(
+        ["evaluate", "--config_path", config, "--model_dir", model_dir],
+        what, card, tmp)
+    batches = -(-SYNTH_VAL // 2)
+    expect_launches(f"{what}: evaluate", eval_launches,
+                    {"pillar_scatter": batches, "rotated_iou": batches})
+    log(f"{what} [{card}]: cli evaluate (checkpoint at step {steps}), KITTI "
+        f"table (not held):\n{out}")
+
+    # the anchor mask and the step, on batches of the same reader
+    _, loader = train_mod.Bundle(config).input_reader(training=True, seed=1)
+    it = iter(loader)
+    batches = [next(it) for _ in range(3)]
+    it.close()
+    masked = [float(1 - b["anchors_mask"].mean()) for b in batches]
+    log(f"{what} [{card}]: anchors the mask drops (anchor_area_threshold "
+        f"1.0) in three batches: {[round(m, 4) for m in masked]}; voxel "
+        f"capacity {[b['voxels'].shape[1] for b in batches]}")
+    if not max(masked) > 0:
+        raise AssertionError(f"{what}: anchors_mask all true")
+    batch = min(batches, key=lambda b: b["voxels"].shape[1])
+    ev, step = step_on_device(config, batch, steps, card, what)
+    summary = hold_f32_step(config, batch, steps, card, what)
+    report = {"steps": steps, "windows": windows, "buckets": hist,
+              "anchors_masked": masked, "device_step_ms": ev,
+              "f32_vs_f64": summary}
+    return {"launches": {"pp-KITTI training": train_launches,
+                         "pp-KITTI evaluate": eval_launches},
+            "report": report, "step": step}
+
+
+def train_pp_all(card: str, tmp: Path, root: Path) -> dict:
+    """pointpillars/all/xyres_16.config (Car, Pedestrian, Cyclist: 321 408
+    anchors) at full width on the multi-class clone: ``train()`` for
+    PP_ALL_STEPS steps (counters set to 0 just before and read just
+    after), the loss falls, ``evaluate`` prints the three-class table,
+    one step's float32 held to float64.  -> {"launches", "report"}."""
+    what = "pp-all training"
+    config = kitti_config(PP_ALL_CONFIG, tmp, root)
+    model_dir = tmp / "pp_all"
+    steps = PP_ALL_STEPS
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.enable_grad(), flags_in_modules() as seen:
+        train_mod.train(config, model_dir, max_steps=steps,
+                        display_step=PP_DISPLAY, device="cuda")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = {n: fn.launches for n, fn in KERNELS.items()}
+    expect_launches(what, train_launches, {"pillar_scatter": steps,
+                                           "pillar_gather": steps})
+    if seen != {(False, False)}:
+        raise AssertionError(f"{what}: TF32 flags {sorted(seen)}")
+    log(f"{what} [{card}]: {steps} steps of train() in {wall:.2f} s wall; "
+        f"launches {train_launches}; batches by voxel capacity "
+        f"{capacity_histogram(model_dir)}")
+    windows = training_windows(model_dir, what, card)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = evaluate(config, model_dir, device="cuda")
+    eval_launches = {n: fn.launches for n, fn in KERNELS.items()}
+    batches = -(-SYNTH_VAL // 2)
+    expect_launches(f"{what}: evaluate", eval_launches,
+                    {"pillar_scatter": batches, "rotated_iou": batches})
+    log(f"{what} [{card}]: evaluate on the {SYNTH_VAL} validation frames in "
+        f"{time.perf_counter() - t0:.1f} s; three-class KITTI table (not "
+        f"held):\n" + result["result_str"])
+    for c in ("Car", "Pedestrian", "Cyclist"):
+        if f"{c} AP@" not in result["result_str"]:
+            raise AssertionError(f"{what}: no {c} rows in the KITTI table")
+    _, loader = train_mod.Bundle(config).input_reader(training=True, seed=1)
+    it = iter(loader)
+    batch = next(it)
+    it.close()
+    summary = hold_f32_step(config, batch, steps, card, what)
+    return {"launches": {"pp-all training": train_launches,
+                         "pp-all evaluate": eval_launches},
+            "report": {"steps": steps, "wall_s": wall, "windows": windows,
+                       "f32_vs_f64": summary,
+                       "evaluate_ap": {k: v for k, v in result.items()
+                                       if k != "result_str"}}}
+
+
+def train_all_fhd(card: str, tmp: Path, root: Path) -> dict:
+    """second/all.fhd.config at full width (B = 6, key-match mode, the
+    three sample groups, three loader threads) on the multi-class clone:
+    ``train()`` for ALL_FHD_STEPS steps with the plan's site caps (the
+    caps tools/run_multiclass_r5.sh:19 measured where a window saturates),
+    the counters set to 0 just before and read just after; the loss
+    falls; every join's backward kernels of one step against the plain
+    backward; one step at B = 2, float32 on the kernels against float64
+    on the plain versions (:func:`second_step_mismatch`); ``evaluate``
+    prints the three-class table.  -> {"launches", "report"}."""
+    what = "all.fhd training"
+    config = kitti_config(ALL_FHD_CONFIG, tmp, root)
+    bundle = train_mod.Bundle(config)
+    cfg = bundle.model_cfg
+    if not (cfg.sparse_keymatch and cfg.sparse_use_pallas_gemm
+            and cfg.num_class == 3):
+        raise AssertionError("all.fhd.config is not three-class key-match")
+    plan = middle_plan(cfg, 17000)
+    joins = sum(b.n_subm + 1 for b in plan)
+    steps = ALL_FHD_STEPS
+    log(f"{what} [{card}]: plan caps {[b.out_cap for b in plan]}, {joins} "
+        f"joins a step, {bundle.target_assigner.num_anchors_per_location} "
+        f"anchors a cell")
+
+    def run(config, model_dir):
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with torch.enable_grad(), flags_in_modules() as seen:
+            state = train_mod.train(config, model_dir, max_steps=steps,
+                                    display_step=ALL_FHD_DISPLAY,
+                                    saturation_abort_windows=0,
+                                    device="cuda")
+            torch.cuda.synchronize()
+        if seen != {(False, False)}:
+            raise AssertionError(f"{what}: TF32 flags {sorted(seen)}")
+        return state, time.perf_counter() - t0
+
+    model_dir = tmp / "all_fhd"
+    state, wall = run(config, model_dir)
+    windows = training_windows(model_dir, what, card)
+    saturated = [w["mid_capacity_saturated"] for w in windows]
+    log(f"{what} [{card}]: mid_capacity_saturated by window {saturated}")
+    caps = "plan"
+    if any(saturated):
+        caps = list(MULTICLASS_SITE_CAPS)
+        log(f"{what} [{card}]: the plan's site caps saturate; substituting "
+            f"the caps tools/run_multiclass_r5.sh:19 measured: {caps}")
+        config = kitti_config(ALL_FHD_CONFIG, tmp, root, caps)
+        model_dir = tmp / "all_fhd_caps"
+        state, wall = run(config, model_dir)
+        windows = training_windows(model_dir, what, card)
+        saturated = [w["mid_capacity_saturated"] for w in windows]
+        log(f"{what} [{card}]: with the measured caps, "
+            f"mid_capacity_saturated by window {saturated}")
+    train_launches = {n: fn.launches for n, fn in KERNELS.items()}
+    expect_launches(what, train_launches, {
+        "keymatch_gemm": joins * steps, "join_grad_weights": joins * steps,
+        "join_grad_features": (joins - 1) * steps,
+        "rulebook_inverse": (joins - 1) * steps})
+    log(f"{what} [{card}]: {steps} steps of train() in {wall:.2f} s wall "
+        f"({caps} site caps); launches {train_launches}")
+
+    # one step's backward calls, each join's kernels against the plain
+    # backward; batches of the sequential stream
+    prep_ds, loader = train_mod.Bundle(config).input_reader(training=True,
+                                                            seed=1)
+    stream = loader._index_stream()
+    examples = [prep_ds.example(*next(stream)) for _ in range(6)]
+    example = train_mod.to_device(batching.merge_batch(examples), "cuda")
+    step_fn = train_mod.make_train_step(train_mod.Bundle(config))
+    wcalls, fcalls = [], []
+    sgg = sparse_gather_gemm
+    with torch.enable_grad(), recording(sgg, "join_grad_weights", wcalls), \
+            recording(sgg, "join_grad_features", fcalls):
+        step_fn(state, example)
+    torch.cuda.synchronize()
+    by_rulebook = {id(c[0][1]): c for c in fcalls}
+    worst = 0.0
+    with torch.no_grad():
+        for wcall in wcalls:
+            _, errs = check_join(wcall, by_rulebook.get(id(wcall[0][1])))
+            worst = max(worst, *errs.values())
+    if (len(wcalls), len(fcalls)) != (joins, joins - 1):
+        raise AssertionError(f"{what}: one step recorded {len(wcalls)} dW "
+                             f"and {len(fcalls)} dfeatures calls")
+    log(f"{what} [{card}]: one step's {len(wcalls)} joins: backward kernels "
+        f"vs plain within {worst:.3g} of max |g| (tolerance "
+        f"{JOIN_GRAD_TOL})")
+    del wcalls, fcalls
+    ev = cuda_ms(lambda: step_fn(state, example), iters=5, warmup=1)
+    log(f"{what} [{card}]: device step (B=6, synchronised, events) "
+        f"{fmt_range(ev)}")
+    del example
+
+    # one step at B = 2: float32 on the kernels, float64 plain, as the
+    # car.fhd phase holds it
+    t0 = time.perf_counter()
+    summary, bad = second_step_mismatch(
+        config, batching.merge_batch(examples[:SECOND_STEP_B]), steps)
+    log(f"{what} [{card}]: one step (B={SECOND_STEP_B}) float32 on the "
+        f"kernels vs float64 on the plain versions, both on the card, in "
+        f"{time.perf_counter() - t0:.1f} s: " + json.dumps(summary))
+    if bad is not None:
+        raise AssertionError(f"{what} step, float32 vs float64: {bad}")
+
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = evaluate(config, model_dir, device="cuda")
+    eval_launches = {n: fn.launches for n, fn in KERNELS.items()}
+    batches = -(-SYNTH_VAL // 6)
+    expect_launches(f"{what}: evaluate", eval_launches,
+                    {"keymatch_gemm": joins * batches,
+                     "rotated_iou": batches})
+    log(f"{what} [{card}]: evaluate on the {SYNTH_VAL} validation frames in "
+        f"{time.perf_counter() - t0:.1f} s; three-class KITTI table (not "
+        f"held):\n" + result["result_str"])
+    return {"launches": {"all.fhd training": train_launches,
+                         "all.fhd evaluate": eval_launches},
+            "report": {"steps": steps, "wall_s": wall, "windows": windows,
+                       "site_caps": caps, "saturated": saturated,
+                       "join_backward_worst": worst, "device_step_ms": ev,
+                       "f32_vs_f64": summary}}
+
+
+def kitti_phases(card: str) -> dict:
+    """The four KITTI phases in one temporary directory: on the car clone
+    pointpillars/car trains through the command line and serves B = 8
+    requests; on the multi-class clone pointpillars/all and all.fhd
+    train.  -> {"serve", "pp", "pp_all", "all_fhd"}."""
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        car, mc = tmp / "kitti", tmp / "kitti_mc"
+        pp = train_pp_kitti(card, tmp, car)
+        serve = serve_pp_kitti(card, car)
+        write_clone(mc, True, "multi-class KITTI", card)
+        (tmp / "all").mkdir()
+        pp_all = train_pp_all(card, tmp / "all", mc)
+        all_fhd = train_all_fhd(card, tmp / "all", mc)
+    return {"serve": serve, "pp": pp, "pp_all": pp_all, "all_fhd": all_fhd}
+
+
 def device_time(what: str, card: str, fn):
     ms, per_kernel = device_ms(fn)
     log(f"{what} [{card}]: device time per call "
         f"{'not measured' if ms is None else f'{ms:.5f} ms'} "
         f"(torch.profiler, L2 flushed): {fmt_kernels(per_kernel)}")
     return ms
+
+
+def time_entries(phases, per_path, card: str) -> list:
+    """Device time (torch.profiler) of every kernels-line entry, event
+    times beside it, launches by path.  -> the entries."""
+    kernels = []
+    for entry, fns, ev in phases:
+        measured = True
+        for key, fn in fns.items():
+            dev = device_time(f"{entry['name']} {key}", card, fn)
+            measured &= dev is not None
+            entry[key] = ev[key][0] if dev is None else dev
+            entry["event_ms" if key == "ms"
+                  else key[:-3] + "_event_ms"] = ev[key]
+        counter = entry.get("counter", entry["name"])
+        entry["launches_by_path"] = {
+            path: per_path[path][counter]
+            for path in entry.pop("paths", per_path)}
+        if "backward_counters" in entry:
+            counters = entry.pop("backward_counters")
+            entry["backward_launches_by_path"] = {
+                path: {c: n[c] for c in counters} if len(counters) > 1
+                else n[counters[0]] for path, n in per_path.items()}
+        entry["ms_from"] = ("torch.profiler device time" if measured
+                            else "cuda events (median)")
+        kernels.append(entry)
+    return kernels
+
+
+def kitti_launches(kitti: dict) -> dict:
+    """Launches by path of the four KITTI phases."""
+    return {"pp-KITTI serving": kitti["serve"]["launches"],
+            **kitti["pp"]["launches"], **kitti["pp_all"]["launches"],
+            **kitti["all_fhd"]["launches"]}
+
+
+def profile_kitti(kitti: dict, card: str) -> None:
+    serve = kitti["serve"]
+    with torch.enable_grad():
+        profile_call("pp-KITTI training step", kitti["pp"]["step"], card,
+                     kitti["pp"]["report"]["device_step_ms"][0])
+    profile_call("pp-KITTI serving (B=8)",
+                 functools.partial(serve["pod"], *serve["requests"][2]),
+                 card, serve["latency_ms"])
 
 
 def main() -> int:
@@ -2538,13 +3151,15 @@ def main() -> int:
         ev_launches = run_evaluate(card)
         training = train_pillars(card)
         second_training = train_second(card)
+        kitti = kitti_phases(card)
         km, gg = second["km_launches"], second["gg_launches"]
         fm, dyn = second["fm_launches"], second["dyn_launches"]
         per_path = {"pillar serving": launches, "evaluate": ev_launches,
                     "second key-match": km, "second gather-GEMM": gg,
                     "second fused_mean": fm, "second dynamic": dyn,
                     "pillar training": training["launches"],
-                    "second training": second_training["launches"]}
+                    "second training": second_training["launches"],
+                    **kitti_launches(kitti)}
         total = {name: sum(p[name] for p in per_path.values())
                  for name in KERNELS}
         log(f"launches by path: {json.dumps(per_path)}; summed {total}")
@@ -2555,6 +3170,8 @@ def main() -> int:
         phases = [phase_k1(k1_call, training["calls"]["pillar_gather"][0],
                            total["pillar_scatter"], total["pillar_gather"],
                            card),
+                  phase_k1_kitti(kitti["serve"]["calls"]["pillar_scatter"][0],
+                                 kitti_launches(kitti), card),
                   phase_k2(k2_call, second["km_calls"]["rotated_iou"][0],
                            total["rotated_iou"], card),
                   phase_sparse_gemm("keymatch_gemm",
@@ -2571,7 +3188,7 @@ def main() -> int:
         del second_training["wcalls"], second_training["fcalls"]
         bw_counters = ["rulebook_inverse", "join_grad_features",
                        "join_grad_weights"]
-        for entry, fns, ev in phases[2:4]:
+        for entry, fns, ev in phases[3:5]:
             entry.update(bw_fields, backward_counters=bw_counters,
                          backward_launches={c: total[c]
                                             for c in bw_counters})
@@ -2581,27 +3198,11 @@ def main() -> int:
         # last: the profiler's tracing slows later launches down.  Each
         # time in the kernels line is device time, with the event times
         # (median, min, max) beside it under *_event_ms.
-        kernels = []
-        for entry, fns, ev in phases:
-            measured = True
-            for key, fn in fns.items():
-                dev = device_time(f"{entry['name']} {key}", card, fn)
-                measured &= dev is not None
-                entry[key] = ev[key][0] if dev is None else dev
-                entry["event_ms" if key == "ms"
-                      else key[:-3] + "_event_ms"] = ev[key]
-            entry["launches_by_path"] = {
-                path: n[entry["name"]] for path, n in per_path.items()}
-            if "backward_counters" in entry:
-                counters = entry.pop("backward_counters")
-                entry["backward_launches_by_path"] = {
-                    path: {c: n[c] for c in counters} if len(counters) > 1
-                    else n[counters[0]] for path, n in per_path.items()}
-            entry["ms_from"] = ("torch.profiler device time" if measured
-                                else "cuda events (median)")
-            kernels.append(entry)
+        kernels = time_entries(phases, per_path, card)
         launch_bound = [e for e in kernels
-                        if e["name"] in ("pillar_scatter", "voxel_mean")]
+                        if e["name"] in ("pillar_scatter",
+                                         "pillar_scatter@kitti",
+                                         "voxel_mean")]
         floors = launch_floor(empty_kernel, card, {
             e["name"]: e["grid"] for e in launch_bound})
         for e in launch_bound:
@@ -2622,6 +3223,7 @@ def main() -> int:
             profile_call(what, functools.partial(second[key],
                                                  *second["requests"][2]),
                          card, second[lat])
+        profile_kitti(kitti, card)
     except Exception:  # noqa: BLE001 - any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

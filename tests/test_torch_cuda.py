@@ -730,3 +730,65 @@ def test_full_width_train_step_matches_cpu(cuda):
         chip_smoke.CONFIG, next(iter(loader)), chip_smoke.TRAIN_STEPS)
     print(summary)
     assert bad is None, bad
+
+
+# --------------------------------------------------------------------------
+# KITTI PointPillars
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("V", chip_smoke.PP_BUCKETS)
+def test_pillar_scatter_at_the_kitti_buckets(cuda, V):
+    """K1 at pointpillars/car/xyres_16's shapes (a 496 x 432 canvas, 64
+    channels, each bucket's V, B = 2, rows past a scan's pillars padded):
+    the canvas equals the plain version's, and its autograd backward (the
+    gather kernel) gives the plain version's gradient, bit for bit."""
+    g = torch.Generator().manual_seed(V)
+    B, C, hw = 2, 64, 496 * 432
+    lin = torch.full((B, V), hw, dtype=torch.int32)
+    for b, n in enumerate((V, V - 777)):
+        lin[b, :n] = torch.randperm(hw, generator=g)[:n].sort().values
+    feats = torch.randn(B, V, C, generator=g).to(cuda).requires_grad_()
+    plain_feats = feats.detach().clone().requires_grad_()
+    lin = lin.to(cuda)
+    dcanvas = torch.randn(B, hw, C, generator=g).to(cuda)
+    before = (pillar_scatter.scatter_sorted_to_canvas.launches,
+              pillar_scatter.pillar_gather.launches)
+    with torch.enable_grad():
+        got = pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw)
+        ref = pillar_scatter.scatter_sorted_to_canvas_plain(plain_feats,
+                                                            lin, hw)
+        got.backward(dcanvas)
+        ref.backward(dcanvas)
+    torch.cuda.synchronize()
+    assert (pillar_scatter.scatter_sorted_to_canvas.launches,
+            pillar_scatter.pillar_gather.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert torch.equal(got, ref)
+    assert torch.equal(feats.grad, plain_feats.grad)
+    assert int((feats.grad[1, V - 777:] != 0).sum()) == 0
+
+
+def test_kitti_pillar_request_at_b8_matches_cpu(cuda, tmp_path):
+    """pointpillars/car/xyres_16.config at full width through PodInference
+    at B = 8 with the trainer's seed-0 initial weights
+    (``chip_smoke.kitti_pod``) on eight validation frames of a synthetic
+    KITTI clone: detections equal the CPU run's as sets, heads within
+    HEAD_TOL."""
+    from automatic_as_built_reconstruction_tpu_torch.data import synth_kitti
+    from automatic_as_built_reconstruction_tpu_torch.parallel.inference \
+        import detections_mismatch
+
+    synth_kitti.write_clone(tmp_path, 2, 8, seed=0)
+    request = chip_smoke.kitti_requests(tmp_path, 1, 8)[0]
+    gpu, cpu = chip_smoke.kitti_pod("cuda"), chip_smoke.kitti_pod("cpu")
+    before = pillar_scatter.scatter_sorted_to_canvas.launches
+    out = gpu(*request)
+    assert pillar_scatter.scatter_sorted_to_canvas.launches == before + 1
+    ref = cpu(*request)
+    assert out["valid"].shape[0] == 8 and ref["valid"].any(-1).all()
+    assert detections_mismatch(out, ref, 1, chip_smoke.BOX_ATOL,
+                               chip_smoke.SCORE_ATOL) is None
+    got, want = gpu.heads(*request), cpu.heads(*request)
+    for name in want:
+        assert torch.allclose(got[name].float().cpu(), want[name],
+                              **chip_smoke.HEAD_TOL), name

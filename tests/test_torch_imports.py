@@ -58,6 +58,7 @@ import automatic_as_built_reconstruction_tpu_torch.data.create_data
 import automatic_as_built_reconstruction_tpu_torch.data.kitti_common
 import automatic_as_built_reconstruction_tpu_torch.data.kitti_dataset
 import automatic_as_built_reconstruction_tpu_torch.data.synth_kitti
+import automatic_as_built_reconstruction_tpu_torch.cli
 import chip_smoke
 import rotated_iou_ablation
 import sparse_gemm_ablation

@@ -229,9 +229,14 @@ def test_train_evaluate_resume_and_restart(micro_cfg, tmp_path):
     for f in ("log.txt", "metrics.jsonl", "pipeline.config"):
         assert (model_dir / f).exists(), f
     assert (model_dir / "pipeline.config").read_text() == MICRO_CONFIG
-    windows = [json.loads(line) for line in
-               (model_dir / "metrics.jsonl").read_text().splitlines()]
+    lines = [json.loads(line) for line in
+             (model_dir / "metrics.jsonl").read_text().splitlines()]
+    windows = [w for w in lines if w["prefix"] == "train"]
     assert [w["step"] for w in windows] == [10, 20, 30, 40]
+    # no static_shape_buckets: every batch at the reader's full capacity
+    assert lines[-1] == {"step": TOTAL_STEPS,
+                         "prefix": "batches_by_voxel_capacity",
+                         "256": float(TOTAL_STEPS)}
     assert all(math.isfinite(w["loss"]) for w in windows)
     assert windows[-1]["loss"] < 0.8 * windows[0]["loss"], windows
     assert "PR @0.1" in (model_dir / "log.txt").read_text()
