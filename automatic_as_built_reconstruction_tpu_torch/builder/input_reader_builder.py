@@ -8,8 +8,10 @@ sampler of a training reader, its generator seeded
 ``np.random.default_rng(seed)`` as the reference seeds it; the loader's
 worker pools; a training reader's ``static_shape_buckets`` (the full
 voxel capacity added as the last bucket where the config's largest is
-below it).  Host rulebooks are not ported and raise
-``NotImplementedError``."""
+below it); with ``middle_plan``, the sparse middle's rulebooks built on
+the host for every example (``ops/rulebook_host.py``).  Host rulebooks
+at each bucket's plan (``static_shape_buckets`` with ``middle_plan``) are
+not ported and raise ``NotImplementedError``."""
 from __future__ import annotations
 
 import functools
@@ -21,6 +23,7 @@ from ..data import building  # noqa: F401 - registers BuildingDataset
 from ..data import kitti_dataset  # noqa: F401 - registers KittiDataset
 from ..data.dataset import get_dataset_class
 from ..data.preprocess import PrepConfig, prep_pointcloud
+from ..ops import rulebook_host
 from ..train.input_pipeline import BatchLoader, PrepDataset
 from . import dbsampler_builder
 from .config_io import as_list, f32
@@ -84,11 +87,15 @@ def _prep_config(pp: dict, class_names, out_size_factor) -> PrepConfig:
 def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
           feature_map_size, seed: int = 0, middle_plan=None,
           capacity_shrink=None, out_caps=None):
-    """Returns (PrepDataset, BatchLoader).  ``middle_plan`` (host rulebook
-    precompute) must be None: key-match and device-built rulebooks need
-    none, and host rulebooks are not ported."""
-    if middle_plan is not None:
-        raise NotImplementedError("host-built rulebooks are not ported")
+    """Returns (PrepDataset, BatchLoader).
+
+    ``middle_plan``: the sparse middle's block plan
+    (``models.voxelnet.middle_plan``) for host-built rulebooks, or None
+    (key-match mode and device-built rulebooks need none).  The native
+    rulebook builder is built and loaded here, so a failure raises before
+    any worker starts.  ``capacity_shrink`` / ``out_caps`` re-plan the
+    reference's bucketed host rulebooks, which are not ported: they are
+    accepted and unused."""
     class_names = list(as_list(input_cfg.get("class_names")))
     dataset = _build_dataset(input_cfg.get("dataset", {}), class_names,
                              training)
@@ -122,12 +129,19 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
                   f"max_number_of_voxels {cap}; appending {cap} so dense "
                   f"scans keep their full voxel budget")
             buckets = buckets + (cap,)
+        if middle_plan is not None:
+            raise NotImplementedError(
+                "host-built rulebooks with static_shape_buckets (the "
+                "reference's per-bucket plans, pad_rulebooks_to_plan) are "
+                "not ported")
+    if middle_plan is not None:
+        rulebook_host.native()
 
     prep_fn = functools.partial(
         prep_pointcloud, voxel_generator=voxel_generator,
         target_assigner=target_assigner, prep_cfg=prep_cfg,
         training=training, anchor_cache=anchor_cache,
-        db_sampler=db_sampler)
+        db_sampler=db_sampler, middle_plan=middle_plan)
     prep_ds = PrepDataset(dataset, lambda sd, rng: prep_fn(sd, rng=rng))
     loader = BatchLoader(
         prep_ds, batch_size=int(input_cfg.get("batch_size", 0)) or 2,

@@ -3,6 +3,7 @@ map size), as the JAX package's ``builder/second_builder.py::build`` does
 for the fields serving and the loss read."""
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Tuple
 
@@ -162,3 +163,15 @@ def build(model_cfg: dict, voxel_grid, target_assigner):
     model = VoxelNet(cfg)
     return model, cfg, feature_map_size_from(model_cfg,
                                              voxel_grid.grid_size)
+
+
+def mixed_precision(config: dict, model, cfg):
+    """The whole pipeline config's ``train_config.enable_mixed_precision``,
+    as the reference's ``Bundle`` applies it: ``compute_dtype`` bfloat16
+    and the model built anew from that config.  -> (model, cfg), the
+    given ones where the flag is off."""
+    if not config.get("train_config", {}).get("enable_mixed_precision",
+                                               False):
+        return model, cfg
+    cfg = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    return VoxelNet(cfg), cfg

@@ -14,6 +14,10 @@
 //   key-match: out[m] = sum_k [exists j: in_keys[j] == q_keys[k, m]]
 //                             * feats[j] @ W[k]
 //
+// Both take fp32 feats and W.  The gather join also has a bfloat16 form
+// (gather_gemm_bf16_kernel, the second part of this file): bf16 feats and
+// W, fp32 out, for the car.fhd.mixed middle.
+//
 // The TPU bodies of one family differ only in how a tile finds the window
 // of feature rows it copies into VMEM (per tap, shared, per-tap
 // subwindows, grouped taps), because the TPU gathers rows with a one-hot
@@ -552,10 +556,235 @@ keymatch_gemm_kernel(const float* __restrict__ feats,
                          Cin, vec_a, vec_w, lookup);
 }
 
+// ---- the bfloat16 form of the gather join ------------------------------
+//
+// K3s as car.fhd.mixed runs it (the JAX kernel's bf16 operands with
+// preferred_element_type=float32, sparse_gather_gemm.py:65-70 there):
+// bf16 feats [B, N, Cin] and W [K, Cin, Cout], out [B, R, Cout] in fp32.
+// The same tile as above (lookups, the list of non-empty taps, the 2-stage
+// cp.async ring, each warp 16 rows x COUT), with bf16 rows and W in shared
+// memory and mma.sync.aligned.m16n8k16 bf16 x bf16 -> fp32 in one pass: a
+// product of two bf16 values is exact in fp32, so the kernel differs from
+// its plain version (the inputs upcast to fp32, one fp32 matmul) only in
+// the order of its fp32 sums.  As in the fp32 tile, each k-step's mma
+// starts from zero and its 16-term partial is added into the accumulator
+// by an ordinary fp32 add (the tensor core truncates its own sum).
+//
+// Layout (2-byte elements): k padded to KP = Cin rounded up to 16 (one
+// mma's k), the pad zeroed once; rows KP + 8 apart, so a row is 16-byte
+// aligned and the A fragment's 32-bit loads, at word g * (KP/2 + 4) + t
+// of the warp's rows, hit 32 distinct banks (KP/2 + 4 is 4 mod 8); W's
+// rows w_stride(COUT) elements apart (8 or 24 mod 32 as words of the
+// 2t-th rows), so the B fragment's 16-bit loads of rows 2t and 2t + 1,
+// column g, fall on distinct banks (lanes of one word share it).  The
+// rows of Cin = 4 (SimpleVoxel's four features: 8 bytes) copy as 8-byte
+// cp.async chunks, Cin % 8 == 0 as 16-byte chunks, any other even Cin as
+// 4-byte ones; odd Cin is refused by the wrapper.
+//
+// Shared memory is about half the fp32 tile's: 43 780 bytes at 27 taps of
+// 64 -> 64 (fp32: 78 704), which allows 5 blocks an SM.  ptxas -v (sm_90a,
+// nvcc 12.9): 80 / 104 / 83 / 107 / 150 registers at COUT = 8 / 16 / 32 /
+// 64 / 128, no stack, no spills; at 64 the registers allow 4 blocks of 4
+// warps an SM (the fp32 tile: 2), so registers, not shared memory, bound
+// the occupancy.
+//
+// Bound: operations, 2 * hits * Cin * Cout needed flops at the dense bf16
+// tensor-core rate (989 TFLOP/s on an H100 SXM), or bytes (bf16 features
+// and weights read once, fp32 output written once), whichever is larger.
+
+typedef uint16_t bf16_bits;         // a bfloat16 value, as its bits
+
+struct LayoutBf16 {
+  int kp, lda;
+  __host__ __device__ explicit LayoutBf16(int Cin)
+      : kp((Cin + 15) / 16 * 16), lda((Cin + 15) / 16 * 16 + 8) {}
+  __host__ __device__ size_t a_elems() const { return (size_t)TILE_R * lda; }
+  __host__ __device__ size_t w_elems(int cout) const {
+    return (size_t)kp * w_stride(cout);
+  }
+  __host__ __device__ size_t bytes(int K, int cout) const {
+    return 2 * (a_elems() + w_elems(cout)) * 2
+           + ((size_t)K * TILE_R + K + 1) * 4;
+  }
+};
+
+// one cp.async of `bytes` (16, 8 or 4; uniform in the block) bytes, zeros
+// where !valid
+__device__ __forceinline__ void cp_async_chunk(void* dst, const void* src,
+                                               int bytes, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (bytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+  else if (bytes == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid ? 8 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(valid ? 4 : 0) : "memory");
+}
+
+// d += a (16 x 16, row) @ b (16 x 8, col), bf16 in, fp32 out
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Issue the copies of tap k into one stage: W[k] (Cin x COUT; 16-byte
+// chunks of 8 where W is 16-byte aligned, else 4-byte pairs) and the
+// tile's rows in chunks of a_bytes (zeros where src < 0)
+template <int COUT>
+__device__ void load_tap_bf16(bf16_bits* As, bf16_bits* Ws,
+                              const bf16_bits* __restrict__ feats,
+                              const bf16_bits* __restrict__ Wk,
+                              const int* src, int Cin, int lda, int a_bytes,
+                              bool w16) {
+  constexpr int LDW = w_stride(COUT);
+  const int we = w16 ? 8 : 2, wq = COUT / we;      // elements a chunk
+  for (int i = threadIdx.x; i < Cin * wq; i += THREADS) {
+    const int c = i / wq, q = i - c * wq;
+    cp_async_chunk(Ws + c * LDW + we * q, Wk + we * i, 2 * we, true);
+  }
+  const int e = a_bytes / 2, w = Cin / e;          // chunks a row
+  const int dr = THREADS / w, dq = THREADS - dr * w;
+  for (int r = threadIdx.x / w, q = threadIdx.x % w; r < TILE_R;) {
+    const int j = src[r];
+    const bf16_bits* from = feats + (size_t)(j < 0 ? 0 : j) * Cin;
+    cp_async_chunk(As + r * lda + e * q, from + e * q, a_bytes, j >= 0);
+    r += dr;
+    q += dq;
+    if (q >= w) {
+      q -= w;
+      ++r;
+    }
+  }
+}
+
+// acc += the warp's 16 rows of As [TILE_R][lda] @ Ws [kp][LDW], one
+// m16n8k16 mma per k-step and n-tile, its partial added in fp32
+template <int COUT>
+__device__ void multiply_bf16(float (&acc)[COUT / 8][4], const bf16_bits* As,
+                              const bf16_bits* Ws, int kp, int lda) {
+  constexpr int LDW = w_stride(COUT), NT = COUT / 8;
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const bf16_bits* a_lo = As + ((threadIdx.x >> 5) * 16 + g) * lda + 2 * t;
+  const bf16_bits* a_hi = a_lo + 8 * lda;
+  const bf16_bits* b = Ws + 2 * t * LDW + g;
+  for (int k0 = 0; k0 < kp; k0 += 16) {
+    // A fragment: rows g and g + 8, columns (2t, 2t + 1) and (2t + 8,
+    // 2t + 9), two bf16 a register, the lower column in the low half
+    uint32_t a[4];
+    a[0] = *reinterpret_cast<const uint32_t*>(a_lo + k0);
+    a[1] = *reinterpret_cast<const uint32_t*>(a_hi + k0);
+    a[2] = *reinterpret_cast<const uint32_t*>(a_lo + k0 + 8);
+    a[3] = *reinterpret_cast<const uint32_t*>(a_hi + k0 + 8);
+    const bf16_bits* bk = b + k0 * LDW;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      // B fragment: column g, rows (2t, 2t + 1) and (2t + 8, 2t + 9)
+      const bf16_bits* p = bk + nt * 8;
+      const uint32_t b0 = (uint32_t)p[0] | ((uint32_t)p[LDW] << 16);
+      const uint32_t b1 = (uint32_t)p[8 * LDW] | ((uint32_t)p[9 * LDW] << 16);
+      float d[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(d, a, b0, b1);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[nt][i] += d[i];
+    }
+  }
+}
+
+template <int COUT>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+gather_gemm_bf16_kernel(const bf16_bits* __restrict__ feats,
+                        const int* __restrict__ idx,
+                        const uint8_t* __restrict__ found,
+                        const bf16_bits* __restrict__ W,
+                        float* __restrict__ out, int N, int R, int K,
+                        int Cin, int a_bytes, bool w16) {
+  static_assert(COUT % 8 == 0 && COUT <= 128, "COUT: 8, 16, 32, 64 or 128");
+  constexpr int LDW = w_stride(COUT), NT = COUT / 8;
+  const size_t bz = blockIdx.y;
+  const RulebookLookup lookup{idx + bz * K * R, found + bz * K * R, N};
+  feats += bz * N * Cin;
+  out += bz * R * COUT;
+  extern __shared__ float4 smem4[];
+  const LayoutBf16 L(Cin);
+  bf16_bits* As = reinterpret_cast<bf16_bits*>(smem4);   // [2][TILE_R][lda]
+  bf16_bits* Ws = As + 2 * L.a_elems();                  // [2][kp][LDW]
+  int* src = reinterpret_cast<int*>(Ws + 2 * L.w_elems(COUT));  // [K][TILE_R]
+  int* taps = src + (size_t)K * TILE_R;                  // [K + 1]
+  const int row0 = blockIdx.x * TILE_R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  // the k padding of both stages: the copies never write there
+  const int pad = L.kp - Cin;
+  for (int i = threadIdx.x; i < 2 * TILE_R * pad; i += THREADS) {
+    const int r = i / pad;
+    As[r * L.lda + Cin + (i - r * pad)] = 0;
+  }
+  for (int i = threadIdx.x; i < 2 * pad * COUT; i += THREADS) {
+    const int s = i / (pad * COUT), e = i - s * pad * COUT;
+    Ws[s * L.w_elems(COUT) + (Cin + e / COUT) * LDW + e % COUT] = 0;
+  }
+
+  find_sources(lookup, src, taps, row0, R, K);
+  __syncthreads();
+  if (warp == 0) list_taps(taps, K);
+  __syncthreads();
+  const int listed = taps[K];
+
+  float acc[NT][4];
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
+
+  if (listed > 0) {
+    load_tap_bf16<COUT>(As, Ws, feats, W + (size_t)taps[0] * Cin * COUT,
+                        src + taps[0] * TILE_R, Cin, L.lda, a_bytes, w16);
+    cp_async_commit();
+  }
+  for (int t = 0; t < listed; ++t) {
+    const int s = t & 1;
+    if (t + 1 < listed) {             // tap t + 1 into the other stage
+      const int k1 = taps[t + 1];
+      load_tap_bf16<COUT>(As + (s ^ 1) * L.a_elems(),
+                          Ws + (s ^ 1) * L.w_elems(COUT), feats,
+                          W + (size_t)k1 * Cin * COUT, src + k1 * TILE_R,
+                          Cin, L.lda, a_bytes, w16);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();                  // stage s has landed
+    const bool warp_has_rows =
+        __any_sync(FULL, src[taps[t] * TILE_R + warp * 16 + (lane & 15)] >= 0);
+    if (warp_has_rows)
+      multiply_bf16<COUT>(acc, As + s * L.a_elems(),
+                          Ws + s * L.w_elems(COUT), L.kp, L.lda);
+    __syncthreads();                  // stage s is free again
+  }
+
+  // C fragment: (g, 2t), (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1)
+  const int r = row0 + warp * 16 + (lane >> 2), c = 2 * (lane & 3);
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    if (r < R)
+      *reinterpret_cast<float2*>(out + (size_t)r * COUT + nt * 8 + c) =
+          make_float2(acc[nt][0], acc[nt][1]);
+    if (r + 8 < R)
+      *reinterpret_cast<float2*>(out + (size_t)(r + 8) * COUT + nt * 8 + c) =
+          make_float2(acc[nt][2], acc[nt][3]);
+  }
+}
+
 template <class Kernel, class... Args>
-int launch(Kernel kernel, int B, int R, int K, int Cin, int Cout,
-           cudaStream_t stream, Args... args) {
-  const size_t smem = Layout(Cin).bytes(K, Cout);
+int launch(Kernel kernel, size_t smem, int B, int R, cudaStream_t stream,
+           Args... args) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -570,12 +799,21 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+bool aligned8(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 7) == 0;
+}
+
 }  // namespace
 
 // Shared-memory bytes a launch at (K, Cin, Cout) asks for; the wrapper
 // holds it against the 227 KB a block may have.
 extern "C" int sparse_gemm_smem_bytes(int K, int Cin, int Cout) {
   return (int)Layout(Cin).bytes(K, Cout);
+}
+
+// The same for the bfloat16 form of the gather join.
+extern "C" int sparse_gemm_bf16_smem_bytes(int K, int Cin, int Cout) {
+  return (int)LayoutBf16(Cin).bytes(K, Cout);
 }
 
 #define DISPATCH_COUT(KERNEL, ...)                                        \
@@ -597,8 +835,27 @@ extern "C" int gather_gemm_launch(const float* feats, const int* idx,
   if (B == 0 || R == 0) return (int)cudaSuccess;
   const bool vec_a = Cin % 4 == 0 && aligned16(feats);
   const bool vec_w = aligned16(W);
-  DISPATCH_COUT(gather_gemm_kernel, B, R, K, Cin, Cout, stream, feats, idx,
-                found, W, out, N, R, K, Cin, vec_a, vec_w)
+  DISPATCH_COUT(gather_gemm_kernel, Layout(Cin).bytes(K, Cout), B, R,
+                stream, feats, idx, found, W, out, N, R, K, Cin, vec_a,
+                vec_w)
+}
+
+// The bfloat16 form: feats [B, N, Cin] and W [K, Cin, Cout] bf16 (as
+// their bits), idx / found [B, K, R] -> out [B, R, Cout] fp32.  Cin must
+// be even and feats and W 4-byte aligned (the wrapper sees to both).
+extern "C" int gather_gemm_bf16_launch(const uint16_t* feats, const int* idx,
+                                       const uint8_t* found,
+                                       const uint16_t* W, float* out, int B,
+                                       int N, int R, int K, int Cin,
+                                       int Cout, cudaStream_t stream) {
+  if (B == 0 || R == 0) return (int)cudaSuccess;
+  if (Cin % 2 != 0) return (int)cudaErrorInvalidValue;
+  const int a_bytes = (Cin % 8 == 0 && aligned16(feats)) ? 16
+                      : (Cin % 4 == 0 && aligned8(feats)) ? 8 : 4;
+  const bool w16 = aligned16(W);
+  DISPATCH_COUT(gather_gemm_bf16_kernel, LayoutBf16(Cin).bytes(K, Cout), B,
+                R, stream, feats, idx, found, W, out, N, R, K, Cin, a_bytes,
+                w16)
 }
 
 // feats [B, N, Cin], in_keys [B, N], q_keys [B, K, R], W [K, Cin, Cout]
@@ -612,7 +869,7 @@ extern "C" int keymatch_gemm_launch(const float* feats, const int* in_keys,
   if (B == 0 || R == 0) return (int)cudaSuccess;
   const bool vec_a = Cin % 4 == 0 && aligned16(feats);
   const bool vec_w = aligned16(W);
-  DISPATCH_COUT(keymatch_gemm_kernel, B, R, K, Cin, Cout, stream, feats,
-                in_keys, q_keys, sorted_flag, W, out, N, R, K, Cin, vec_a,
-                vec_w)
+  DISPATCH_COUT(keymatch_gemm_kernel, Layout(Cin).bytes(K, Cout), B, R,
+                stream, feats, in_keys, q_keys, sorted_flag, W, out, N, R, K,
+                Cin, vec_a, vec_w)
 }

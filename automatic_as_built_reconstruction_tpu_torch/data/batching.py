@@ -2,9 +2,11 @@
 
 Every example is already padded to static capacity by ``prep_pointcloud``,
 so batching is a plain stack.  The port's copy of the JAX package's
-``data/batching.py``: ``merge_batch``, ``device_example`` and the bucketed
-shrinking (``pick_bucket``, ``shrink_to_bucket``).  The host-rulebook
-padding (``pad_rulebooks_to_plan``) comes with host-rulebook training.
+``data/batching.py``: ``merge_batch``, ``device_example`` (both carry the
+host-built rulebooks, keys ``rb*``) and the bucketed shrinking
+(``pick_bucket``, ``shrink_to_bucket``).  The host-rulebook padding to a
+bucket's plan (``pad_rulebooks_to_plan``) is not ported: no config pairs
+host rulebooks with ``static_shape_buckets``.
 """
 from __future__ import annotations
 
@@ -22,7 +24,8 @@ _LIST_KEYS = ("metadata", "calib", "gt_boxes", "gt_names")
 def merge_batch(examples: List[Dict[str, np.ndarray]]) -> Dict[str, object]:
     out: Dict[str, object] = {}
     for k in examples[0].keys():
-        if k in _STACK_KEYS:
+        if k in _STACK_KEYS or k.startswith("rb"):
+            # rb* = host-built sparse-conv rulebooks (ops/rulebook_host.py)
             out[k] = np.stack([e[k] for e in examples])
         elif k in _LIST_KEYS:
             out[k] = [e[k] for e in examples]
@@ -63,4 +66,6 @@ def device_example(batch: Dict[str, object]) -> Dict[str, np.ndarray]:
     """The array-only subset that is shipped to the device."""
     keys = ("voxels", "num_points", "coordinates", "anchors", "anchors_mask",
             "labels", "reg_targets", "importance")
-    return {k: batch[k] for k in keys if k in batch}
+    out = {k: batch[k] for k in keys if k in batch}
+    out.update({k: v for k, v in batch.items() if k.startswith("rb")})
+    return out

@@ -8,11 +8,14 @@ per-object noise -> global flip / rotation / scaling / translation ->
 range filter -> yaw wrap; then point shuffle -> host voxelization -> (key
 sort) -> padding to the static capacities (max_voxels /
 max_points_per_voxel, so that batches stack into fixed-shape buffers;
-validity is carried in counts and -1 coords) -> anchors (cached) ->
-anchor mask (BEV density integral image) -> (training) target
-assignment.  Every rng call is the reference's, in its order, so one
-seed (and one sampler state) gives the reference's example.  Host-built
-sparse rulebooks are not ported and raise ``NotImplementedError``.
+validity is carried in counts and -1 coords) -> (``middle_plan``) the
+sparse middle's rulebooks, built on the host (``ops/rulebook_host.py``,
+keys ``rb*``) -> anchors (cached) -> anchor mask (BEV density integral
+image) -> (training) target assignment.  Every rng call is the
+reference's, in its order, so one seed (and one sampler state) gives the
+reference's example.  Host rulebooks at a bucket's plan
+(``middle_plan_buckets``) are not ported and raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import numpy as np
 from ..core import augment, box_ops
 from ..core.target_assign import TargetAssigner
 from ..core.voxelize import VoxelGenerator
+from ..ops import rulebook_host
 
 
 @dataclasses.dataclass
@@ -71,12 +75,16 @@ def prep_pointcloud(input_dict: dict,
     """Sensor-data dict -> example dict of fixed-capacity numpy arrays:
     ``voxels`` [V, T, C], ``num_points`` [V], ``coordinates`` [V, 3]
     (z, y, x; -1 padding), ``num_voxels``, ``anchors`` [A, 7], and, where
-    present or configured, ``metadata``, ``calib`` and ``anchors_mask``.
+    present or configured, ``metadata``, ``calib``, ``anchors_mask`` and,
+    with ``middle_plan`` (the sparse middle's block plan), the host-built
+    rulebooks ``rb{i}_*``.
     With ``training`` also ``labels`` [A], ``reg_targets`` [A, code],
     ``importance`` [A], ``gt_boxes`` [G, 7] and ``gt_names`` [G].
     """
-    if middle_plan is not None or middle_plan_buckets is not None:
-        raise NotImplementedError("host-built rulebooks are not ported")
+    if middle_plan_buckets is not None:
+        raise NotImplementedError(
+            "host-built rulebooks at a bucket's plan (middle_plan_buckets: "
+            "host rulebooks with static_shape_buckets) are not ported")
     rng = rng or np.random.default_rng()
     points = np.array(input_dict["lidar"]["points"], np.float32, copy=True)
     class_names = list(prep_cfg.class_names)
@@ -176,6 +184,9 @@ def prep_pointcloud(input_dict: dict,
         "coordinates": coords.astype(np.int32),
         "num_voxels": np.asarray(nv, np.int32),
     }
+    if middle_plan is not None:
+        example.update(rulebook_host.build_middle_rulebooks(
+            coords, middle_plan))
     if "metadata" in input_dict:
         example["metadata"] = input_dict["metadata"]
     if "calib" in input_dict:

@@ -7,16 +7,21 @@ stack) in its three modes —
 - key-match (``use_keymatch`` and ``use_pallas_gemm``): no rulebooks; the
   :func:`~..ops.sparse_gather_gemm.keymatch_gemm` kernel joins each tap's
   query keys with the sorted input keys;
-- gather-GEMM (``use_pallas_gemm``): merge-built rulebooks through the
+- gather-GEMM (``use_pallas_gemm``): rulebooks through the
   :func:`~..ops.sparse_gather_gemm.gather_gemm` kernel;
-- plain: merge-built rulebooks through ``ops.sparse_conv``'s plain convs;
+- plain: rulebooks through ``ops.sparse_conv``'s plain convs;
 
+the rulebooks of the last two merge-built on the device, or built on the
+host by the input pipeline (``rulebooks=``, ``ops/rulebook_host.py``),
 and the dense tail (``dense_tail_blocks``: the last N blocks as masked
-dense ``conv3d``).  Parameter names follow the lineage torch net: the
+dense ``conv3d``).  ``dtype=torch.bfloat16`` computes as the JAX
+module's ``dtype=jnp.bfloat16``: features in bfloat16, each join of
+bfloat16 features and weights into float32 and back, BatchNorm in
+float32.  Parameter names follow the lineage torch net: the
 n-th conv of the stack is ``middle_conv.{3n}.weight`` in the spconv 1.x
 layout ``(kz, ky, kx, Cin, Cout)``, its BatchNorm ``middle_conv.{3n+1}``
-— the names ``utils/weight_import.py`` emits.  Host rulebooks
-(``rulebooks=``) and ``DenseMiddle`` are not ported.
+— the names ``utils/weight_import.py`` emits.  ``DenseMiddle`` is not
+ported.
 """
 from __future__ import annotations
 
@@ -45,7 +50,8 @@ class MaskedBatchNorm(nn.Module):
     running ones move by ``momentum`` (torch's convention: 0.01 is flax's
     0.99); the running variance is the biased masked one, as in the JAX
     package.  In eval the running statistics normalise.  Rows outside the
-    mask come out exactly 0."""
+    mask come out exactly 0.  A bfloat16 input is normalised in float32
+    and cast back; the statistics stay float32."""
 
     def __init__(self, num_features: int, momentum: float = BN_MOMENTUM,
                  eps: float = BN_EPS):
@@ -116,7 +122,8 @@ class SparseMiddle(nn.Module):
     After a forward pass ``capacity_saturated`` holds, per block, how many
     scans filled the block's static site capacity (sites beyond it are
     truncated in key order); dense-tail blocks have no capacity and count
-    0.
+    0.  ``dtype``: the compute type of the features (float32, or bfloat16
+    as ``car.fhd.mixed`` runs it); float64 inputs stay float64.
     """
 
     def __init__(self, grid_dhw: Tuple[int, int, int],
@@ -132,7 +139,7 @@ class SparseMiddle(nn.Module):
                  use_pallas_gemm: bool = False, pallas_tile: int = 256,
                  pallas_window=768, keymatch_subwindow=0,
                  keymatch_group: bool = False, use_keymatch: bool = False,
-                 dense_tail_blocks: int = 0):
+                 dense_tail_blocks: int = 0, dtype=torch.float32):
         super().__init__()
         self.grid_dhw = tuple(int(g) for g in grid_dhw)
         self.specs = (tuple(sc.BlockSpec(*b) for b in blocks)
@@ -149,6 +156,7 @@ class SparseMiddle(nn.Module):
         self.keymatch_group = keymatch_group
         self.use_keymatch = use_keymatch
         self.dense_tail_blocks = int(dense_tail_blocks)
+        self.dtype = dtype
         self.capacity_saturated: Dict[str, torch.Tensor] = {}
 
         # lineage Sequential: conv at 3n, BN at 3n + 1, ReLU at 3n + 2
@@ -188,26 +196,35 @@ class SparseMiddle(nn.Module):
                                 self.pallas_tile, window, True, subwindow,
                                 group)
         elif self.use_pallas_gemm:
-            out = gather_gemm(feats, rulebook.gather_idx, rulebook.found, w,
-                              None, self.pallas_tile, window)
+            out = gather_gemm(feats, rulebook.gather_idx, rulebook.found,
+                              w.to(feats.dtype), None, self.pallas_tile,
+                              window)
         else:
             out = sc.gathered_matmul(feats, rulebook.gather_idx,
-                                     rulebook.found, w)
-        return torch.where(valid[..., None], out, 0.0)
+                                     rulebook.found, w.to(feats.dtype))
+        # the joins give float32 (float64): back to the features' type
+        return torch.where(valid[..., None], out, 0.0).to(feats.dtype)
 
     def forward(self, voxel_features: torch.Tensor, coords: torch.Tensor,
                 rulebooks=None) -> torch.Tensor:
         """[B, V, F] + [B, V, 3] (z,y,x; -1 pad; key order for the
         key-match mode) -> NCHW BEV map [B, D'*C, H', W'], channel
         ``d*C + c``: a permuted view of the JAX layout [B, H', W', D'*C].
+        ``rulebooks``: per-block (SubmanifoldRulebook, StridedSparseLayout)
+        pairs built on the host (``ops/rulebook_host.py::unflatten``), one
+        per sparse block, which every mode then joins with; without them
+        the key-match mode joins keys and the others merge rulebooks on
+        the device.
         """
-        if rulebooks is not None:
-            raise NotImplementedError("host-built rulebooks are not ported")
-        feats = voxel_features.to(torch.promote_types(voxel_features.dtype,
-                                                      torch.float32))
+        if self.dtype == torch.bfloat16:
+            feats = voxel_features.to(torch.bfloat16)
+        else:
+            feats = voxel_features.to(torch.promote_types(
+                voxel_features.dtype, torch.float32))
         cur_coords = coords
         valid = coords[..., 0] >= 0
-        use_km = self.use_keymatch and self.use_pallas_gemm
+        use_km = (self.use_keymatch and self.use_pallas_gemm
+                  and rulebooks is None)
         plan = self.plan(coords.shape[1])
         dense_from = (len(plan) - self.dense_tail_blocks
                       if self.dense_tail_blocks > 0 else len(plan))
@@ -246,7 +263,16 @@ class SparseMiddle(nn.Module):
                                         device=feats.device)
                         if g_str > 1 else None)
             rb = layout = km_subm = km_str = None
-            if use_km:
+            if rulebooks is not None:
+                rb, layout = rulebooks[bi]
+                sites = layout
+                if tuple(layout.out_valid.shape) != (*coords.shape[:-2],
+                                                     blk.out_cap):
+                    raise ValueError(
+                        f"block {bi}: host rulebooks of "
+                        f"{tuple(layout.out_valid.shape)} output sites, the "
+                        f"plan's capacity is {blk.out_cap}")
+            elif use_km:
                 # linearize maps padding (-1 coords) to INT32_MAX: a row
                 # with no key, a query that matches nothing
                 in_keys = sc.linearize(cur_coords, blk.grid)
@@ -306,10 +332,13 @@ class SparseMiddle(nn.Module):
         convolutions in the JAX package."""
 
         def conv(x, w, kernel, stride, pad):
-            y = F.conv3d(x.permute(0, 4, 1, 2, 3),
-                         sc.conv3d_weight(w, kernel).to(x.dtype),
+            # bfloat16 (the JAX module's preferred_element_type): float32
+            # products of the bfloat16 values, cast back
+            ct = torch.promote_types(x.dtype, torch.float32)
+            y = F.conv3d(x.permute(0, 4, 1, 2, 3).to(ct),
+                         sc.conv3d_weight(w, kernel).to(x.dtype).to(ct),
                          stride=tuple(stride), padding=tuple(pad))
-            return y.permute(0, 2, 3, 4, 1)
+            return y.permute(0, 2, 3, 4, 1).to(x.dtype)
 
         def bn_relu(x, mask):
             bn, relu = next(convs), next(convs)
@@ -323,7 +352,9 @@ class SparseMiddle(nn.Module):
             x = bn_relu(x, mask)
         x = conv(x, next(convs).taps(), blk.kernel, blk.stride, blk.pad)
         # output sites = any active input in the receptive field
-        mask = (F.max_pool3d(mask.permute(0, 4, 1, 2, 3), tuple(blk.kernel),
-                             tuple(blk.stride), tuple(blk.pad))
+        mask = (F.max_pool3d(
+            mask.permute(0, 4, 1, 2, 3).to(torch.promote_types(
+                mask.dtype, torch.float32)), tuple(blk.kernel),
+            tuple(blk.stride), tuple(blk.pad))
                 > 0).to(x.dtype).permute(0, 2, 3, 4, 1)
         return bn_relu(x, mask), mask

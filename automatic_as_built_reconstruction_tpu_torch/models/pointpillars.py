@@ -37,9 +37,15 @@ class _FlaxBatchNorm:
     channels-last input's squares imprecisely (0.5 % off in the variance
     of the PFN's 1.2 M rows, 95 % of them padding), and autograd through
     the one-pass formula cancels large terms in the backward; the centred
-    form is what a fused kernel's backward computes."""
+    form is what a fused kernel's backward computes.
+
+    A bfloat16 input (the RPN of ``compute_dtype="bfloat16"``) is
+    normalised in float32 and the output cast back to bfloat16, as flax's
+    ``BatchNorm(dtype=bfloat16)`` computes it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            return self.forward(x.float()).to(torch.bfloat16)
         if not self.training:
             return super().forward(x)
         dims = [0, *range(2, x.dim())]

@@ -7,6 +7,15 @@ and concatenated, then 1x1 heads for class / box / direction.  Module
 names follow the lineage torch RPN (``blocks.{i}.{j}`` with a leading
 ``ZeroPad2d``, ``deblocks.{i}.{0,1}``, ``conv_cls`` / ``conv_box`` /
 ``conv_dir_cls``), the names ``utils/weight_import.py`` emits.
+
+``dtype=torch.bfloat16`` mirrors the JAX modules' flax ``dtype=bfloat16``
+(``models/rpn.py:28-36``, ``:51-59``, ``:97-120`` there): the parameters
+stay float32, each convolution casts its input, kernel and bias to
+bfloat16 and runs in bfloat16 (the bias added after the convolution, in
+bfloat16), and BatchNorm takes its statistics and normalises in float32
+and gives bfloat16.  The casts are explicit in the modules, not
+``torch.autocast``, which keeps BatchNorm's output in float32 and picks
+its own list of operations.
 """
 from __future__ import annotations
 
@@ -14,8 +23,43 @@ from typing import Dict, Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from .pointpillars import BN_EPS, BN_MOMENTUM, FlaxBatchNorm2d
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` that computes in ``compute_dtype`` where it is set
+    (its input, kernel and bias cast, the bias added after the
+    convolution, in that type, as flax's ``Conv(dtype=...)`` does); with
+    None it is ``nn.Conv2d``."""
+
+    compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        if self.bias is not None:
+            y = y + self.bias.to(dt).view(1, -1, 1, 1)
+        return y
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no bias) that computes in
+    ``compute_dtype`` where it is set, as :class:`Conv2d`."""
+
+    compute_dtype = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt is None:
+            return super().forward(x)
+        return F.conv_transpose2d(x.to(dt), self.weight.to(dt), None,
+                                  self.stride, self.padding,
+                                  self.output_padding, self.groups,
+                                  self.dilation)
 
 
 def _bn(ch: int) -> nn.BatchNorm2d:
@@ -27,17 +71,16 @@ def conv_block(in_ch: int, filters: int, layers: int,
     """flax Conv(padding=((1,1),(1,1)), stride s) == ZeroPad2d(1) + Conv2d
     with no padding."""
     mods = [nn.ZeroPad2d(1),
-            nn.Conv2d(in_ch, filters, 3, stride=stride, bias=False),
+            Conv2d(in_ch, filters, 3, stride=stride, bias=False),
             _bn(filters), nn.ReLU()]
     for _ in range(layers):
-        mods += [nn.Conv2d(filters, filters, 3, padding=1, bias=False),
+        mods += [Conv2d(filters, filters, 3, padding=1, bias=False),
                  _bn(filters), nn.ReLU()]
     return nn.Sequential(*mods)
 
 
 def upsample(in_ch: int, filters: int, stride: int) -> nn.Sequential:
-    up = nn.ConvTranspose2d(in_ch, filters, stride, stride=stride,
-                            bias=False)
+    up = ConvTranspose2d(in_ch, filters, stride, stride=stride, bias=False)
     return nn.Sequential(up, _bn(filters), nn.ReLU())
 
 
@@ -51,7 +94,8 @@ class RPN(nn.Module):
                  upsample_strides: Sequence[int] = (1, 2, 4),
                  num_upsample_filters: Sequence[int] = (256, 256, 256),
                  num_anchor_per_loc: int = 2, num_class: int = 1,
-                 box_code_size: int = 7, num_direction_bins: int = 2):
+                 box_code_size: int = 7, num_direction_bins: int = 2,
+                 dtype=torch.float32):
         super().__init__()
         blocks, deblocks = [], []
         in_ch = num_input_features
@@ -64,14 +108,19 @@ class RPN(nn.Module):
         self.blocks = nn.ModuleList(blocks)
         self.deblocks = nn.ModuleList(deblocks)
         head_in = sum(num_upsample_filters[:len(blocks)])
-        self.conv_cls = nn.Conv2d(head_in, num_anchor_per_loc * num_class, 1)
-        self.conv_box = nn.Conv2d(head_in, num_anchor_per_loc * box_code_size,
-                                  1)
-        self.conv_dir_cls = nn.Conv2d(
+        self.conv_cls = Conv2d(head_in, num_anchor_per_loc * num_class, 1)
+        self.conv_box = Conv2d(head_in, num_anchor_per_loc * box_code_size,
+                               1)
+        self.conv_dir_cls = Conv2d(
             head_in, num_anchor_per_loc * num_direction_bins, 1)
+        if dtype != torch.float32:
+            for m in self.modules():
+                if isinstance(m, (Conv2d, ConvTranspose2d)):
+                    m.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """x [B, C, H, W] -> prediction maps [B, A*c, H', W'] (NCHW)."""
+        """x [B, C, H, W] -> prediction maps [B, A*c, H', W'] (NCHW), in
+        the compute dtype."""
         ups = []
         for block, deblock in zip(self.blocks, self.deblocks):
             x = block(x)

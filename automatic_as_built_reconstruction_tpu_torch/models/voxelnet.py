@@ -6,7 +6,11 @@ The port of the JAX package's ``models/voxelnet.py``: its own copy of
 pillar branch (PillarFeatureNet -> PointPillarsScatter -> RPN) and sparse
 branch (SimpleVoxel -> SparseMiddle -> RPN), ``num_middle_blocks``,
 ``middle_plan``, ``compute_loss`` (:364) and ``predict`` (:452).  The
-other VFEs, ``DenseMiddle``, host rulebooks, bfloat16 compute, the
+sparse branch takes host-built rulebooks (``middle_rulebooks=``) and
+computes in bfloat16 with ``compute_dtype="bfloat16"`` (the middle and
+the RPN; the VFE stays float32 and every head comes back in float32, as
+the JAX package's flax modules run with ``dtype=bfloat16``).  The other
+VFEs, ``DenseMiddle``, bfloat16 pillars, bfloat16 key-match joins, the
 yaw-quality head, ``PillarFeatureNetRadius``, ``with_distance``,
 fractional upsample strides, softmax class scores
 (``encode_background_as_zeros`` false) and a model without the direction
@@ -29,6 +33,8 @@ from .middle import SparseMiddle
 from .pointpillars import PillarFeatureNet, PointPillarsScatter
 from .rpn import RPN
 from .voxel_encoder import SimpleVoxel
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 # every lineage SpMiddle* spelling builds the sparse stack; the exact
 # per-variant layer plan comes from models/middle_plans.py (wired in by
@@ -166,9 +172,18 @@ class VoxelNet(nn.Module):
             raise NotImplementedError(
                 f"VFE {cfg.vfe_name}: only PillarFeatureNet and SimpleVoxel "
                 f"are ported")
-        if cfg.compute_dtype != "float32":
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(
-                f"compute_dtype {cfg.compute_dtype}: only float32 is ported")
+                f"compute_dtype {cfg.compute_dtype}: only "
+                f"{sorted(COMPUTE_DTYPES)} are ported")
+        bf16 = cfg.compute_dtype == "bfloat16"
+        if bf16 and cfg.middle_name not in SPARSE_MIDDLE_NAMES:
+            raise NotImplementedError(
+                "bfloat16 compute is ported for the sparse middle (SECOND) "
+                "only")
+        if bf16 and cfg.sparse_keymatch and cfg.sparse_use_pallas_gemm:
+            raise NotImplementedError(
+                "bfloat16 key-match joins (K4 in bfloat16) are not ported")
         if cfg.with_distance:
             raise NotImplementedError("PillarFeatureNet with_distance is not "
                                       "ported")
@@ -211,7 +226,8 @@ class VoxelNet(nn.Module):
                 use_keymatch=cfg.sparse_keymatch,
                 keymatch_subwindow=cfg.sparse_keymatch_subwindow,
                 keymatch_group=cfg.sparse_keymatch_group,
-                dense_tail_blocks=cfg.sparse_dense_tail_blocks)
+                dense_tail_blocks=cfg.sparse_dense_tail_blocks,
+                dtype=COMPUTE_DTYPES[cfg.compute_dtype])
             rpn_in = self.middle_feature_extractor.out_channels
         else:
             self.middle_feature_extractor = PointPillarsScatter(
@@ -226,7 +242,8 @@ class VoxelNet(nn.Module):
             num_upsample_filters=cfg.rpn_num_upsample_filters,
             num_anchor_per_loc=cfg.num_anchor_per_loc,
             num_class=cfg.num_class, box_code_size=cfg.box_code_size,
-            num_direction_bins=cfg.num_direction_bins)
+            num_direction_bins=cfg.num_direction_bins,
+            dtype=COMPUTE_DTYPES[cfg.compute_dtype])
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
                 coords: torch.Tensor, *, middle_rulebooks=None,
@@ -238,11 +255,11 @@ class VoxelNet(nn.Module):
         wants the voxels in key order; the pillar scatter takes any order.
         ``flat_points`` / ``flat_slot`` (from ``ops.voxelize.
         voxelize_flat``): the point-major pillar VFE path; ``voxels`` may
-        be None then.  ``middle_rulebooks`` (host-built sparse rulebooks)
-        is not ported.
+        be None then.  ``middle_rulebooks``: the sparse middle's per-block
+        (rulebook, layout) pairs built on the host
+        (``ops/rulebook_host.py::unflatten``); without them it builds its
+        own on the device.
         """
-        if middle_rulebooks is not None:
-            raise NotImplementedError("host-built rulebooks are not ported")
         if flat_points is not None:
             if self.cfg.vfe_name != "PillarFeatureNet":
                 raise NotImplementedError(
@@ -253,12 +270,26 @@ class VoxelNet(nn.Module):
         else:
             voxel_features = self.voxel_feature_extractor(
                 voxels, num_points, coords)
-        spatial = self.middle_feature_extractor(voxel_features, coords)
-        preds = self.rpn(spatial)
+        spatial = (self.middle_feature_extractor(voxel_features, coords)
+                   if middle_rulebooks is None else
+                   self.middle_feature_extractor(
+                       voxel_features, coords, rulebooks=middle_rulebooks))
+        preds = self.rpn_heads(spatial)
         if return_stages:
             return preds, {"voxel_features": voxel_features,
                            "spatial_features": spatial}
         return preds
+
+
+    def rpn_heads(self, spatial: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The RPN on the middle's canvas in the compute dtype, each head
+        back in float32 (float64 stays float64) for decode and loss."""
+        dtype = COMPUTE_DTYPES[self.cfg.compute_dtype]
+        if dtype != torch.float32:
+            spatial = spatial.to(dtype)
+        preds = self.rpn(spatial)
+        return {k: v.to(torch.promote_types(v.dtype, torch.float32))
+                for k, v in preds.items()}
 
 
 def _refuse_unported_heads(cfg: VoxelNetConfig) -> None:

@@ -12,6 +12,13 @@ an unchanged one is reused.  Nothing is downloaded.
 ``-fmad=false`` keeps every multiply and add rounded separately, as the
 plain PyTorch versions round them, so a kernel and its plain version
 differ only by the device's ``sinf``/``cosf``.  No ``--use_fast_math``.
+
+Host code (``csrc/*.cpp``: the rulebook builder of the input pipeline) is
+built the same way by the host compiler nvcc drives, ``g++``, at first
+use (:func:`load_host`):
+
+    g++ -O3 -std=c++17 -shared -fPIC -o _build/lib<name>-<hash>.so
+        csrc/<name>.cpp
 """
 from __future__ import annotations
 
@@ -21,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, List
@@ -30,6 +38,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 
 class KernelBuildError(RuntimeError):
@@ -43,15 +52,25 @@ def nvcc_path() -> str:
     raise KernelBuildError("nvcc not found (PATH, /usr/local/cuda/bin)")
 
 
+def cxx_path() -> str:
+    """The host C++ compiler: ``g++`` on PATH, as nvcc finds it."""
+    for cand in (shutil.which("g++"), "/usr/bin/g++"):
+        if cand and Path(cand).exists():
+            return cand
+    raise KernelBuildError("g++ not found (PATH, /usr/bin)")
+
+
 def sources() -> List[str]:
     """Names of the kernels in ``csrc/`` (file stems)."""
     return sorted(p.stem for p in CSRC_DIR.glob("*.cu"))
 
 
-def lib_path(name: str) -> Path:
-    """Where the library of ``csrc/<name>.cu`` is (or will be) built."""
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+def lib_path(name: str, suffix: str = ".cu") -> Path:
+    """Where the library of ``csrc/<name><suffix>`` is (or will be)
+    built: named by a hash of the source and the flags."""
+    src = (CSRC_DIR / f"{name}{suffix}").read_bytes()
+    flags = NVCC_FLAGS if suffix == ".cu" else CXX_FLAGS
+    digest = hashlib.sha1(src + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -100,6 +119,36 @@ def load(name: str) -> ctypes.CDLL:
     if not path.exists():
         build_all([name])
     return ctypes.CDLL(str(path))
+
+
+_HOST_LOCK = threading.Lock()
+
+
+@functools.cache
+def _load_host(name: str) -> ctypes.CDLL:
+    out = lib_path(name, ".cpp")
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        proc = subprocess.run(
+            [cxx_path(), *CXX_FLAGS, "-o", str(tmp),
+             str(CSRC_DIR / f"{name}.cpp")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise KernelBuildError(f"host build of {name}.cpp failed (g++ "
+                                   f"rc={proc.returncode}):\n{proc.stdout}")
+        os.replace(tmp, out)
+    return ctypes.CDLL(str(out))
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source ``csrc/<name>.cpp``, built
+    with g++ first if needed (one build however many threads ask).
+    Raises :class:`KernelBuildError` with the compiler's output when the
+    build fails."""
+    with _HOST_LOCK:
+        return _load_host(name)
 
 
 @functools.cache

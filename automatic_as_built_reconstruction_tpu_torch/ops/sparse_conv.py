@@ -430,16 +430,18 @@ def gathered_matmul(features: torch.Tensor, gather_idx: torch.Tensor,
     """``out[r] = sum_k found[k, r] * features[idx[k, r]] @ W[k]`` as one
     masked gather into [R, K*Cin] and one matmul: features [..., N, Cin],
     idx/found [..., K, R], weights [K, Cin, Cout] -> [..., R, Cout]
-    float32 (float64 for float64 features)."""
+    float32 (float64 for float64 features).  bfloat16 features and
+    weights are multiplied in float32 (their products are exact there), as
+    the JAX package's ``preferred_element_type=float32`` computes them."""
     K, Cin, Cout = weights.shape
     R = gather_idx.shape[-1]
     lead = features.shape[:-2]
+    ct = torch.promote_types(features.dtype, torch.float32)
     idx = gather_idx.long().flatten(-2)                        # [.., K*R]
     g = torch.gather(features, -2, idx[..., None].expand(*lead, K * R, Cin))
     g = torch.where(found[..., None], g.unflatten(-2, (K, R)), 0.0)
-    g = g.transpose(-3, -2).reshape(*lead, R, K * Cin)
-    out = g @ weights.reshape(K * Cin, Cout).to(g.dtype)
-    return out.to(torch.promote_types(out.dtype, torch.float32))
+    g = g.transpose(-3, -2).reshape(*lead, R, K * Cin).to(ct)
+    return g @ weights.reshape(K * Cin, Cout).to(features.dtype).to(ct)
 
 
 def submanifold_conv(features: torch.Tensor, rulebook: SubmanifoldRulebook,

@@ -30,6 +30,15 @@ Both take an optional leading batch dimension on everything but the
 weights (the JAX package maps the kernel over the batch; here the batch
 is the launch grid's second axis).
 
+The gather join also takes bfloat16 features and weights (the
+``car.fhd.mixed`` middle): a second form of the kernel's tile multiplies
+them on the tensor cores as ``mma.sync`` bf16 with float32 accumulation,
+in one pass (a product of two bfloat16 values is exact in float32), and
+gives float32; its launches count on :func:`gather_gemm_bf16`.  Its
+plain version is :func:`gather_gemm_plain`, which multiplies the
+bfloat16 inputs upcast to float32.  The key-match join and the backward
+kernels take float32 only and raise on anything else.
+
 Both are differentiable in features and weights, as the JAX package's
 ``custom_vjp`` makes them (``_gather_gemm_bwd`` :411, ``_keymatch_bwd``
 :1237): with grad recorded they run as autograd Functions whose
@@ -41,7 +50,9 @@ kernel over the inverted rulebook (:func:`rulebook_inverse`, then
 (:func:`join_grad_weights`), neither computed where it is not needed.
 On the CPU the Functions run the plain forward and
 :func:`join_backward_plain`, which mirrors the reference's backward line
-for line.
+for line.  As there, a bfloat16 join's backward runs in float32 (``dout``,
+the features and the weights upcast) and casts ``dfeatures`` and ``dW``
+back to their inputs' types.
 """
 from __future__ import annotations
 
@@ -117,16 +128,19 @@ def _check_common(features, table, weights, what: str):
             f"not fit together")
 
 
-def _check_cuda(features, weights, others: dict):
-    """What the kernels take: fp32 features and weights, the stated
+def _check_cuda(features, weights, others: dict,
+                dtypes=(torch.float32,)):
+    """What the kernels take: features and weights of one type among
+    ``dtypes`` (float32; the gather join also bfloat16), the stated
     integer types, one device, no gradient, a supported width."""
     for name, (t, dtype) in others.items():
         if t.dtype != dtype:
             raise TypeError(f"kernel takes {dtype} {name}, got {t.dtype}")
         if t.device != features.device:
             raise ValueError(f"features and {name} on different devices")
-    if features.dtype != torch.float32 or weights.dtype != torch.float32:
-        raise TypeError(f"kernel takes float32 features and weights, got "
+    if features.dtype not in dtypes or weights.dtype != features.dtype:
+        raise TypeError(f"kernel takes features and weights both of one "
+                        f"type in {[str(d) for d in dtypes]}, got "
                         f"{features.dtype} / {weights.dtype}")
     if weights.device != features.device:
         raise ValueError("features and weights on different devices")
@@ -137,18 +151,35 @@ def _check_cuda(features, weights, others: dict):
         raise ValueError(f"weights {tuple(weights.shape)}: empty")
 
 
-def _check_smem(K: int, Cin: int, Cout: int) -> None:
-    fn = _build.function("sparse_gather_gemm", "sparse_gemm_smem_bytes",
-                         (_I, _I, _I))
+def _check_smem(K: int, Cin: int, Cout: int,
+                symbol: str = "sparse_gemm_smem_bytes") -> None:
+    fn = _build.function("sparse_gather_gemm", symbol, (_I, _I, _I))
     if fn(K, Cin, Cout) > MAX_SMEM_BYTES:
         raise ValueError(f"K {K}, Cin {Cin}, Cout {Cout} need more shared "
                          f"memory than a block has ({MAX_SMEM_BYTES} bytes)")
 
 
+def _aligned4(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 4-byte aligned address (the bf16 tile's
+    narrowest ``cp.async`` copies 4 bytes)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 4 == 0 else t.clone()
+
+
 def _launch_gather(features, gather_idx, found, weights) -> torch.Tensor:
-    """The gather-GEMM kernel on checked CUDA tensors (no count)."""
+    """The gather-GEMM kernel on checked CUDA tensors (no count): the
+    float32 tile, or its bfloat16 form for bfloat16 features and
+    weights."""
     K, Cin, Cout = weights.shape
-    _check_smem(K, Cin, Cout)
+    bf16 = features.dtype == torch.bfloat16
+    if bf16:
+        if Cin % 2:
+            raise ValueError(f"the bfloat16 kernel takes an even Cin, got "
+                             f"{Cin}")
+        _check_smem(K, Cin, Cout, "sparse_gemm_bf16_smem_bytes")
+        features, weights = _aligned4(features), _aligned4(weights)
+    else:
+        _check_smem(K, Cin, Cout)
     batched = features.dim() == 3
     B = features.shape[0] if batched else 1
     N, R = features.shape[-2], gather_idx.shape[-1]
@@ -156,8 +187,9 @@ def _launch_gather(features, gather_idx, found, weights) -> torch.Tensor:
     found, weights = found.contiguous(), weights.contiguous()
     out = torch.empty((B, R, Cout) if batched else (R, Cout),
                       dtype=torch.float32, device=features.device)
-    fn = _build.function("sparse_gather_gemm", "gather_gemm_launch",
-                         _GATHER_ARGTYPES)
+    fn = _build.function("sparse_gather_gemm",
+                         "gather_gemm_bf16_launch" if bf16
+                         else "gather_gemm_launch", _GATHER_ARGTYPES)
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(features.data_ptr(), gather_idx.data_ptr(),
@@ -171,9 +203,13 @@ def _gather_forward(features, gather_idx, found, weights) -> torch.Tensor:
     if not features.is_cuda:
         return gather_gemm_plain(features, gather_idx, found, weights)
     _check_cuda(features, weights, {"gather_idx": (gather_idx, torch.int32),
-                                    "found": (found, torch.bool)})
+                                    "found": (found, torch.bool)},
+                (torch.float32, torch.bfloat16))
     out = _launch_gather(features, gather_idx, found, weights)
-    gather_gemm.launches += 1
+    if features.dtype == torch.bfloat16:
+        gather_gemm_bf16.launches += 1
+    else:
+        gather_gemm.launches += 1
     return out
 
 
@@ -210,12 +246,18 @@ def _records_grad(*tensors) -> bool:
 
 def _join_grads(ctx, features, idx, found, weights, dout):
     """(dfeatures or None, dW or None) of a join with rulebook (idx,
-    found), each only where the Function's input needs it."""
+    found), each only where the Function's input needs it.  A bfloat16
+    join's backward runs in float32, as the reference's does: ``dout``,
+    the features and the weights upcast (never ``dout`` rounded to
+    bfloat16), the results cast back to the inputs' types."""
     need_f, need_w = ctx.needs_input_grad[0], ctx.needs_input_grad[3]
-    dout = dout.contiguous().to(features.dtype)
-    dfeats = (join_grad_features(dout, idx, found, weights,
-                                 features.shape[-2]) if need_f else None)
-    dW = join_grad_weights(features, idx, found, dout) if need_w else None
+    ct = torch.promote_types(features.dtype, torch.float32)
+    dout = dout.contiguous().to(ct)
+    dfeats = (join_grad_features(dout, idx, found, weights.to(ct),
+                                 features.shape[-2]).to(features.dtype)
+              if need_f else None)
+    dW = (join_grad_weights(features.to(ct), idx, found,
+                            dout).to(weights.dtype) if need_w else None)
     return dfeats, dW
 
 
@@ -262,10 +304,12 @@ def gather_gemm(features: torch.Tensor, gather_idx: torch.Tensor,
     dimension on features, idx and found: [B, R, Cout].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 features and weights, int32 idx, bool found, Cout in
-    ``KERNEL_COUTS``) or raise.  Differentiable in features and weights
-    (the module docstring).  ``interpret``, ``tile``, ``window`` and
-    ``shared`` select among the TPU kernel's forms and are ignored.
+    (features and weights both float32, or both bfloat16 with an even
+    Cin, which the tile's bfloat16 form takes; int32 idx, bool found,
+    Cout in ``KERNEL_COUTS``) or raise.  The output is float32 either
+    way.  Differentiable in features and weights (the module docstring).
+    ``interpret``, ``tile``, ``window`` and ``shared`` select among the
+    TPU kernel's forms and are ignored.
     """
     _check_common(features, gather_idx, weights, "gather_idx")
     if found.shape != gather_idx.shape:
@@ -277,6 +321,22 @@ def gather_gemm(features: torch.Tensor, gather_idx: torch.Tensor,
 
 
 gather_gemm.launches = 0
+
+
+def gather_gemm_bf16(features: torch.Tensor, gather_idx: torch.Tensor,
+                     found: torch.Tensor, weights: torch.Tensor
+                     ) -> torch.Tensor:
+    """:func:`gather_gemm` on bfloat16 features and weights (raises on any
+    other type): the form ``car.fhd.mixed`` runs.  Its ``launches``
+    count every launch of the tile's bfloat16 form, through either
+    name."""
+    if features.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
+        raise TypeError(f"gather_gemm_bf16 takes bfloat16 features and "
+                        f"weights, got {features.dtype} / {weights.dtype}")
+    return gather_gemm(features, gather_idx, found, weights)
+
+
+gather_gemm_bf16.launches = 0
 
 
 def keymatch_gemm(features: torch.Tensor, in_keys: torch.Tensor,
@@ -539,7 +599,8 @@ def tile_occupancy(found: torch.Tensor):
 
 
 __all__ = ["KERNEL_COUTS", "TILE_R", "count_hits", "gather_gemm",
-           "gather_gemm_plain", "grad_features_plain", "grad_weights_plain",
+           "gather_gemm_bf16", "gather_gemm_plain", "grad_features_plain",
+           "grad_weights_plain",
            "group_perm", "join_backward_plain",
            "join_grad_features", "join_grad_weights", "keymatch_found",
            "keymatch_gemm", "keymatch_gemm_plain", "rulebook_collisions",

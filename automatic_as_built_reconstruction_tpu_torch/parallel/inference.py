@@ -159,12 +159,16 @@ def detections_mismatch(got: Dict[str, np.ndarray],
 
 
 def build_from_config(config_path):
-    """Config file -> (VoxelNet, VoxelNetConfig, anchors [A, 7] float32)."""
-    m = config_io.load_config(config_path)["model"]["second"]
+    """Config file -> (VoxelNet, VoxelNetConfig, anchors [A, 7] float32);
+    ``enable_mixed_precision`` gives the bfloat16 network, as the
+    reference's serving entry point builds it through its ``Bundle``."""
+    config = config_io.load_config(config_path)
+    m = config["model"]["second"]
     grid = voxel_builder.build(m["voxel_generator"])
     assigner = target_assigner_builder.build(m["target_assigner"],
                                              m.get("box_coder", {}))
     model, cfg, fmap = second_builder.build(m, grid, assigner)
+    model, cfg = second_builder.mixed_precision(config, model, cfg)
     anchors = assigner.generate_anchors(fmap)["anchors"].reshape(-1, 7)
     return model, cfg, anchors.astype(np.float32)
 

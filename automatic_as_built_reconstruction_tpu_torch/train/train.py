@@ -15,11 +15,17 @@ configured classes, then the dataset's AP: ``BuildingDataset``'s lidar
 AP, or ``KittiDataset``'s KITTI protocol table) from a model directory
 of the port's checkpoints, a checkpoint pickle of the JAX package, or
 seeded weights.  Pillar and SECOND configs train alike; SECOND's sparse
-middle trains in key-match mode through the joins' backward kernels,
-reports ``mid_capacity_saturated`` and aborts as the reference does when
-its site caps keep truncating.  The network runs in fp32 with TF32 off whatever the process's
-global flags (``device.fp32_math``).  Multi-device training, the
-reference's ``profile_steps`` trace and mixed precision are not ported.
+middle trains in key-match mode through the joins' backward kernels, or,
+where the config does not set ``use_keymatch_sparse_gemm``, on rulebooks
+that the input pipeline builds on the host (``ops/rulebook_host.py``:
+``people.fhd``, ``car.lite``, ``car.fhd.mixed``), which travel to the
+device with the batch; it reports ``mid_capacity_saturated`` and aborts as
+the reference does when its site caps keep truncating.
+``enable_mixed_precision`` runs the sparse middle and the RPN in bfloat16
+(``car.fhd.mixed``), as the reference's ``Bundle`` does.  The float32
+arithmetic runs with TF32 off whatever the process's global flags
+(``device.fp32_math``).  Multi-device training and the reference's
+``profile_steps`` trace are not ported.
 """
 from __future__ import annotations
 
@@ -40,6 +46,7 @@ from ..core import point_refine
 from ..data import batching
 from ..device import fp32_math, resolve_device
 from ..models import voxelnet as voxelnet_mod
+from ..ops import rulebook_host
 from ..parallel.inference import load_checkpoint_variables
 from ..utils.progress import StageTimers
 from ..utils.seeded_init import load_flax_init, load_seeded
@@ -58,26 +65,44 @@ class Bundle:
         self.config = config_io.load_config(config_path)
         m = self.config["model"]["second"]
         self.model_proto = m
-        if self.config.get("train_config", {}).get(
-                "enable_mixed_precision", False):
-            raise NotImplementedError(
-                "enable_mixed_precision (bfloat16 compute) is not ported")
         self.voxel_generator = voxel_builder.build(m["voxel_generator"])
         self.target_assigner = target_assigner_builder.build(
             m["target_assigner"], m.get("box_coder", {}))
         self.model, self.model_cfg, self.feature_map_size = (
             second_builder.build(m, self.voxel_generator,
                                  self.target_assigner))
+        # enable_mixed_precision: bfloat16 compute, the model rebuilt
+        self.model, self.model_cfg = second_builder.mixed_precision(
+            self.config, self.model, self.model_cfg)
+
+    def middle_plan(self, training: bool):
+        """The block plan of the host-built rulebooks of the training or
+        eval reader, or None: key-match mode joins keys inside its kernel
+        and needs none, and dense-tail blocks run as masked dense convs
+        (the plan stops before them)."""
+        reader_cfg = self.config["train_input_reader" if training
+                                 else "eval_input_reader"]
+        cfg = self.model_cfg
+        if cfg.sparse_keymatch and cfg.sparse_use_pallas_gemm:
+            return None
+        v_cap = int(reader_cfg.get("preprocess", {}).get(
+            "max_number_of_voxels", 0)) or 12000
+        plan = voxelnet_mod.middle_plan(cfg, v_cap)
+        tail = cfg.sparse_dense_tail_blocks
+        if plan is not None and tail > 0:
+            plan = plan[:max(len(plan) - tail, 0)] or None
+        return plan
 
     def input_reader(self, training: bool, seed: int = 0):
-        """-> (PrepDataset, BatchLoader) of the training or eval reader.
-        No host rulebooks: the sparse middle joins keys inside its kernel
-        or builds its rulebooks on the device."""
+        """-> (PrepDataset, BatchLoader) of the training or eval reader,
+        with the host-built rulebooks of :meth:`middle_plan` in every
+        example where it gives a plan."""
         return input_reader_builder.build(
             self.config["train_input_reader" if training
                         else "eval_input_reader"], training,
             self.voxel_generator, self.target_assigner,
-            self.feature_map_size, seed=seed)
+            self.feature_map_size, seed=seed,
+            middle_plan=self.middle_plan(training))
 
 
 @dataclasses.dataclass
@@ -134,6 +159,29 @@ def to_device(batch: dict, device) -> Dict[str, torch.Tensor]:
             for k, v in batching.device_example(batch).items()}
 
 
+def middle_rulebooks(example: Dict[str, torch.Tensor],
+                     cfg: voxelnet_mod.VoxelNetConfig):
+    """The host-built rulebooks (``rb*`` keys) of a device example as the
+    sparse middle's per-block pairs, or None where it has none.  The block
+    count comes from the keys present: with ``sparse_dense_tail_blocks``
+    the pipeline builds books for the leading sparse blocks only."""
+    _, flat = rulebook_host.split_example(example)
+    if not flat:
+        return None
+    n = sum(1 for k in flat if k.endswith("_out_valid"))
+    return rulebook_host.unflatten(
+        flat, min(n, voxelnet_mod.num_middle_blocks(cfg)))
+
+
+def forward(model: voxelnet_mod.VoxelNet, example: Dict[str, torch.Tensor],
+            cfg: voxelnet_mod.VoxelNetConfig):
+    """The network on a device example, with its host-built rulebooks
+    where it carries them."""
+    return model(example["voxels"], example["num_points"],
+                 example["coordinates"],
+                 middle_rulebooks=middle_rulebooks(example, cfg))
+
+
 def make_train_step(bundle: Bundle):
     """-> ``train_step(state, example) -> metrics``: one update of
     ``state`` in place (forward in train mode, ``compute_loss``,
@@ -149,8 +197,7 @@ def make_train_step(bundle: Bundle):
         model = state.model.train()
         params = list(model.parameters())
         with fp32_math(), torch.enable_grad():
-            preds = model(example["voxels"], example["num_points"],
-                          example["coordinates"])
+            preds = forward(model, example, cfg)
             loss, metrics = voxelnet_mod.compute_loss(preds, example, cfg)
             grads = torch.autograd.grad(loss, params, allow_unused=True)
         # sparse-middle capacity telemetry: per strided block, the scans
@@ -188,8 +235,7 @@ def make_predict_fn(bundle: Bundle):
     @torch.no_grad()
     @fp32_math()
     def predict_fn(example):
-        preds = model(example["voxels"], example["num_points"],
-                      example["coordinates"])
+        preds = forward(model, example, cfg)
         return voxelnet_mod.predict(preds, example["anchors"], cfg,
                                     anchors_mask=example.get("anchors_mask"))
 
@@ -218,10 +264,13 @@ def stage_times_ms(bundle: Bundle, example, repeats: int = 3
         feats = model.voxel_feature_extractor(
             example["voxels"], example["num_points"], example["coordinates"])
         lap()
-        spatial = model.middle_feature_extractor(feats,
-                                                 example["coordinates"])
+        books = middle_rulebooks(example, cfg)
+        spatial = (model.middle_feature_extractor(feats,
+                                                  example["coordinates"])
+                   if books is None else model.middle_feature_extractor(
+                       feats, example["coordinates"], rulebooks=books))
         lap()
-        preds = model.rpn(spatial)
+        preds = model.rpn_heads(spatial)
         lap()
         voxelnet_mod.predict(preds, example["anchors"], cfg,
                              anchors_mask=example.get("anchors_mask"))

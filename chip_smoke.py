@@ -98,6 +98,25 @@
    tools/run_multiclass_r5.sh:19 measured where a window saturates),
    every join's backward kernels of one step against the plain backward,
    one step at B = 2 held to float64 as in 6b, and prints its table;
+6d. the host-rulebook and bfloat16 SECOND configs on the same clones,
+   each trained 20 steps through ``train()`` at full width (B = 6, three
+   loader threads, the plan's own site caps, ``mid_capacity_saturated``
+   printed by window, the loss falls; the loader's wait against one
+   thread's prep of a batch, the native rulebook build of it apart, and
+   the device step): ``second/people.fhd.config`` (Pedestrian and
+   Cyclist sampler groups; the plain joins on the rulebooks the input
+   pipeline builds on the host; one step at B = 2 in float32 held to
+   float64 on the card at car.fhd's limits; ``evaluate``'s table),
+   ``second/car/car.lite.config`` (the host rulebooks of a training batch
+   against the device merge builders, integer for integer; ``evaluate``)
+   and ``second/car/car.fhd.mixed.config`` (bfloat16 middle and RPN; the
+   gather join's bfloat16 kernel forward and the float32 backward
+   kernels, once a join a step), which then serves four B = 2 requests
+   through ``pod_inference_from_checkpoint`` (seeded weights, rulebooks
+   built on the device): the heads on the kernels against the same
+   network on the plain versions, within the distance between the bf16
+   and the float32 network, which is printed; the RPN's share of a
+   request's device time beside car.fhd's float32 one;
 7. holds each kernel against its plain PyTorch version on the card, on
    the inputs the main paths gave it (for the pillar scatter also with
    the rows shuffled, and its backward on the training step's canvas
@@ -111,7 +130,10 @@
    each of its rejection tests takes; for the two sparse GEMMs every join
    of a request,
    each with its device time, bound and tile occupancy, the four call
-   forms of the key-match function, and unsorted keys; for the fused
+   forms of the key-match function, and unsorted keys; the gather join's
+   bfloat16 form on every join of a car.fhd.mixed request, within 1e-4
+   of the join's max |out|, bound at the bf16 tensor-core rate; for the
+   fused
    voxelize+mean both routes on the served request, a pillar-sized scan, a
    truncating voxel cap, T = 1, an empty scan, NaN and on-face points and
    more slots than points, the key route's two kernels against their plain
@@ -129,8 +151,9 @@
    main paths, ``launches_by_path`` each path's own count; K1's entry
    carries its backward's ``backward_*`` numbers and has a second entry,
    ``pillar_scatter@kitti``, at the KITTI request's shape with the KITTI
-   paths' launches; the two sparse GEMMs' entries carry those of the
-   joins' shared backward), the card's name and power limit as
+   paths' launches; the sparse GEMMs' entries carry those of the
+   joins' shared backward; ``gather_gemm_bf16`` is the gather join's
+   bfloat16 form), the card's name and power limit as
    ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result lines, when CUDA is unavailable or any
@@ -168,7 +191,8 @@ from automatic_as_built_reconstruction_tpu_torch.models import (
 from automatic_as_built_reconstruction_tpu_torch.models.voxelnet import (
     VoxelNet, middle_plan, predict)
 from automatic_as_built_reconstruction_tpu_torch.ops import (
-    _build, nms, pillar_scatter, rotated_iou, sparse_gather_gemm, voxel_mean)
+    _build, nms, pillar_scatter, rotated_iou, rulebook_host, sparse_conv,
+    sparse_gather_gemm, voxel_mean)
 from automatic_as_built_reconstruction_tpu_torch.ops.voxelize import (
     slot_table, voxelize, voxelize_flat)
 from automatic_as_built_reconstruction_tpu_torch.parallel import (
@@ -240,6 +264,7 @@ GEMM_ATOL = 1e-4
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_PER_S = 67e12
 PEAK_TF32_3X_PER_S = 495e12 / 3
+PEAK_BF16_PER_S = 989e12         # dense bf16 tensor-core rate
 L2_FLUSH_BYTES = 64 << 20        # > the H100's 50 MB L2
 # pillar training: steps of the one-cycle run from seeded weights, its
 # display window (the loss check compares the first and last windows),
@@ -311,6 +336,29 @@ PP_TRAIN_STEPS, PP_DISPLAY, PP_ALL_STEPS = 60, 10, 30
 ALL_FHD_STEPS, ALL_FHD_DISPLAY = 20, 5
 MULTICLASS_SITE_CAPS = (52352, 53888, 30464, 29184)
 CLI_TIMEOUT_S = 600
+# host-rulebook SECOND (people.fhd on the multi-class clone, car.lite on
+# the car clone: the plain joins on rulebooks the input pipeline builds)
+# and bfloat16 SECOND (car.fhd.mixed: host rulebooks, the gather join's
+# bfloat16 kernel), each trained HOST_RB_STEPS steps in HOST_RB_DISPLAY-
+# step windows with the plan's own site caps.  The bf16 gather kernel is
+# held to its plain version (the bf16 inputs upcast, one float32 matmul)
+# within BF16_GEMM_RTOL of the join's max |out|: the products are exact in
+# float32, the two differ in the order of their float32 sums only.  The
+# bf16 network's heads on the kernels against the same bf16 network on the
+# plain versions: within MIXED_HEAD_SHARE of the distance between the bf16
+# and the float32 network.  A join's float32 sum order moves the bf16
+# rounding of the values next to a rounding boundary, and every layer
+# after it rounds to bf16 again, so such a move spreads through the
+# network until the two bf16 runs differ by about what bf16 itself costs
+# (0.64-0.67 of it at every head on an H100 80GB HBM3 at 700 W, PERF.md;
+# the stated 0.5 failed there): the kernel's order may cost no more than
+# bf16 does.  The joins themselves are held at BF16_GEMM_RTOL
+PEOPLE_CONFIG = CONFIGS / "second" / "people.fhd.config"
+LITE_CONFIG = CONFIGS / "second" / "car" / "car.lite.config"
+MIXED_CONFIG = CONFIGS / "second" / "car" / "car.fhd.mixed.config"
+HOST_RB_STEPS, HOST_RB_DISPLAY = 20, 5
+BF16_GEMM_RTOL = 1e-4
+MIXED_HEAD_SHARE = 1.0
 
 
 def log(msg: str) -> None:
@@ -407,30 +455,34 @@ def launch_floor(lib: Path, card: str, grids: dict) -> dict:
 
 
 def check_sparse_gemm_sass() -> None:
-    """Every instantiation of the two sparse-GEMM kernels multiplies on the
-    tensor cores in TF32 (HMMA ... TF32) and fills shared memory with
-    cp.async (LDGSTS): ``cuobjdump -sass`` of the built library."""
+    """Every instantiation of the two float32 sparse-GEMM kernels
+    multiplies on the tensor cores in TF32 (HMMA ... TF32), every one of
+    the gather join's bfloat16 form in bf16 (HMMA ... BF16), and each
+    fills shared memory with cp.async (LDGSTS): ``cuobjdump -sass`` of the
+    built library."""
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = run([str(cuobjdump), "-sass",
                 str(_build.lib_path("sparse_gather_gemm"))])
     counts = {}
     for block in sass.split("Function : ")[1:]:
         name, body = block.split("\n", 1)
-        if "gemm_kernel" not in name:
+        if "gemm_kernel" not in name and "gemm_bf16_kernel" not in name:
             continue
         lines = body.splitlines()
         counts[name.strip()] = {
             "hmma_tf32": sum("HMMA" in x and "TF32" in x for x in lines),
+            "hmma_bf16": sum("HMMA" in x and "BF16" in x for x in lines),
             "ldgsts": sum("LDGSTS" in x for x in lines)}
     log(f"sparse GEMM SASS (cuobjdump -sass): {json.dumps(counts)}")
     opcodes = sorted({x.split()[1] for x in sass.splitlines()
                       if "HMMA" in x and len(x.split()) > 1})
     log(f"  HMMA opcodes: {opcodes}")
-    bad = [n for n, c in counts.items() if not (c["hmma_tf32"]
-                                                and c["ldgsts"])]
-    if len(counts) != 10 or bad:
-        raise AssertionError(f"sparse GEMM kernels without TF32 HMMA or "
-                             f"LDGSTS: {bad or counts}")
+    bad = [n for n, c in counts.items()
+           if not (c["hmma_bf16" if "bf16" in n else "hmma_tf32"]
+                   and c["ldgsts"])]
+    if len(counts) != 15 or bad:
+        raise AssertionError(f"sparse GEMM kernels without TF32 / BF16 "
+                             f"HMMA or LDGSTS: {bad or counts}")
 
 
 # --------------------------------------------------------------------------
@@ -548,6 +600,7 @@ KERNELS = {"pillar_scatter": pillar_scatter.scatter_sorted_to_canvas,
            "rotated_iou": rotated_iou.rotate_iou_matrix,
            "keymatch_gemm": sparse_gather_gemm.keymatch_gemm,
            "gather_gemm": sparse_gather_gemm.gather_gemm,
+           "gather_gemm_bf16": sparse_gather_gemm.gather_gemm_bf16,
            "rulebook_inverse": sparse_gather_gemm.rulebook_inverse,
            "join_grad_features": sparse_gather_gemm.join_grad_features,
            "join_grad_weights": sparse_gather_gemm.join_grad_weights,
@@ -1300,7 +1353,9 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
     device time, bound and tile occupancy.  -> (kernels-line entry with
     event times, {key: fn} to time on the device)."""
     keymatch = name == "keymatch_gemm"
-    kernel = KERNELS[name]
+    bf16 = name == "gather_gemm_bf16"
+    # the bf16 form is gather_gemm on bfloat16 inputs; it counts apart
+    kernel = KERNELS["gather_gemm" if bf16 else name]
     plain = (sparse_gather_gemm.keymatch_gemm_plain if keymatch
              else sparse_gather_gemm.gather_gemm_plain)
 
@@ -1317,15 +1372,17 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
         got = kernel(*call[0])
         ref = plain(*operands(call))
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        if not (err <= GEMM_ATOL and torch.isfinite(got).all()):
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        tol = BF16_GEMM_RTOL * scale if bf16 else GEMM_ATOL
+        if not (err <= tol and torch.isfinite(got).all()):
             raise AssertionError(f"{name} {join_shape(call)}: kernel vs "
-                                 f"plain max abs err {err} > {GEMM_ATOL}")
-        return err, float(ref.abs().max())
+                                 f"plain max abs err {err} > {tol}")
+        return err, scale
 
     def need(call) -> dict:
         """What the join needs (hits of its taps, bytes, flops), its
-        bounds at the 3xTF32 and the fp32 SIMT rate, its tile occupancy."""
+        bounds at the 3xTF32 (bf16: the bf16 tensor-core) and the fp32
+        SIMT rate, its tile occupancy."""
         feats, a, b, w = operands(call)
         B, R, Cout = feats.shape[0], b.shape[-1], w.shape[2]
         found = (sparse_gather_gemm.keymatch_found(a, b) if keymatch
@@ -1335,7 +1392,8 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
                      for t in (feats, a, b, w)) + B * R * Cout * 4
         flops = 2 * hits * w.shape[1] * Cout
         bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        ops_ms = flops / PEAK_TF32_3X_PER_S * 1e3
+        ops_ms = flops / (PEAK_BF16_PER_S if bf16
+                          else PEAK_TF32_3X_PER_S) * 1e3
         simt_ms = flops / PEAK_FP32_PER_S * 1e3
         return {"hits": hits, "pairs": pairs, "occupancy": occupancy,
                 "bytes": nbytes, "flops": flops, "bytes_ms": bytes_ms,
@@ -1416,14 +1474,18 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
         f"hits of {taps} (tap, row) pairs ({100 * big['hits'] / taps:.1f} %), "
         f"tile occupancy {big['occupancy']:.4f}; events: kernel "
         f"{fmt_range(ev['ms'])}, plain {fmt_range(ev['plain_ms'])}; bound "
-        f"{big['bound_ms']:.5f} ms (ops at the 3xTF32 rate "
+        f"{big['bound_ms']:.5f} ms (ops at the "
+        f"{'bf16' if bf16 else '3xTF32'} rate "
         f"{big['ops_ms']:.5f}: {big['flops']} needed flops; bytes "
         f"{big['bytes_ms']:.5f}: {big['bytes']}); at the fp32 SIMT rate "
         f"{big['bound_fp32_simt_ms']:.5f}")
     s_ev = cuda_ms(lambda: kernel(*smallest[0]), iters=20)
     log(f"{name} [{card}]: smallest join {join_shape(smallest)}: events: "
         f"kernel {fmt_range(s_ev)}")
-    line = {"keymatch_gemm": 1098, "gather_gemm": 331}[name]
+    # the bf16 form replaces the shared-window kernel K3s that
+    # car.fhd.mixed's gather joins reach
+    line = {"keymatch_gemm": 1098, "gather_gemm": 331,
+            "gather_gemm_bf16": 146}[name]
     entry = {"name": name, "route": "cuda",
              "source": "automatic_as_built_reconstruction_tpu_torch/csrc/"
                        "sparse_gather_gemm.cu",
@@ -1814,8 +1876,7 @@ def step_grads(bundle, state, example, math=fp32_math) -> tuple:
     saved = copy.deepcopy(model.state_dict())
     names, params = zip(*model.named_parameters())
     with math(), torch.enable_grad():
-        preds = model(example["voxels"], example["num_points"],
-                      example["coordinates"])
+        preds = train_mod.forward(model, example, bundle.model_cfg)
         loss, terms = voxelnet_mod.compute_loss(preds, example,
                                                 bundle.model_cfg)
         grads = torch.autograd.grad(loss, params)
@@ -3068,11 +3129,311 @@ def train_all_fhd(card: str, tmp: Path, root: Path) -> dict:
                        "f32_vs_f64": summary}}
 
 
-def kitti_phases(card: str) -> dict:
-    """The four KITTI phases in one temporary directory: on the car clone
+# --------------------------------------------------------------------------
+# host-rulebook SECOND (people.fhd, car.lite) and bfloat16 (car.fhd.mixed)
+# --------------------------------------------------------------------------
+
+def train_host_rulebook(config: Path, what: str, card: str,
+                        kernels_a_step: dict) -> dict:
+    """``train()`` for HOST_RB_STEPS steps of a host-rulebook config (the
+    counters set to 0 just before and read just after: ``kernels_a_step``
+    times the steps), the plan's caps and ``mid_capacity_saturated`` by
+    window printed (no caps substituted), the loss falls; the loader's
+    wait against one thread's prep of a batch, the native rulebook build
+    of it apart, and the device step (events).  -> {"state", "model_dir",
+    "launches", "examples", "report"}."""
+    bundle = train_mod.Bundle(config)
+    plan = bundle.middle_plan(True)
+    if plan is None:
+        raise AssertionError(f"{what}: no host rulebooks in this config")
+    joins = sum(b.n_subm + 1 for b in plan)
+    log(f"{what} [{card}]: host rulebooks for {len(plan)} blocks, plan "
+        f"caps {[b.out_cap for b in plan]}, {joins} joins a step; compute "
+        f"{bundle.model_cfg.compute_dtype}, gather join "
+        f"{bundle.model_cfg.sparse_use_pallas_gemm}")
+    model_dir = config.parent / (config.stem + "_run")
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    with torch.enable_grad(), flags_in_modules() as seen:
+        state = train_mod.train(config, model_dir, max_steps=HOST_RB_STEPS,
+                                display_step=HOST_RB_DISPLAY,
+                                saturation_abort_windows=0, device="cuda")
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    expect_launches(what, launches, {k: v * HOST_RB_STEPS
+                                     for k, v in kernels_a_step.items()})
+    if seen != {(False, False)}:
+        raise AssertionError(f"{what}: TF32 flags {sorted(seen)}")
+    windows = training_windows(model_dir, what, card)
+    saturated = [w["mid_capacity_saturated"] for w in windows]
+    log(f"{what} [{card}]: {HOST_RB_STEPS} steps of train() in {wall:.2f} s "
+        f"wall; mid_capacity_saturated by window {saturated} (the plan's "
+        f"caps, none substituted); launches {launches}")
+
+    # one thread's prep of a batch (the native rulebook build apart)
+    # against the loader's wait and the device step
+    prep_ds, loader = bundle.input_reader(training=True, seed=1)
+    stream = loader._index_stream()
+    t_prep, t_books, examples = [], [], []
+    for _ in range(bundle.config["train_input_reader"]["batch_size"]):
+        t1 = time.perf_counter()
+        ex = prep_ds.example(*next(stream))
+        t_prep.append((time.perf_counter() - t1) * 1e3)
+        t1 = time.perf_counter()
+        rulebook_host.build_middle_rulebooks(ex["coordinates"], plan)
+        t_books.append((time.perf_counter() - t1) * 1e3)
+        examples.append(ex)
+    batch = batching.merge_batch(examples)
+    rb_bytes = sum(v.nbytes for k, v in batch.items() if k.startswith("rb"))
+    example = train_mod.to_device(batch, "cuda")
+    step_fn = train_mod.make_train_step(train_mod.Bundle(config))
+    with torch.enable_grad():
+        ev = cuda_ms(lambda: step_fn(state, example), iters=3, warmup=1)
+    wait = float(np.median([w["host_prep_ms"] for w in windows]))
+    log(f"{what} [{card}]: the loader's wait a batch (median of the "
+        f"windows, {bundle.config['train_input_reader']['num_workers']} "
+        f"threads) {wait:.2f} ms; one thread's prep of a batch of "
+        f"{len(examples)} {sum(t_prep):.1f} ms, of which the native "
+        f"rulebook build {sum(t_books):.1f} ms ({rb_bytes} bytes of "
+        f"rulebooks a batch to the device); device step (synchronised, "
+        f"events) {fmt_range(ev)}")
+    report = {"steps": HOST_RB_STEPS, "wall_s": wall, "windows": windows,
+              "saturated": saturated, "plan_caps": [b.out_cap for b in plan],
+              "loader_wait_ms": wait, "prep_ms_one_thread": sum(t_prep),
+              "rulebook_build_ms_one_thread": sum(t_books),
+              "rulebook_bytes_a_batch": rb_bytes, "device_step_ms": ev}
+    return {"state": state, "model_dir": model_dir, "launches": launches,
+            "examples": examples, "report": report, "joins": joins,
+            "step": lambda: step_fn(state, example)}
+
+
+def evaluate_host_rulebook(config: Path, model_dir: Path, what: str,
+                           card: str) -> dict:
+    """``evaluate`` of the run's checkpoint on the validation frames (host
+    rulebooks at the eval reader's caps): K2 once a batch; the KITTI
+    table printed, not held.  -> launches."""
+    bundle = train_mod.Bundle(config)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = evaluate(config, model_dir, device="cuda")
+    launches = {n: fn.launches for n, fn in KERNELS.items()}
+    batches = -(-SYNTH_VAL // bundle.config["eval_input_reader"][
+        "batch_size"])
+    expect_launches(f"{what}: evaluate", launches, {"rotated_iou": batches})
+    log(f"{what} [{card}]: evaluate on the {SYNTH_VAL} validation frames in "
+        f"{time.perf_counter() - t0:.1f} s (eval plan caps "
+        f"{[b.out_cap for b in bundle.middle_plan(False)]}); KITTI table "
+        f"(not held):\n" + result["result_str"])
+    return launches
+
+
+def people_fhd(card: str, tmp: Path, root: Path) -> dict:
+    """second/people.fhd.config at full width on the multi-class clone
+    (Pedestrian and Cyclist sampler groups, B = 6, three loader threads,
+    host rulebooks, the plain joins): train, one step at B = 2 in float32
+    held to float64 as car.fhd's is, evaluate."""
+    what = "people.fhd"
+    config = kitti_config(PEOPLE_CONFIG, tmp, root)
+    run = train_host_rulebook(config, what, card, {})
+    t0 = time.perf_counter()
+    summary, bad = second_step_mismatch(
+        config, batching.merge_batch(run["examples"][:SECOND_STEP_B]),
+        HOST_RB_STEPS)
+    log(f"{what} [{card}]: one step (B={SECOND_STEP_B}) float32 vs float64 "
+        f"(the plain joins on the host rulebooks), both on the card, in "
+        f"{time.perf_counter() - t0:.1f} s: " + json.dumps(summary))
+    if bad is not None:
+        raise AssertionError(f"{what} step, float32 vs float64: {bad}")
+    run["report"]["f32_vs_f64"] = summary
+    ev = evaluate_host_rulebook(config, run["model_dir"], what, card)
+    return {"launches": {"people.fhd training": run["launches"],
+                         "people.fhd evaluate": ev},
+            "report": run["report"], "step": run["step"]}
+
+
+def check_host_books(examples: list, plan, what: str, card: str) -> None:
+    """The host rulebooks of a batch against the port's device merge
+    builders (``ops/sparse_conv.py::build_submanifold_rulebook_merge``,
+    ``::build_strided_layout_merge``) on the card, block by block: the
+    same found taps and the same source row where found, the same output
+    sites."""
+    ex = train_mod.to_device(batching.merge_batch(examples), "cuda")
+    coords = ex["coordinates"]
+    valid = coords[..., 0] >= 0
+    books = rulebook_host.unflatten(ex, len(plan))
+    for bi, (blk, (rb, layout)) in enumerate(zip(plan, books)):
+        checks = []
+        if blk.n_subm:
+            dev = sparse_conv.build_submanifold_rulebook_merge(
+                coords, valid, blk.grid, blk.subm_kernel)
+            checks.append(("subm", dev.found, dev.gather_idx, rb.found,
+                           rb.gather_idx))
+        lay = sparse_conv.build_strided_layout_merge(
+            coords, valid, blk.grid, blk.kernel, blk.stride, blk.pad,
+            blk.out_cap)
+        checks.append(("strided", lay.found, lay.gather_idx, layout.found,
+                       layout.gather_idx))
+        for name, f_dev, i_dev, f_host, i_host in checks:
+            if not (torch.equal(f_dev, f_host)
+                    and torch.equal(i_dev[f_dev], i_host[f_host])):
+                raise AssertionError(f"{what}: block {bi} {name} rulebook: "
+                                     f"host != device merge builder")
+        if not (torch.equal(lay.out_coords, layout.out_coords)
+                and torch.equal(lay.out_valid, layout.out_valid)):
+            raise AssertionError(f"{what}: block {bi} output sites: host != "
+                                 f"device")
+        coords, valid = layout.out_coords, layout.out_valid
+    torch.cuda.synchronize()
+    log(f"{what} [{card}]: the host rulebooks of a batch of {len(examples)} "
+        f"equal the device merge builders' on the card, integer for integer, "
+        f"in all {len(plan)} blocks")
+
+
+def car_lite(card: str, tmp: Path, root: Path) -> dict:
+    """second/car/car.lite.config at full width on the car clone (B = 6,
+    host rulebooks, the plain joins): train, the host rulebooks of a
+    training batch against the device builders, evaluate."""
+    what = "car.lite"
+    config = kitti_config(LITE_CONFIG, tmp, root)
+    run = train_host_rulebook(config, what, card, {})
+    check_host_books(run["examples"], train_mod.Bundle(config).middle_plan(
+        True), what, card)
+    ev = evaluate_host_rulebook(config, run["model_dir"], what, card)
+    return {"launches": {"car.lite training": run["launches"],
+                         "car.lite evaluate": ev},
+            "report": run["report"]}
+
+
+def plain_gather(features, gather_idx, found, weights, *args):
+    """The gather join's plain version in the middle's call form."""
+    return sparse_gather_gemm.gather_gemm_plain(features, gather_idx, found,
+                                                weights)
+
+
+def head_share(got: dict, ref: dict) -> dict:
+    """{head: max |got - ref| / max |ref|}."""
+    return {k: float((got[k] - ref[k]).abs().max() / ref[k].abs().max())
+            for k in ref}
+
+
+def rpn_share(pod, request, card: str, what: str) -> dict:
+    """Device time (torch.profiler) of one request and of its RPN alone
+    (the heads of the middle's canvas, in the model's compute dtype)."""
+    pts, nv = pod._device_inputs(*request)
+    with torch.no_grad(), fp32_math():
+        vox = pod.voxelize(pts, nv)
+        spatial = pod.model(*vox, return_stages=True)[1]["spatial_features"]
+
+    def rpn():
+        with torch.no_grad(), fp32_math():
+            pod.model.rpn_heads(spatial)
+
+    total, _ = device_ms(lambda: pod(*request), iters=5)
+    rpn_ms, per_kernel = device_ms(rpn, iters=5)
+    share = (None if total is None or rpn_ms is None else rpn_ms / total)
+    top = dict(sorted(per_kernel.items(), key=lambda kv: -kv[1])[:6])
+    log(f"{what} [{card}]: device time of one request "
+        f"{total} ms, of its RPN ({pod.cfg.compute_dtype}) {rpn_ms} ms: "
+        f"share {share}; RPN kernels: {fmt_kernels(top)}")
+    return {"request_ms": total, "rpn_ms": rpn_ms, "rpn_share": share}
+
+
+def car_fhd_mixed(card: str, tmp: Path, root: Path, fp32_pod) -> dict:
+    """second/car/car.fhd.mixed.config at full width: ``train()`` in
+    bfloat16 on the car clone (B = 6, host rulebooks, the gather join's
+    bfloat16 kernel forward, the float32 backward kernels); then four
+    B = 2 requests through ``pod_inference_from_checkpoint`` (rulebooks
+    built on the device), the heads of the bf16 run on the kernels
+    against the bf16 run on the plain versions and the float32 network,
+    and the RPN's share of a request beside car.fhd's float32 one
+    (``fp32_pod``)."""
+    what = "car.fhd.mixed"
+    config = kitti_config(MIXED_CONFIG, tmp, root)
+    bundle = train_mod.Bundle(config)
+    plan = bundle.middle_plan(True)
+    joins = sum(b.n_subm + 1 for b in plan)
+    run = train_host_rulebook(config, what, card, {
+        "gather_gemm_bf16": joins, "join_grad_weights": joins,
+        "join_grad_features": joins - 1, "rulebook_inverse": joins - 1})
+    if sparse_gather_gemm.rulebook_collisions("cuda"):
+        raise AssertionError(f"{what}: a host rulebook is not a "
+                             f"convolution's")
+
+    # serving: four B = 2 requests, the same scans as car.fhd's
+    kw = dict(max_voxels=SECOND_MAX_VOXELS,
+              max_points_per_voxel=SECOND_MAX_POINTS)
+    pod = pod_inference_from_checkpoint(MIXED_CONFIG, None, device="cuda",
+                                        seed=SECOND_SEED, **kw)
+    cfg = pod.cfg
+    if cfg.compute_dtype != "bfloat16" or cfg.sparse_keymatch:
+        raise AssertionError(f"{what}: not the bf16 gather-join network")
+    requests = [pad_batch([make_scene(s) for s in seeds])
+                for seeds in SECOND_REQUESTS]
+    splan = middle_plan(cfg, SECOND_MAX_VOXELS)
+    sjoins = sum(b.n_subm + 1 for b in splan)
+    outs, lat, launches, calls = drive(
+        f"{what} serving", card, pod, requests, 1,
+        {"gather_gemm_bf16": sjoins * len(requests), "rotated_iou": None})
+    check_outputs(what, outs, pod)
+    check_network_flags(f"{what} serving", pod, requests[0])
+    heads = head_outputs(pod, requests[0])
+    with substituted(middle, "gather_gemm", plain_gather):
+        plain = head_outputs(pod, requests[0])
+    f32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
+    f32_model = VoxelNet(f32_cfg)
+    f32_model.load_state_dict(pod.model.state_dict(), strict=True)
+    f32 = head_outputs(PodInference(f32_model, f32_cfg,
+                                    pod.anchors.cpu().numpy(),
+                                    device="cuda", **kw), requests[0])
+    kernel_vs_plain = head_share(heads, plain)
+    bf16_vs_f32 = head_share(heads, f32)
+    log(f"{what} [{card}]: heads of request 0 (share of max |x|): bf16 on "
+        f"the kernels vs bf16 on the plain versions {kernel_vs_plain}; bf16 "
+        f"vs the float32 network {bf16_vs_f32}; held: kernel vs plain "
+        f"within {MIXED_HEAD_SHARE} of bf16 vs float32")
+    for k in heads:
+        if not (torch.isfinite(heads[k]).all() and kernel_vs_plain[k]
+                <= MIXED_HEAD_SHARE * bf16_vs_f32[k]):
+            raise AssertionError(f"{what}: head {k}: kernel vs plain "
+                                 f"{kernel_vs_plain[k]}, bf16 vs float32 "
+                                 f"{bf16_vs_f32[k]}")
+    shares = {"car.fhd.mixed (bf16)": rpn_share(pod, requests[2], card,
+                                                f"{what} serving"),
+              "car.fhd (float32)": rpn_share(fp32_pod, requests[2], card,
+                                             "second key-match")}
+    report = dict(run["report"], latency_ms=float(np.median(lat)),
+                  heads_kernel_vs_plain=kernel_vs_plain,
+                  heads_bf16_vs_f32=bf16_vs_f32, rpn=shares)
+    return {"launches": {"car.fhd.mixed training": run["launches"],
+                         "car.fhd.mixed serving": launches},
+            "calls": calls["gather_gemm"], "report": report,
+            "pod": pod, "requests": requests, "step": run["step"]}
+
+
+def host_rulebook_phases(card: str, tmp: Path, car: Path, mc: Path,
+                         fp32_pod) -> dict:
+    """The three configs of this path, on the clones of the KITTI phases."""
+    out = {}
+    for name, fn, root in (("people", people_fhd, mc),
+                           ("lite", car_lite, car)):
+        (tmp / name).mkdir()
+        out[name] = fn(card, tmp / name, root)
+    (tmp / "mixed").mkdir()
+    out["mixed"] = car_fhd_mixed(card, tmp / "mixed", car, fp32_pod)
+    return out
+
+
+def kitti_phases(card: str, fp32_pod) -> dict:
+    """The KITTI phases in one temporary directory: on the car clone
     pointpillars/car trains through the command line and serves B = 8
     requests; on the multi-class clone pointpillars/all and all.fhd
-    train.  -> {"serve", "pp", "pp_all", "all_fhd"}."""
+    train; then the host-rulebook and bfloat16 SECOND configs
+    (:func:`host_rulebook_phases`; ``fp32_pod``: car.fhd's float32
+    serving pod, for the RPN's share beside bfloat16's).  -> {"serve",
+    "pp", "pp_all", "all_fhd", "host"}."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         car, mc = tmp / "kitti", tmp / "kitti_mc"
@@ -3082,7 +3443,9 @@ def kitti_phases(card: str) -> dict:
         (tmp / "all").mkdir()
         pp_all = train_pp_all(card, tmp / "all", mc)
         all_fhd = train_all_fhd(card, tmp / "all", mc)
-    return {"serve": serve, "pp": pp, "pp_all": pp_all, "all_fhd": all_fhd}
+        host = host_rulebook_phases(card, tmp, car, mc, fp32_pod)
+    return {"serve": serve, "pp": pp, "pp_all": pp_all, "all_fhd": all_fhd,
+            "host": host}
 
 
 def device_time(what: str, card: str, fn):
@@ -3121,10 +3484,12 @@ def time_entries(phases, per_path, card: str) -> list:
 
 
 def kitti_launches(kitti: dict) -> dict:
-    """Launches by path of the four KITTI phases."""
+    """Launches by path of the KITTI phases."""
     return {"pp-KITTI serving": kitti["serve"]["launches"],
             **kitti["pp"]["launches"], **kitti["pp_all"]["launches"],
-            **kitti["all_fhd"]["launches"]}
+            **kitti["all_fhd"]["launches"],
+            **{path: n for phase in kitti["host"].values()
+               for path, n in phase["launches"].items()}}
 
 
 def profile_kitti(kitti: dict, card: str) -> None:
@@ -3135,6 +3500,16 @@ def profile_kitti(kitti: dict, card: str) -> None:
     profile_call("pp-KITTI serving (B=8)",
                  functools.partial(serve["pod"], *serve["requests"][2]),
                  card, serve["latency_ms"])
+    host = kitti["host"]
+    mixed = host["mixed"]
+    with torch.enable_grad():
+        for what, phase in (("people.fhd training step", host["people"]),
+                            ("car.fhd.mixed training step", mixed)):
+            profile_call(what, phase["step"], card,
+                         phase["report"]["device_step_ms"][0])
+    profile_call("car.fhd.mixed serving (bf16)",
+                 functools.partial(mixed["pod"], *mixed["requests"][2]),
+                 card, mixed["report"]["latency_ms"])
 
 
 def main() -> int:
@@ -3151,7 +3526,7 @@ def main() -> int:
         ev_launches = run_evaluate(card)
         training = train_pillars(card)
         second_training = train_second(card)
-        kitti = kitti_phases(card)
+        kitti = kitti_phases(card, second["pod"])
         km, gg = second["km_launches"], second["gg_launches"]
         fm, dyn = second["fm_launches"], second["dyn_launches"]
         per_path = {"pillar serving": launches, "evaluate": ev_launches,
@@ -3180,7 +3555,10 @@ def main() -> int:
                   phase_sparse_gemm("gather_gemm",
                                     second["gg_calls"]["gather_gemm"],
                                     total["gather_gemm"], card),
-                  k5]
+                  k5,
+                  phase_sparse_gemm("gather_gemm_bf16",
+                                    kitti["host"]["mixed"]["calls"],
+                                    total["gather_gemm_bf16"], card)]
         # the joins' backward, shared by the two families: its numbers go
         # into both entries
         bw_fields, bw_fns, bw_ev = phase_join_backward(

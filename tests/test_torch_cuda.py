@@ -301,6 +301,104 @@ def test_sparse_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     torch.cuda.synchronize()
 
 
+# the joins of car.fhd.mixed's SpMiddleFHD (Cin -> Cout), its z-only
+# strided kernel, and Cin = 6 (the 4-byte copies)
+BF16_JOINS = [(27, 4, 16), (27, 16, 16), (27, 16, 32), (27, 32, 32),
+              (27, 32, 64), (27, 64, 64), (3, 64, 64), (27, 6, 8)]
+
+
+def _bf16_rulebook(cuda, K, cin, cout, case):
+    """bf16 feats / weights and a rulebook: ``random`` sites, rows 64-127
+    with no source at any tap (``empty``), or a dense 6 x 10 x 10 cube of
+    sites whose inner ones find every tap (``full``)."""
+    feats, coords, valid, _, _, w, grid, kernel = _sparse_join(cuda, K, cin,
+                                                               cout)
+    if case == "full":
+        z, y, x = torch.meshgrid(torch.arange(6), torch.arange(10),
+                                 torch.arange(10), indexing="ij")
+        cube = torch.stack([z, y, x], -1).reshape(-1, 3).to(torch.int32)
+        coords = torch.full_like(coords, -1)
+        coords[:, :cube.shape[0]] = cube.to(cuda)
+        valid = coords[..., 0] >= 0
+        feats = feats * valid[..., None]
+    rb = sparse_conv.build_submanifold_rulebook_merge(coords, valid, grid,
+                                                      kernel)
+    found = rb.found.clone()
+    if case == "empty":
+        found[..., 64:128] = False
+    if case == "full":
+        assert bool(found.all(-2).any())          # some row finds every tap
+    return feats.bfloat16(), rb.gather_idx, found, w.bfloat16()
+
+
+@pytest.mark.parametrize("case", ["random", "empty", "full"])
+@pytest.mark.parametrize("K,cin,cout", BF16_JOINS)
+def test_gather_gemm_bf16_kernel_equals_plain(cuda, K, cin, cout, case):
+    """The tile's bfloat16 form against its plain version (the bf16
+    inputs upcast to float32, one matmul) within 1e-4 of max |out|: the
+    products are exact in float32, the two differ in the order of their
+    sums only."""
+    feats, idx, found, w = _bf16_rulebook(cuda, K, cin, cout, case)
+    before = (sgg.gather_gemm.launches, sgg.gather_gemm_bf16.launches)
+    got = sgg.gather_gemm(feats, idx, found, w)
+    ref = sgg.gather_gemm_plain(feats, idx, found, w)
+    torch.cuda.synchronize()
+    assert (sgg.gather_gemm.launches,
+            sgg.gather_gemm_bf16.launches) == (before[0], before[1] + 1)
+    assert got.dtype == ref.dtype == torch.float32
+    scale = float(ref.abs().max())
+    assert scale > 1.0
+    assert float((got - ref).abs().max()) <= 1e-4 * scale
+    if case == "empty":
+        assert bool((got[:, 64:128] == 0).all())
+    # unbatched, and the same bits again
+    one = sgg.gather_gemm_bf16(feats[1], idx[1], found[1], w)
+    assert torch.equal(one, got[1])
+
+
+def test_gather_gemm_bf16_backward_upcasts(cuda):
+    """A bfloat16 join's backward runs the float32 kernels on the upcast
+    dout, features and weights and casts back: dfeatures in bfloat16, dW
+    in bfloat16, equal to the plain float32 backward of the same values
+    rounded once."""
+    feats, idx, found, w = _bf16_rulebook(cuda, 27, 32, 64, "random")
+    feats.requires_grad_()
+    w.requires_grad_()
+    dout = torch.randn(feats.shape[0], feats.shape[1], 64, device=cuda)
+    launches = _join_grad_launches()
+    sgg.gather_gemm(feats, idx, found, w).backward(dout)
+    torch.cuda.synchronize()
+    assert _join_grad_launches() == tuple(n + 1 for n in launches)
+    df, dw = sgg.join_backward_plain(feats.detach().float(), idx, found,
+                                     w.detach().float(), dout)
+    assert feats.grad.dtype == w.grad.dtype == torch.bfloat16
+    for got, want in ((feats.grad, df), (w.grad, dw)):
+        err = float((got.float() - want).abs().max())
+        assert err <= 2 ** -8 * float(want.abs().max()), err
+
+
+def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    feats, idx, found, w = _bf16_rulebook(cuda, 27, 16, 16, "random")
+    with pytest.raises(TypeError):       # mixed: bf16 features, fp32 W
+        sgg.gather_gemm(feats, idx, found, w.float())
+    with pytest.raises(TypeError):       # the named form takes bf16 only
+        sgg.gather_gemm_bf16(feats.float(), idx, found, w.float())
+    with pytest.raises(ValueError):      # odd Cin
+        sgg.gather_gemm(feats[..., :15].contiguous(), idx, found,
+                        w[:, :15].contiguous())
+    in_keys = sparse_conv.linearize(torch.zeros(2, feats.shape[1], 3,
+                                                dtype=torch.int32,
+                                                device=cuda), (12, 40, 40))
+    with pytest.raises(TypeError):       # no bf16 key-match kernel
+        sgg.keymatch_gemm(feats, in_keys, idx, w)
+    with pytest.raises(TypeError):       # the backward kernels: fp32 only
+        sgg.join_grad_weights(feats, idx, found,
+                              torch.zeros(2, feats.shape[1], 16,
+                                          dtype=torch.bfloat16,
+                                          device=cuda))
+    torch.cuda.synchronize()
+
+
 def _join_grad_launches():
     return (sgg.rulebook_inverse.launches, sgg.join_grad_features.launches,
             sgg.join_grad_weights.launches)

@@ -30,6 +30,8 @@ from automatic_as_built_reconstruction_tpu.core import (
 from automatic_as_built_reconstruction_tpu.data import (
     building as jax_building, preprocess as jax_preprocess)
 from automatic_as_built_reconstruction_tpu.models import voxelnet as jvn
+from automatic_as_built_reconstruction_tpu.ops import (
+    sparse_conv as jax_sparse_conv)
 from automatic_as_built_reconstruction_tpu.train import train as jax_train
 from automatic_as_built_reconstruction_tpu.utils import eval as jax_eval
 from automatic_as_built_reconstruction_tpu_torch.builder import (
@@ -39,6 +41,7 @@ from automatic_as_built_reconstruction_tpu_torch.core import (
 from automatic_as_built_reconstruction_tpu_torch.data import (
     building, preprocess)
 from automatic_as_built_reconstruction_tpu_torch.models import voxelnet as tvn
+from automatic_as_built_reconstruction_tpu_torch.ops import sparse_conv
 from automatic_as_built_reconstruction_tpu_torch.parallel.inference import (
     build_from_config, detections_mismatch)
 from automatic_as_built_reconstruction_tpu_torch.train import (
@@ -317,11 +320,31 @@ def test_prep_pointcloud_inference_branch_equals_reference(variant):
         assert got["anchors_mask"].any() and not got["anchors_mask"].all()
     assert dataclasses.asdict(preprocess.PrepConfig()) == dataclasses.asdict(
         jax_preprocess.PrepConfig())
-    with pytest.raises(NotImplementedError):    # host-built rulebooks
+    # host-built rulebooks: a two-block sparse plan over this grid gives the
+    # reference's rb* keys bit for bit (the native builders of both)
+    gx, gy, gz = (int(g) for g in bundle.voxel_generator.grid_size)
+    plans = [m.make_plan((gz, gy, gx), 6000, (8, 16), (1, 1), (2, 2),
+                         (1, 2)) for m in (jax_sparse_conv, sparse_conv)]
+    ref = jax_preprocess.prep_pointcloud(
+        sensor, jvg, jta, jax_preprocess.PrepConfig(**kw), training=False,
+        rng=np.random.default_rng(5), feature_map_size=fmap,
+        middle_plan=plans[0])
+    got = preprocess.prep_pointcloud(
+        sensor, bundle.voxel_generator, bundle.target_assigner,
+        preprocess.PrepConfig(**kw), training=False,
+        rng=np.random.default_rng(5),
+        feature_map_size=bundle.feature_map_size, middle_plan=plans[1])
+    rb = [k for k in ref if k.startswith("rb")]
+    assert sorted(rb) == sorted(k for k in got if k.startswith("rb"))
+    assert len(rb) == 12 and bool(got["rb1_out_valid"].any())
+    for k in rb:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    with pytest.raises(NotImplementedError):    # rulebooks at a bucket's plan
         preprocess.prep_pointcloud(sensor, bundle.voxel_generator,
                                    bundle.target_assigner,
                                    preprocess.PrepConfig(**kw), training=True,
-                                   middle_plan=object())
+                                   middle_plan_buckets={6000: plans[1]})
 
 
 def test_input_reader_matches_reference_batches():
@@ -345,11 +368,34 @@ def test_input_reader_matches_reference_batches():
                 np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
     assert tbatches[1]["voxels"].shape[0] == 1
     assert tbatches[0]["metadata"][0]["scene_id"] == 7 * 100003
-    with pytest.raises(NotImplementedError):    # host-built rulebooks
+    # with a sparse plan the reader's batches carry the reference's
+    # host-built rulebooks, stacked by example
+    gx, gy, gz = (int(g) for g in tbundle.voxel_generator.grid_size)
+    plans = [m.make_plan((gz, gy, gx), 4608, (8, 16), (1, 1), (2, 2),
+                         (1, 2)) for m in (jax_sparse_conv, sparse_conv)]
+    reader_cfg = tbundle.config["eval_input_reader"]
+    with shortened_val_split(3):
+        _, jloader = jax_reader_builder.build(
+            jbundle.config.eval_input_reader, False, jbundle.voxel_generator,
+            jbundle.target_assigner, jbundle.feature_map_size,
+            middle_plan=plans[0])
+        _, tloader = input_reader_builder.build(
+            reader_cfg, False, tbundle.voxel_generator,
+            tbundle.target_assigner, tbundle.feature_map_size,
+            middle_plan=plans[1])
+        jb, tb = next(iter(jloader)), next(iter(tloader))
+    assert sorted(tb) == sorted(jb)
+    rb = [k for k in jb if k.startswith("rb")]
+    assert len(rb) == 12 and tb["rb0_subm_idx"].shape[0] == 2
+    for k in rb:
+        assert tb[k].dtype == jb[k].dtype
+        np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
+    with pytest.raises(NotImplementedError):    # rulebooks with buckets
         input_reader_builder.build(
-            {"dataset": {"dataset_class_name": "BuildingDataset"}}, True,
+            {"dataset": {"dataset_class_name": "BuildingDataset"},
+             "preprocess": {"static_shape_buckets": [100]}}, True,
             tbundle.voxel_generator, tbundle.target_assigner,
-            tbundle.feature_map_size, middle_plan=object())
+            tbundle.feature_map_size, middle_plan=plans[1])
 
 
 @pytest.mark.parametrize("pool", [dict(num_workers=3),
@@ -660,11 +706,19 @@ def test_evaluate_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="multi-device"):
         train.evaluate(PORT_CFG / "asbuilt_pillars_tiny.config",
                        device="cpu", num_devices=4)
+    # enable_mixed_precision: SECOND's bfloat16 network (car.fhd.mixed) is
+    # built; a pillar network in bfloat16 is not ported and is refused
+    bundle = train.Bundle(PORT_CFG.parent / "second" / "car"
+                          / "car.fhd.mixed.config")
+    assert bundle.model_cfg.compute_dtype == "bfloat16"
+    assert bundle.model.middle_feature_extractor.dtype == torch.bfloat16
+    assert bundle.model.rpn.conv_cls.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bundle.model.parameters())
     text = (PORT_CFG / "asbuilt_pillars_tiny.config").read_text()
     mixed = tmp_path / "mixed.config"
     mixed.write_text(text.replace("train_config: {",
                                   "train_config: {\n  enable_mixed_precision: true", 1))
-    with pytest.raises(NotImplementedError, match="mixed_precision"):
+    with pytest.raises(NotImplementedError, match="bfloat16"):
         train.Bundle(mixed)
 
 

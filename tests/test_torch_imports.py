@@ -59,6 +59,7 @@ import automatic_as_built_reconstruction_tpu_torch.data.kitti_common
 import automatic_as_built_reconstruction_tpu_torch.data.kitti_dataset
 import automatic_as_built_reconstruction_tpu_torch.data.synth_kitti
 import automatic_as_built_reconstruction_tpu_torch.cli
+import automatic_as_built_reconstruction_tpu_torch.ops.rulebook_host
 import chip_smoke
 import rotated_iou_ablation
 import sparse_gemm_ablation
@@ -111,5 +112,30 @@ def test_every_module_of_the_port_is_checked():
               "or m.startswith('google.protobuf'))\n"
               "print('BAD', bad)\nsys.exit(1 if bad else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_NATIVE = """
+import sys
+import numpy as np
+from automatic_as_built_reconstruction_tpu_torch.ops import _build, rulebook_host
+coords = np.array([[0, 0, 0], [0, 0, 1], [-1, -1, -1]], np.int32)
+idx, found = rulebook_host.subm_rulebook(coords, (2, 2, 2))
+maps = open("/proc/self/maps").read()
+lib = str(_build.lib_path("rulebook_host", ".cpp"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "automatic_as_built_reconstruction_tpu"))
+print("BAD", bad, "abr_host" in maps, lib in maps, int(found.sum()))
+sys.exit(1 if bad or "abr_host" in maps or lib not in maps
+         or int(found.sum()) != 4 else 0)
+"""
+
+
+def test_host_rulebooks_load_the_ports_own_library():
+    """The host rulebook builder loads the library built from the port's
+    ``csrc/rulebook_host.cpp`` into its ``_build/``, never the JAX
+    package's ``csrc/libabr_host.so``, and imports no JAX."""
+    proc = subprocess.run([sys.executable, "-c", _NATIVE], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

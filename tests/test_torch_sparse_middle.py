@@ -38,7 +38,7 @@ from automatic_as_built_reconstruction_tpu_torch.models import (
 from automatic_as_built_reconstruction_tpu_torch.models.voxel_encoder import (
     SimpleVoxel)
 from automatic_as_built_reconstruction_tpu_torch.ops import (
-    sparse_conv as sc, sparse_gather_gemm as sgg)
+    rulebook_host, sparse_conv as sc, sparse_gather_gemm as sgg)
 from automatic_as_built_reconstruction_tpu_torch.parallel.inference import (
     PodInference, build_from_config, detections_mismatch,
     pod_inference_from_checkpoint)
@@ -227,8 +227,22 @@ def test_sparse_middle_capacity_truncation_matches_jax():
                                np.asarray(ref), **TOL)
     assert int(mod.capacity_saturated["b0"]) == 2 == int(
         inter["intermediates"]["b0_capacity_saturated"][0])
-    with pytest.raises(NotImplementedError):
-        mod(t(feats), t(coords), rulebooks=())
+    # host-built rulebooks of the same plan: the gather-GEMM join on them
+    # (the key-match mode takes rulebooks when it is given them, as the
+    # JAX module does) truncates the same sites and counts the same scans
+    flat = [rulebook_host.build_middle_rulebooks(c, mod.plan(128))
+            for c in coords]
+    books = rulebook_host.unflatten(
+        {k: np.stack([f[k] for f in flat]) for k in flat[0]}, 2)
+    with torch.no_grad():
+        host = mod(t(feats), t(coords), rulebooks=books)
+    np.testing.assert_allclose(host.numpy(), got.numpy(), **TOL)
+    assert int(mod.capacity_saturated["b0"]) == 2
+    with pytest.raises(ValueError):          # books of another plan
+        mod(t(feats), t(coords), rulebooks=rulebook_host.unflatten(
+            {k: np.stack([rulebook_host.build_middle_rulebooks(
+                c, middle.SparseMiddle(**SMALL).plan(128))[k]
+                for c in coords]) for k in flat[0]}, 2))
 
 
 def test_fhd_plan_full_channel_widths_matches_jax():
