@@ -14,9 +14,11 @@
 //   key-match: out[m] = sum_k [exists j: in_keys[j] == q_keys[k, m]]
 //                             * feats[j] @ W[k]
 //
-// Both take fp32 feats and W.  The gather join also has a bfloat16 form
-// (gather_gemm_bf16_kernel, the second part of this file): bf16 feats and
-// W, fp32 out, for the car.fhd.mixed middle.
+// Both take fp32 feats and W, and both have a bfloat16 form
+// (gather_gemm_bf16_kernel and keymatch_gemm_bf16_kernel, the second part
+// of this file): bf16 feats and W, fp32 out, for the middle of
+// compute_dtype="bfloat16" (car.fhd.mixed's gather joins; the key-match
+// joins of car.fhd and car.fhd.serving with enable_mixed_precision).
 //
 // The TPU bodies of one family differ only in how a tile finds the window
 // of feature rows it copies into VMEM (per tap, shared, per-tap
@@ -556,13 +558,18 @@ keymatch_gemm_kernel(const float* __restrict__ feats,
                          Cin, vec_a, vec_w, lookup);
 }
 
-// ---- the bfloat16 form of the gather join ------------------------------
+// ---- the bfloat16 form of both joins -----------------------------------
 //
-// K3s as car.fhd.mixed runs it (the JAX kernel's bf16 operands with
-// preferred_element_type=float32, sparse_gather_gemm.py:65-70 there):
-// bf16 feats [B, N, Cin] and W [K, Cin, Cout], out [B, R, Cout] in fp32.
-// The same tile as above (lookups, the list of non-empty taps, the 2-stage
-// cp.async ring, each warp 16 rows x COUT), with bf16 rows and W in shared
+// K3s as car.fhd.mixed runs it, and K4 (all four forms) as the key-match
+// middle runs it under enable_mixed_precision (the JAX kernels' bf16
+// operands with preferred_element_type=float32, sparse_gather_gemm.py
+// :65-70 and :491-496, :576-581, :668-674, :767-778 there): bf16 feats
+// [B, N, Cin] and W [K, Cin, Cout], out [B, R, Cout] in fp32.  The same
+// tile as above, templated on the same two lookups (the rulebook, or the
+// query key's match in the sorted in_keys, with the on-device ascending
+// flag and the linear scan it selects): the list of non-empty taps, the
+// 2-stage cp.async ring, each warp 16 rows x COUT, with bf16 rows and W in
+// shared
 // memory and mma.sync.aligned.m16n8k16 bf16 x bf16 -> fp32 in one pass: a
 // product of two bf16 values is exact in fp32, so the kernel differs from
 // its plain version (the inputs upcast to fp32, one fp32 matmul) only in
@@ -590,7 +597,13 @@ keymatch_gemm_kernel(const float* __restrict__ feats,
 //
 // Bound: operations, 2 * hits * Cin * Cout needed flops at the dense bf16
 // tensor-core rate (989 TFLOP/s on an H100 SXM), or bytes (bf16 features
-// and weights read once, fp32 output written once), whichever is larger.
+// and weights, the rulebook or the int32 keys read once, fp32 output
+// written once), whichever is larger.
+//
+// A sentinel key (INT32_MAX: a padding row, a tap with no query) never
+// matches in the key lookup, so a sentinel row contributes nothing: the
+// JAX package zeroes those rows' features instead (_keymatch_impl), which
+// gives the same sums.
 
 typedef uint16_t bf16_bits;         // a bfloat16 value, as its bits
 
@@ -697,20 +710,14 @@ __device__ void multiply_bf16(float (&acc)[COUT / 8][4], const bf16_bits* As,
   }
 }
 
-template <int COUT>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
-gather_gemm_bf16_kernel(const bf16_bits* __restrict__ feats,
-                        const int* __restrict__ idx,
-                        const uint8_t* __restrict__ found,
-                        const bf16_bits* __restrict__ W,
-                        float* __restrict__ out, int N, int R, int K,
-                        int Cin, int a_bytes, bool w16) {
+template <int COUT, class Lookup>
+__device__ void sparse_gemm_tile_bf16(const bf16_bits* __restrict__ feats,
+                                      const bf16_bits* __restrict__ W,
+                                      float* __restrict__ out, int R, int K,
+                                      int Cin, int a_bytes, bool w16,
+                                      const Lookup& lookup) {
   static_assert(COUT % 8 == 0 && COUT <= 128, "COUT: 8, 16, 32, 64 or 128");
   constexpr int LDW = w_stride(COUT), NT = COUT / 8;
-  const size_t bz = blockIdx.y;
-  const RulebookLookup lookup{idx + bz * K * R, found + bz * K * R, N};
-  feats += bz * N * Cin;
-  out += bz * R * COUT;
   extern __shared__ float4 smem4[];
   const LayoutBf16 L(Cin);
   bf16_bits* As = reinterpret_cast<bf16_bits*>(smem4);   // [2][TILE_R][lda]
@@ -782,6 +789,36 @@ gather_gemm_bf16_kernel(const bf16_bits* __restrict__ feats,
   }
 }
 
+template <int COUT>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+gather_gemm_bf16_kernel(const bf16_bits* __restrict__ feats,
+                        const int* __restrict__ idx,
+                        const uint8_t* __restrict__ found,
+                        const bf16_bits* __restrict__ W,
+                        float* __restrict__ out, int N, int R, int K,
+                        int Cin, int a_bytes, bool w16) {
+  const size_t bz = blockIdx.y;
+  const RulebookLookup lookup{idx + bz * K * R, found + bz * K * R, N};
+  sparse_gemm_tile_bf16<COUT>(feats + bz * N * Cin, W, out + bz * R * COUT,
+                              R, K, Cin, a_bytes, w16, lookup);
+}
+
+template <int COUT>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+keymatch_gemm_bf16_kernel(const bf16_bits* __restrict__ feats,
+                          const int* __restrict__ in_keys,
+                          const int* __restrict__ q_keys,
+                          const uint8_t* __restrict__ sorted_flag,
+                          const bf16_bits* __restrict__ W,
+                          float* __restrict__ out, int N, int R, int K,
+                          int Cin, int a_bytes, bool w16) {
+  const size_t bz = blockIdx.y;
+  const KeyLookup lookup{in_keys + bz * N, q_keys + bz * K * R, N,
+                         *sorted_flag != 0};
+  sparse_gemm_tile_bf16<COUT>(feats + bz * N * Cin, W, out + bz * R * COUT,
+                              R, K, Cin, a_bytes, w16, lookup);
+}
+
 template <class Kernel, class... Args>
 int launch(Kernel kernel, size_t smem, int B, int R, cudaStream_t stream,
            Args... args) {
@@ -803,6 +840,14 @@ bool aligned8(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 7) == 0;
 }
 
+// The width of the bf16 tile's row copies: 16-byte chunks where Cin % 8
+// == 0 and feats is 16-byte aligned, 8-byte ones for Cin % 4 == 0, else
+// 4-byte ones (Cin even, feats 4-byte aligned: the wrapper sees to both).
+int bf16_row_bytes(const uint16_t* feats, int Cin) {
+  return (Cin % 8 == 0 && aligned16(feats)) ? 16
+         : (Cin % 4 == 0 && aligned8(feats)) ? 8 : 4;
+}
+
 }  // namespace
 
 // Shared-memory bytes a launch at (K, Cin, Cout) asks for; the wrapper
@@ -811,7 +856,9 @@ extern "C" int sparse_gemm_smem_bytes(int K, int Cin, int Cout) {
   return (int)Layout(Cin).bytes(K, Cout);
 }
 
-// The same for the bfloat16 form of the gather join.
+// The same for the bfloat16 form of either join (the key lookup keeps
+// nothing in shared memory beyond the sources and the tap list, which
+// LayoutBf16 counts, so both joins ask for the same bytes).
 extern "C" int sparse_gemm_bf16_smem_bytes(int K, int Cin, int Cout) {
   return (int)LayoutBf16(Cin).bytes(K, Cout);
 }
@@ -850,12 +897,9 @@ extern "C" int gather_gemm_bf16_launch(const uint16_t* feats, const int* idx,
                                        int Cout, cudaStream_t stream) {
   if (B == 0 || R == 0) return (int)cudaSuccess;
   if (Cin % 2 != 0) return (int)cudaErrorInvalidValue;
-  const int a_bytes = (Cin % 8 == 0 && aligned16(feats)) ? 16
-                      : (Cin % 4 == 0 && aligned8(feats)) ? 8 : 4;
-  const bool w16 = aligned16(W);
   DISPATCH_COUT(gather_gemm_bf16_kernel, LayoutBf16(Cin).bytes(K, Cout), B,
-                R, stream, feats, idx, found, W, out, N, R, K, Cin, a_bytes,
-                w16)
+                R, stream, feats, idx, found, W, out, N, R, K, Cin,
+                bf16_row_bytes(feats, Cin), aligned16(W))
 }
 
 // feats [B, N, Cin], in_keys [B, N], q_keys [B, K, R], W [K, Cin, Cout]
@@ -872,4 +916,22 @@ extern "C" int keymatch_gemm_launch(const float* feats, const int* in_keys,
   DISPATCH_COUT(keymatch_gemm_kernel, Layout(Cin).bytes(K, Cout), B, R,
                 stream, feats, in_keys, q_keys, sorted_flag, W, out, N, R, K,
                 Cin, vec_a, vec_w)
+}
+
+// The bfloat16 form of the key-match join: feats [B, N, Cin] and W [K,
+// Cin, Cout] bf16 (as their bits), in_keys [B, N], q_keys [B, K, R] int32
+// -> out [B, R, Cout] fp32; *sorted_flag as above.  Cin must be even and
+// feats and W 4-byte aligned (the wrapper sees to both).
+extern "C" int keymatch_gemm_bf16_launch(const uint16_t* feats,
+                                         const int* in_keys,
+                                         const int* q_keys,
+                                         const uint8_t* sorted_flag,
+                                         const uint16_t* W, float* out,
+                                         int B, int N, int R, int K, int Cin,
+                                         int Cout, cudaStream_t stream) {
+  if (B == 0 || R == 0) return (int)cudaSuccess;
+  if (Cin % 2 != 0) return (int)cudaErrorInvalidValue;
+  DISPATCH_COUT(keymatch_gemm_bf16_kernel, LayoutBf16(Cin).bytes(K, Cout),
+                B, R, stream, feats, in_keys, q_keys, sorted_flag, W, out, N,
+                R, K, Cin, bf16_row_bytes(feats, Cin), aligned16(W))
 }

@@ -192,9 +192,11 @@ class SparseMiddle(nn.Module):
             in_keys, q_keys, perm = km
             if perm is not None:
                 w = w[perm]
-            out = keymatch_gemm(feats, in_keys, q_keys, w, None,
-                                self.pallas_tile, window, True, subwindow,
-                                group)
+            # the weights in the features' type, as the JAX package's
+            # _keymatch_impl casts them (bfloat16 under mixed precision)
+            out = keymatch_gemm(feats, in_keys, q_keys, w.to(feats.dtype),
+                                None, self.pallas_tile, window, True,
+                                subwindow, group)
         elif self.use_pallas_gemm:
             out = gather_gemm(feats, rulebook.gather_idx, rulebook.found,
                               w.to(feats.dtype), None, self.pallas_tile,

@@ -8,6 +8,13 @@ Module and parameter names follow the lineage torch net
 update their statistics in training as flax's do
 (:class:`FlaxBatchNorm1d`), and the pillar max splits its gradient among
 tied points as ``jnp.max`` does (``torch.amax``).
+
+``dtype=torch.bfloat16`` mirrors the JAX modules' flax ``dtype=bfloat16``
+(``compute_dtype="bfloat16"``): the decorations are built in the points'
+type and cast to bfloat16, the PFN's Dense multiplies in bfloat16 (its
+parameter stays float32), BatchNorm takes its statistics in float32 and
+gives bfloat16, and the mask, the max over the points and the canvas are
+bfloat16.
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 from ..ops.pillar_scatter import scatter_sorted_to_canvas
 from .voxel_encoder import points_mask
@@ -71,13 +79,33 @@ class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
     pass
 
 
+class Linear(nn.Linear):
+    """``nn.Linear`` that computes in bfloat16 where its input is bfloat16,
+    as flax's ``Dense(dtype=bfloat16)`` does: the kernel rounded to
+    bfloat16, the products (exact in float32) summed in float32 and the
+    sum rounded to bfloat16 once.  The sum is written out in float32
+    because PyTorch's CPU bfloat16 matmul rounds some sums twice (a
+    bfloat16 ulp off on 37 of 12.8 M outputs of a 9-input layer), which
+    the PFN's BatchNorm then scales up (16x in one of the trained
+    checkpoint's channels).  Otherwise it is ``nn.Linear``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        w = self.weight.to(x.dtype).float()
+        b = None if self.bias is None else self.bias.to(x.dtype).float()
+        return F.linear(x.float(), w, b).to(x.dtype)
+
+
 class PFNLayer(nn.Module):
-    """Pillar feature net layer: Linear + BN + ReLU (+ max-pool if last)."""
+    """Pillar feature net layer: Linear + BN + ReLU (+ max-pool if last),
+    in its input's type (float32, or bfloat16 as the JAX ``PFNLayer``'s
+    ``dtype=bfloat16`` computes it)."""
 
     def __init__(self, in_channels: int, units: int, last_layer: bool):
         super().__init__()
         self.last_layer = last_layer
-        self.linear = nn.Linear(in_channels, units, bias=False)
+        self.linear = Linear(in_channels, units, bias=False)
         self.norm = FlaxBatchNorm1d(units, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, inputs: torch.Tensor, mask: torch.Tensor):
@@ -97,14 +125,17 @@ class PillarFeatureNet(nn.Module):
     """Decorate points (cluster offset + pillar-centre offset), run PFN
     layers, max-pool to one feature per pillar.
 
-    Decorations: [x, y, z, r, xc, yc, zc, xp, yp].
+    Decorations: [x, y, z, r, xc, yc, zc, xp, yp], built in the points'
+    type; the PFN layers run in ``dtype`` (float32 or bfloat16).
     """
 
     def __init__(self, num_input_features: int = 4,
                  num_filters: Sequence[int] = (64,),
                  voxel_size: Tuple[float, float] = (0.2, 0.2),
-                 pc_range: Tuple[float, float] = (0.0, -40.0)):
+                 pc_range: Tuple[float, float] = (0.0, -40.0),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_input_features = num_input_features
         self.voxel_size = tuple(voxel_size)
         self.pc_range = tuple(pc_range)
@@ -151,10 +182,15 @@ class PillarFeatureNet(nn.Module):
 
         raw = voxels[..., : self.num_input_features]
         x = torch.cat([raw, f_cluster, f_center], dim=-1) * mask
+        x, mask = self._compute_type(x), self._compute_type(mask)
         for layer in self.pfn_layers:
             x = layer(x, mask)
         return x
 
+    def _compute_type(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` in the PFN's type: bfloat16 where the module computes in
+        it, else unchanged (float64 stays float64)."""
+        return x.to(self.dtype) if self.dtype == torch.bfloat16 else x
 
     def _flat(self, points, slot, num_points, coords) -> torch.Tensor:
         """points [B,P,C], slot [B,P] (V = invalid; in any order)
@@ -188,24 +224,28 @@ class PillarFeatureNet(nn.Module):
 
         raw = points[..., : self.num_input_features]
         x = torch.cat([raw, f_cluster, f_center], dim=-1)
-        x = x * pvalid[..., None].to(dt)
+        x = self._compute_type(x * pvalid[..., None].to(dt))
         # the same PFNLayer: a [B, P, 1, F] layout makes its max over
         # axis 2 a no-op, so it returns each point's activation [B, P, F]
         x = self.pfn_layers[0](x[:, :, None, :],
-                               pvalid[..., None, None].to(dt))
-        F = x.shape[-1]
+                               pvalid[..., None, None].to(x.dtype))
+        nf = x.shape[-1]
         # activations are >= 0 after the ReLU, so 0 is the floor of the
         # max and the value of an empty pillar, as on the padded path
-        pooled = torch.zeros((B, V + 1, F), dtype=dt, device=points.device)
-        pooled.scatter_reduce_(1, dump[..., None].expand(B, P, F), x, "amax")
+        pooled = torch.zeros((B, V + 1, nf), dtype=x.dtype,
+                             device=points.device)
+        pooled.scatter_reduce_(1, dump[..., None].expand(B, P, nf), x,
+                               "amax")
         return torch.where((num_points > 0)[..., None], pooled[:, :V],
-                           torch.zeros((), dtype=dt, device=points.device))
+                           torch.zeros((), dtype=x.dtype,
+                                       device=points.device))
 
 
 class PointPillarsScatter(nn.Module):
     """Scatter pillar features into a dense BEV canvas through the
-    pillar-scatter kernel; returns NCHW [B, F, H, W] with channels-last
-    strides (a view of the kernel's [B, H*W, F] canvas, no transpose)."""
+    pillar-scatter kernel; returns NCHW [B, F, H, W] in the features' type
+    with channels-last strides (a view of the kernel's [B, H*W, F] canvas,
+    no transpose)."""
 
     def __init__(self, output_shape: Tuple[int, int]):
         super().__init__()
@@ -216,7 +256,7 @@ class PointPillarsScatter(nn.Module):
         """voxel_features [B, V, F], coords [B, V, 3] (z, y, x) of voxels
         in any order: each scan's cell ids are unique, which is all the
         kernel needs (-1 padding rows are dropped)."""
-        B, V, F = voxel_features.shape
+        B, V, nf = voxel_features.shape
         H, W = self.output_shape
         valid = coords[..., 1] >= 0
         lin = coords[..., 1] * W + coords[..., 2]
@@ -225,4 +265,4 @@ class PointPillarsScatter(nn.Module):
                             torch.zeros((), dtype=voxel_features.dtype,
                                         device=voxel_features.device))
         canvas = scatter_sorted_to_canvas(feats.contiguous(), lin, H * W)
-        return canvas.view(B, H, W, F).permute(0, 3, 1, 2)
+        return canvas.view(B, H, W, nf).permute(0, 3, 1, 2)

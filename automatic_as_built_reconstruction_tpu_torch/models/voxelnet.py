@@ -6,11 +6,13 @@ The port of the JAX package's ``models/voxelnet.py``: its own copy of
 pillar branch (PillarFeatureNet -> PointPillarsScatter -> RPN) and sparse
 branch (SimpleVoxel -> SparseMiddle -> RPN), ``num_middle_blocks``,
 ``middle_plan``, ``compute_loss`` (:364) and ``predict`` (:452).  The
-sparse branch takes host-built rulebooks (``middle_rulebooks=``) and
-computes in bfloat16 with ``compute_dtype="bfloat16"`` (the middle and
-the RPN; the VFE stays float32 and every head comes back in float32, as
-the JAX package's flax modules run with ``dtype=bfloat16``).  The other
-VFEs, ``DenseMiddle``, bfloat16 pillars, bfloat16 key-match joins, the
+sparse branch takes host-built rulebooks (``middle_rulebooks=``).  Both
+compute in bfloat16 with ``compute_dtype="bfloat16"``, as the JAX
+package's flax modules run with ``dtype=bfloat16``: the pillar branch's
+PFN, scatter and RPN (the pillar scatter's kernel on bfloat16 rows), the
+sparse branch's middle (its gather or key-match joins in the kernels'
+bfloat16 forms) and RPN; ``SimpleVoxel`` stays float32, and every head
+comes back in float32.  The other VFEs, ``DenseMiddle``, the
 yaw-quality head, ``PillarFeatureNetRadius``, ``with_distance``,
 fractional upsample strides, softmax class scores
 (``encode_background_as_zeros`` false) and a model without the direction
@@ -176,14 +178,6 @@ class VoxelNet(nn.Module):
             raise NotImplementedError(
                 f"compute_dtype {cfg.compute_dtype}: only "
                 f"{sorted(COMPUTE_DTYPES)} are ported")
-        bf16 = cfg.compute_dtype == "bfloat16"
-        if bf16 and cfg.middle_name not in SPARSE_MIDDLE_NAMES:
-            raise NotImplementedError(
-                "bfloat16 compute is ported for the sparse middle (SECOND) "
-                "only")
-        if bf16 and cfg.sparse_keymatch and cfg.sparse_use_pallas_gemm:
-            raise NotImplementedError(
-                "bfloat16 key-match joins (K4 in bfloat16) are not ported")
         if cfg.with_distance:
             raise NotImplementedError("PillarFeatureNet with_distance is not "
                                       "ported")
@@ -204,7 +198,8 @@ class VoxelNet(nn.Module):
             self.voxel_feature_extractor = PillarFeatureNet(
                 num_input_features=cfg.num_input_features,
                 num_filters=cfg.vfe_num_filters,
-                voxel_size=cfg.voxel_size[:2], pc_range=cfg.pc_range[:2])
+                voxel_size=cfg.voxel_size[:2], pc_range=cfg.pc_range[:2],
+                dtype=COMPUTE_DTYPES[cfg.compute_dtype])
             vfe_channels = cfg.vfe_num_filters[-1]
         else:
             self.voxel_feature_extractor = SimpleVoxel(

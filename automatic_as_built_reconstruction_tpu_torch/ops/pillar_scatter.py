@@ -9,8 +9,11 @@ directly.  On a CUDA tensor the call is a ``torch.autograd.Function``
 whose backward is the second kernel of that source,
 ``pillar_gather_kernel`` (the transpose: each row reads the canvas
 gradient at its cell); the JAX package has no Pallas backward here, XLA
-transposes its training scatter.  Both kernels are bound by bytes; see
-the source note for what the design does about it.
+transposes its training scatter.  Both kernels copy rows as 16-byte
+chunks whatever their type, so they take float32 rows and the bfloat16
+rows of ``compute_dtype="bfloat16"`` alike, and give the plain version's
+bits.  Both are bound by bytes; see the source note for what the design
+does about it.
 """
 from __future__ import annotations
 
@@ -53,27 +56,34 @@ def pillar_gather_plain(dcanvas: torch.Tensor,
                                    device=dcanvas.device))
 
 
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+CHUNK_BYTES = 16                 # what one thread of the kernels copies
+
+
 def _check_kernel_args(x: torch.Tensor, lin: torch.Tensor, rows: int,
                        what: str) -> None:
-    if x.dtype != torch.float32 or lin.dtype != torch.int32:
-        raise TypeError(f"{what} takes float32 values and int32 ids, got "
-                        f"{x.dtype} / {lin.dtype}")
+    if x.dtype not in KERNEL_DTYPES or lin.dtype != torch.int32:
+        raise TypeError(f"{what} takes float32 or bfloat16 values and int32 "
+                        f"ids, got {x.dtype} / {lin.dtype}")
     if lin.device != x.device:
         raise ValueError(f"{what}: values and ids on different devices")
     if lin.shape[0] * lin.shape[1] != rows:
         raise ValueError(f"{what}: ids {tuple(lin.shape)} do not match")
-    if x.shape[-1] % 4 or x.data_ptr() % 16:
-        raise ValueError(f"{what} copies float4s: C = {x.shape[-1]} must be "
-                         f"a multiple of 4 and the values 16-byte aligned")
+    per_chunk = CHUNK_BYTES // x.element_size()
+    if x.shape[-1] % per_chunk or x.data_ptr() % CHUNK_BYTES:
+        raise ValueError(f"{what} copies 16-byte chunks: C = {x.shape[-1]} "
+                         f"must be a multiple of {per_chunk} ({x.dtype}) "
+                         f"and the values 16-byte aligned")
 
 
 def _launch(symbol: str, src: torch.Tensor, lin: torch.Tensor,
             out: torch.Tensor, B: int, V: int, C: int, hw: int) -> None:
     fn = _build.function("pillar_scatter", symbol, _ARGTYPES)
+    chunks = C * src.element_size() // CHUNK_BYTES      # a row's chunks
     with torch.cuda.device(src.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(src.data_ptr(), lin.data_ptr(), out.data_ptr(),
-                 B, V, C, int(hw), stream)
+                 B, V, chunks, int(hw), stream)
     _build.check(err, symbol)
 
 
@@ -119,8 +129,9 @@ def scatter_sorted_to_canvas(feats: torch.Tensor, lin: torch.Tensor,
     them, and the kernel would keep an arbitrary one.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (fp32, C a multiple of 4, int32 ids) or raise, and the gradient to
-    ``feats`` launches :func:`pillar_gather`'s kernel.
+    (float32 with C a multiple of 4, or bfloat16 with C a multiple of 8;
+    int32 ids) or raise, and the gradient to ``feats`` launches
+    :func:`pillar_gather`'s kernel.  The canvas has the features' type.
     """
     if feats.dim() != 3 or lin.shape != feats.shape[:2]:
         raise ValueError(f"feats {tuple(feats.shape)} / lin "
@@ -137,8 +148,8 @@ def pillar_gather(dcanvas: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:
     :func:`scatter_sorted_to_canvas` for unique ids).
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``pillar_gather_kernel`` (fp32, C a multiple of 4, int32 ids) or
-    raise.
+    ``pillar_gather_kernel`` (as the forward: float32 or bfloat16, rows of
+    16-byte chunks, int32 ids) or raise.
     """
     if dcanvas.dim() != 3 or lin.dim() != 2 or lin.shape[0] != \
             dcanvas.shape[0]:

@@ -30,14 +30,17 @@ Both take an optional leading batch dimension on everything but the
 weights (the JAX package maps the kernel over the batch; here the batch
 is the launch grid's second axis).
 
-The gather join also takes bfloat16 features and weights (the
-``car.fhd.mixed`` middle): a second form of the kernel's tile multiplies
-them on the tensor cores as ``mma.sync`` bf16 with float32 accumulation,
-in one pass (a product of two bfloat16 values is exact in float32), and
-gives float32; its launches count on :func:`gather_gemm_bf16`.  Its
-plain version is :func:`gather_gemm_plain`, which multiplies the
-bfloat16 inputs upcast to float32.  The key-match join and the backward
-kernels take float32 only and raise on anything else.
+Both joins also take bfloat16 features and weights (the middle of
+``compute_dtype="bfloat16"``: ``car.fhd.mixed``'s gather joins, the
+key-match joins of ``car.fhd`` and ``car.fhd.serving`` with
+``enable_mixed_precision``): a second form of the kernel's tile, with
+either lookup, multiplies them on the tensor cores as ``mma.sync`` bf16
+with float32 accumulation, in one pass (a product of two bfloat16 values
+is exact in float32), and gives float32; its launches count on
+:func:`gather_gemm_bf16` and :func:`keymatch_gemm_bf16`.  The plain
+versions, :func:`gather_gemm_plain` and :func:`keymatch_gemm_plain`,
+multiply the bfloat16 inputs upcast to float32.  The backward kernels
+take float32 only and raise on anything else.
 
 Both are differentiable in features and weights, as the JAX package's
 ``custom_vjp`` makes them (``_gather_gemm_bwd`` :411, ``_keymatch_bwd``
@@ -166,20 +169,27 @@ def _aligned4(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 4 == 0 else t.clone()
 
 
+def _kernel_operands(features, weights):
+    """(features, weights) as the tile takes them, its shared memory
+    checked: the float32 tile, or for bfloat16 the tile's bfloat16 form
+    (an even Cin, 4-byte aligned operands)."""
+    K, Cin, Cout = weights.shape
+    if features.dtype != torch.bfloat16:
+        _check_smem(K, Cin, Cout)
+        return features, weights
+    if Cin % 2:
+        raise ValueError(f"the bfloat16 kernel takes an even Cin, got {Cin}")
+    _check_smem(K, Cin, Cout, "sparse_gemm_bf16_smem_bytes")
+    return _aligned4(features), _aligned4(weights)
+
+
 def _launch_gather(features, gather_idx, found, weights) -> torch.Tensor:
     """The gather-GEMM kernel on checked CUDA tensors (no count): the
     float32 tile, or its bfloat16 form for bfloat16 features and
     weights."""
     K, Cin, Cout = weights.shape
     bf16 = features.dtype == torch.bfloat16
-    if bf16:
-        if Cin % 2:
-            raise ValueError(f"the bfloat16 kernel takes an even Cin, got "
-                             f"{Cin}")
-        _check_smem(K, Cin, Cout, "sparse_gemm_bf16_smem_bytes")
-        features, weights = _aligned4(features), _aligned4(weights)
-    else:
-        _check_smem(K, Cin, Cout)
+    features, weights = _kernel_operands(features, weights)
     batched = features.dim() == 3
     B = features.shape[0] if batched else 1
     N, R = features.shape[-2], gather_idx.shape[-1]
@@ -217,9 +227,11 @@ def _keymatch_forward(features, in_keys, q_keys, weights) -> torch.Tensor:
     if not features.is_cuda:
         return keymatch_gemm_plain(features, in_keys, q_keys, weights)
     _check_cuda(features, weights, {"in_keys": (in_keys, torch.int32),
-                                    "q_keys": (q_keys, torch.int32)})
+                                    "q_keys": (q_keys, torch.int32)},
+                (torch.float32, torch.bfloat16))
     K, Cin, Cout = weights.shape
-    _check_smem(K, Cin, Cout)
+    bf16 = features.dtype == torch.bfloat16
+    features, weights = _kernel_operands(features, weights)
     batched = features.dim() == 3
     B = features.shape[0] if batched else 1
     N, M = features.shape[-2], q_keys.shape[-1]
@@ -228,15 +240,18 @@ def _keymatch_forward(features, in_keys, q_keys, weights) -> torch.Tensor:
     ascending = (in_keys[..., 1:] >= in_keys[..., :-1]).all()   # on device
     out = torch.empty((B, M, Cout) if batched else (M, Cout),
                       dtype=torch.float32, device=features.device)
-    fn = _build.function("sparse_gather_gemm", "keymatch_gemm_launch",
-                         _KEYMATCH_ARGTYPES)
+    symbol = "keymatch_gemm_bf16_launch" if bf16 else "keymatch_gemm_launch"
+    fn = _build.function("sparse_gather_gemm", symbol, _KEYMATCH_ARGTYPES)
     with torch.cuda.device(features.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(features.data_ptr(), in_keys.data_ptr(), q_keys.data_ptr(),
                  ascending.data_ptr(), weights.data_ptr(), out.data_ptr(),
                  B, N, M, K, Cin, Cout, stream)
-    _build.check(err, "keymatch_gemm_launch")
-    keymatch_gemm.launches += 1
+    _build.check(err, symbol)
+    if bf16:
+        keymatch_gemm_bf16.launches += 1
+    else:
+        keymatch_gemm.launches += 1
     return out
 
 
@@ -354,8 +369,10 @@ def keymatch_gemm(features: torch.Tensor, in_keys: torch.Tensor,
     q_keys: [B, M, Cout].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (float32 features and weights, int32 keys, Cout in ``KERNEL_COUTS``)
-    or raise.  The kernel searches ascending ``in_keys`` (what the
+    (features and weights both float32, or both bfloat16 with an even Cin,
+    which the tile's bfloat16 form takes; int32 keys, Cout in
+    ``KERNEL_COUTS``) or raise.  The output is float32 either way.  The
+    kernel searches ascending ``in_keys`` (what the
     key-order voxelizer and the sorted strided sites give) by bisection;
     a check on the device, with no host synchronisation, tells it when
     they are not ascending, and it then scans them, which is exact for any
@@ -378,6 +395,22 @@ def keymatch_gemm(features: torch.Tensor, in_keys: torch.Tensor,
 
 
 keymatch_gemm.launches = 0
+
+
+def keymatch_gemm_bf16(features: torch.Tensor, in_keys: torch.Tensor,
+                       q_keys: torch.Tensor, weights: torch.Tensor,
+                       *args) -> torch.Tensor:
+    """:func:`keymatch_gemm` on bfloat16 features and weights (raises on
+    any other type): the form the key-match middle runs under
+    ``enable_mixed_precision``.  Its ``launches`` count every launch of
+    the tile's bfloat16 form with the key lookup, through either name."""
+    if features.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
+        raise TypeError(f"keymatch_gemm_bf16 takes bfloat16 features and "
+                        f"weights, got {features.dtype} / {weights.dtype}")
+    return keymatch_gemm(features, in_keys, q_keys, weights, *args)
+
+
+keymatch_gemm_bf16.launches = 0
 
 
 # ---- the backward ---------------------------------------------------------
@@ -603,5 +636,6 @@ __all__ = ["KERNEL_COUTS", "TILE_R", "count_hits", "gather_gemm",
            "grad_weights_plain",
            "group_perm", "join_backward_plain",
            "join_grad_features", "join_grad_weights", "keymatch_found",
-           "keymatch_gemm", "keymatch_gemm_plain", "rulebook_collisions",
+           "keymatch_gemm", "keymatch_gemm_bf16", "keymatch_gemm_plain",
+           "rulebook_collisions",
            "rulebook_inverse", "rulebook_inverse_plain", "tile_occupancy"]

@@ -114,9 +114,24 @@
    kernels, once a join a step), which then serves four B = 2 requests
    through ``pod_inference_from_checkpoint`` (seeded weights, rulebooks
    built on the device): the heads on the kernels against the same
-   network on the plain versions, within the distance between the bf16
-   and the float32 network, which is printed; the RPN's share of a
-   request's device time beside car.fhd's float32 one;
+   network on the plain versions, within CONTROL_MARGIN times the
+   distance of a control (the plain versions with every join's taps
+   reversed, another float32 sum order) from them, the bf16-vs-float32
+   distance printed beside; the RPN's share of a request's device time
+   beside car.fhd's float32 one;
+6e. bfloat16 pillars: ``asbuilt_pillars.config`` with
+   ``enable_mixed_precision`` (the PFN, K1 and the RPN in bf16) serves
+   the trained checkpoint (four B = 2 requests twice over; latency and
+   each stage's device time beside float32's; the heads held against the
+   plain K1 with the control of the RPN convolutions' input channels
+   reversed), runs ``evaluate`` on the 32 val scenes (AP printed beside
+   JAX_EVAL_AP, num_gt equal) and trains MIXED_PILLAR_STEPS steps (the
+   loss falls); and bfloat16 key-match SECOND: car.fhd.config with the
+   flag trains 20 steps at B = 6 on the car clone (K4 in bf16 forward,
+   the float32 backward kernels; the loss falls; one step's joins
+   recorded) and evaluates, and car.fhd.serving.config with the flag
+   serves four B = 2 requests, heads held against the plain joins with
+   the taps-reversed control;
 7. holds each kernel against its plain PyTorch version on the card, on
    the inputs the main paths gave it (for the pillar scatter also with
    the rows shuffled, and its backward on the training step's canvas
@@ -129,10 +144,16 @@
    each with the outputs equal bit for bit and the share of the pairs
    each of its rejection tests takes; for the two sparse GEMMs every join
    of a request,
-   each with its device time, bound and tile occupancy, the four call
-   forms of the key-match function, and unsorted keys; the gather join's
-   bfloat16 form on every join of a car.fhd.mixed request, within 1e-4
-   of the join's max |out|, bound at the bf16 tensor-core rate; for the
+   each with its device time in turns with the plain version (CUDA
+   events behind a GPU sleep, L2 flushed: one method for every join),
+   bound and tile occupancy, the four call forms of the key-match
+   function, and unsorted keys; the two joins' bfloat16 forms on every
+   join of a car.fhd.mixed / bf16 car.fhd.serving request (and, for the
+   key-match form, of a bf16 car.fhd training step), within 1e-4 of the
+   join's max |out|, bound at the bf16 tensor-core rate; K1 on bfloat16
+   rows (forward and backward, bit for bit, at the served shape and at
+   the KITTI B = 8 shape, against zeros + ``index_copy_`` in bf16); for
+   the
    fused
    voxelize+mean both routes on the served request, a pillar-sized scan, a
    truncating voxel cap, T = 1, an empty scan, NaN and on-face points and
@@ -141,9 +162,9 @@
    device time and device events of the function, its kernels, the sort
    and the table route);
    times kernel, plain version and library call with CUDA events (median
-   and range) and with torch.profiler (device time of the kernels,
-   memsets and copies a call launches, the ``ms`` it reports), L2 flushed
-   before each call; checks the flat pillar VFE path against the padded
+   and range), and in turns with each other behind a GPU sleep (the
+   ``ms`` it reports: the card's work without the host's launch gaps), L2
+   flushed before each call; checks the flat pillar VFE path against the padded
    one on a served request, and that it gives the same bits twice;
 8. times an empty kernel (one block, and the grids of K1 and K5) as the
    launch floor beside those two;
@@ -151,9 +172,11 @@
    main paths, ``launches_by_path`` each path's own count; K1's entry
    carries its backward's ``backward_*`` numbers and has a second entry,
    ``pillar_scatter@kitti``, at the KITTI request's shape with the KITTI
-   paths' launches; the sparse GEMMs' entries carry those of the
-   joins' shared backward; ``gather_gemm_bf16`` is the gather join's
-   bfloat16 form), the card's name and power limit as
+   paths' launches, and ``pillar_scatter@bf16`` on bfloat16 rows with
+   the bf16 pillar paths' launches and its KITTI-shape numbers under
+   ``kitti``; the sparse GEMMs' entries carry those of the joins' shared
+   backward; ``gather_gemm_bf16`` and ``keymatch_gemm_bf16`` are the two
+   joins' bfloat16 forms), the card's name and power limit as
    ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
 
 Exits non-zero, with no result lines, when CUDA is unavailable or any
@@ -187,7 +210,7 @@ from automatic_as_built_reconstruction_tpu_torch.data.kitti_like import (
     make_scene)
 from automatic_as_built_reconstruction_tpu_torch.device import fp32_math
 from automatic_as_built_reconstruction_tpu_torch.models import (
-    middle, pointpillars, voxelnet as voxelnet_mod)
+    middle, pointpillars, rpn, voxelnet as voxelnet_mod)
 from automatic_as_built_reconstruction_tpu_torch.models.voxelnet import (
     VoxelNet, middle_plan, predict)
 from automatic_as_built_reconstruction_tpu_torch.ops import (
@@ -284,7 +307,15 @@ TRAIN_GRAD_ATOL_SHARE = 1e-3
 TRAIN_F64_RTOL = 1e-9
 TRAIN_PARAM_TOL = dict(rtol=1e-5, atol=1e-7)
 TRAIN_G_NOISE, TRAIN_G_AGREE = 1e-3, 1e-3
-K1_TURNS = 30                    # K1 against index_copy_, in alternation
+# kernels against their library call or plain version, in alternation:
+# calls of each, and the GPU sleep before each call (about 1 ms at the
+# H100's clocks: longer than the host takes to queue a call's launches)
+K1_TURNS = 30
+IN_TURNS_SLEEP_CYCLES = 2_000_000
+# the sparse joins' device time, in turns with their plain versions: calls
+# of each at the largest join of a request (its kernels-line time) and at
+# every other join
+SPARSE_TURNS, JOIN_TURNS = 20, 5
 # the sparse joins' backward kernels against their plain version on the
 # same rulebook: rtol, and atol as a share of the gradient's max |g|.  A
 # dW entry is an fp32 sum over the hit rows of a tap (up to ~1.5e5 of them
@@ -340,25 +371,32 @@ CLI_TIMEOUT_S = 600
 # the car clone: the plain joins on rulebooks the input pipeline builds)
 # and bfloat16 SECOND (car.fhd.mixed: host rulebooks, the gather join's
 # bfloat16 kernel), each trained HOST_RB_STEPS steps in HOST_RB_DISPLAY-
-# step windows with the plan's own site caps.  The bf16 gather kernel is
-# held to its plain version (the bf16 inputs upcast, one float32 matmul)
-# within BF16_GEMM_RTOL of the join's max |out|: the products are exact in
-# float32, the two differ in the order of their float32 sums only.  The
-# bf16 network's heads on the kernels against the same bf16 network on the
-# plain versions: within MIXED_HEAD_SHARE of the distance between the bf16
-# and the float32 network.  A join's float32 sum order moves the bf16
-# rounding of the values next to a rounding boundary, and every layer
-# after it rounds to bf16 again, so such a move spreads through the
-# network until the two bf16 runs differ by about what bf16 itself costs
-# (0.64-0.67 of it at every head on an H100 80GB HBM3 at 700 W, PERF.md;
-# the stated 0.5 failed there): the kernel's order may cost no more than
-# bf16 does.  The joins themselves are held at BF16_GEMM_RTOL
+# step windows with the plan's own site caps.  A bf16 join kernel is held
+# to its plain version (the bf16 inputs upcast, one float32 matmul) within
+# BF16_GEMM_RTOL of the join's max |out|: the products are exact in
+# float32, the two differ in the order of their float32 sums only.  A bf16
+# network's heads on the kernels are held against the same network on the
+# plain versions within CONTROL_MARGIN x the distance of a control from
+# the plain versions on the same request: the plain versions again with
+# another float32 sum order (the joins' taps reversed; for the pillar
+# path, whose one kernel copies rows exactly, the RPN convolutions' input
+# channels reversed).  A float32 sum order moves the bf16 rounding of
+# values next to a rounding boundary and every later layer rounds again,
+# so two bf16 runs that differ in sum order alone lie about as far apart
+# as bf16 lies from float32 (car.fhd.mixed on an H100 80GB HBM3 at 700 W:
+# the control 0.57-1.05 of that distance, the kernels 0.49-1.02, PERF.md);
+# the control measures that spread on each request, and a kernel may
+# spread it no further than half as much again.  The joins themselves are
+# held at BF16_GEMM_RTOL
 PEOPLE_CONFIG = CONFIGS / "second" / "people.fhd.config"
 LITE_CONFIG = CONFIGS / "second" / "car" / "car.lite.config"
 MIXED_CONFIG = CONFIGS / "second" / "car" / "car.fhd.mixed.config"
 HOST_RB_STEPS, HOST_RB_DISPLAY = 20, 5
+# bfloat16 pillars (asbuilt_pillars.config with enable_mixed_precision):
+# the steps of its training run, in TRAIN_DISPLAY-step windows
+MIXED_PILLAR_STEPS = 30
 BF16_GEMM_RTOL = 1e-4
-MIXED_HEAD_SHARE = 1.0
+CONTROL_MARGIN = 1.5
 
 
 def log(msg: str) -> None:
@@ -393,7 +431,9 @@ def toolchain() -> str:
 
 
 # an empty kernel: its device time is the least a launch of that grid
-# takes on this card, the floor beside K1 and K5
+# takes on this card, the floor beside K1 and K5; and the L2 flush of
+# device_profile, a kernel of its own name so that a trace tells its
+# launches from the measured function's
 EMPTY_KERNEL_SRC = r'''
 #include <cuda_runtime.h>
 __global__ void empty_kernel() {}
@@ -401,24 +441,66 @@ extern "C" int empty_launch(int blocks, int threads, cudaStream_t stream) {
   empty_kernel<<<blocks, threads, 0, stream>>>();
   return (int)cudaGetLastError();
 }
+__global__ void l2_flush_kernel(uint4* p, long long n) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    uint4 v = p[i];
+    v.x = ~v.x; v.y = ~v.y; v.z = ~v.z; v.w = ~v.w;
+    p[i] = v;
+  }
+}
+extern "C" int l2_flush_launch(void* p, long long n, cudaStream_t stream) {
+  l2_flush_kernel<<<1056, 256, 0, stream>>>((uint4*)p, n);
+  return (int)cudaGetLastError();
+}
 '''
+FLUSH_KERNEL = "l2_flush_kernel"
+_FLUSH = []           # the flush's launch function, once built
+
+
+def start_empty_kernel_build():
+    """nvcc on EMPTY_KERNEL_SRC, started.  -> (the process, the library
+    it writes)."""
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = _build.BUILD_DIR / "empty_kernel.cu"
+    src.write_text(EMPTY_KERNEL_SRC)
+    lib = _build.BUILD_DIR / "libempty_kernel.so"
+    proc = subprocess.Popen(
+        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def finish_empty_kernel_build(proc, lib: Path) -> Path:
+    """Wait for :func:`start_empty_kernel_build` and load the flush."""
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise _build.KernelBuildError(f"empty kernel: {out}")
+    flush = ctypes.CDLL(str(lib)).l2_flush_launch
+    flush.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+    flush.restype = ctypes.c_int
+    _FLUSH[:] = [flush]
+    return lib
+
+
+def l2_flush(buf: torch.Tensor) -> None:
+    """Read and write every byte of ``buf`` (L2_FLUSH_BYTES, more than
+    the L2 holds) with :data:`FLUSH_KERNEL`, built at first use where
+    :func:`build_kernels` has not built it."""
+    if not _FLUSH:
+        finish_empty_kernel_build(*start_empty_kernel_build())
+    _build.check(_FLUSH[0](buf.data_ptr(), buf.numel() // 16,
+                           torch.cuda.current_stream().cuda_stream),
+                 "l2_flush_launch")
 
 
 def build_kernels() -> Path:
     """Build every kernel and the empty one, all nvcc processes started
     together.  -> the empty kernel's library."""
     t0 = time.perf_counter()
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = _build.BUILD_DIR / "empty_kernel.cu"
-    src.write_text(EMPTY_KERNEL_SRC)
-    empty = _build.BUILD_DIR / "libempty_kernel.so"
-    proc = subprocess.Popen(
-        [_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", str(empty), str(src)],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    proc, lib = start_empty_kernel_build()
     result = _build.build_all()
-    out, _ = proc.communicate()
-    if proc.returncode != 0:
-        raise _build.KernelBuildError(f"empty kernel: {out}")
+    empty = finish_empty_kernel_build(proc, lib)
     per_source = ", ".join(f"{name} {r['seconds']:.1f} s"
                            for name, r in result.items())
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall ({per_source})")
@@ -432,9 +514,10 @@ def build_kernels() -> Path:
 
 
 def launch_floor(lib: Path, card: str, grids: dict) -> dict:
-    """Device time (torch.profiler, as ``device_time``) and event times of
-    the empty kernel: one block of 32 threads, and each grid of ``grids``
-    ({name: (blocks, threads)}).  -> {"one block" or name: device ms}."""
+    """Device time (in turns, as the kernels line takes its times) and
+    event times of the empty kernel: one block of 32 threads, and each
+    grid of ``grids`` ({name: (blocks, threads)}).  -> {"one block" or
+    name: device ms}."""
     fn = ctypes.CDLL(str(lib)).empty_launch
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -444,20 +527,19 @@ def launch_floor(lib: Path, card: str, grids: dict) -> dict:
             _build.check(fn(blocks, threads,
                             torch.cuda.current_stream().cuda_stream),
                          "empty_launch")
-        ms, _ = device_ms(call)
+        turns = take_turns({what: call})[what]
         ev = cuda_ms(call)
-        floors[what] = ms
+        floors[what] = turns[0]
         log(f"launch floor [{card}]: empty kernel, {blocks} x {threads} "
-            f"threads ({what}): device "
-            f"{'not measured' if ms is None else f'{ms:.5f} ms'} "
-            f"(torch.profiler), events {fmt_range(ev)}")
+            f"threads ({what}): in turns {fmt_range(turns)}, events "
+            f"{fmt_range(ev)}")
     return floors
 
 
 def check_sparse_gemm_sass() -> None:
     """Every instantiation of the two float32 sparse-GEMM kernels
     multiplies on the tensor cores in TF32 (HMMA ... TF32), every one of
-    the gather join's bfloat16 form in bf16 (HMMA ... BF16), and each
+    the two joins' bfloat16 forms in bf16 (HMMA ... BF16), and each
     fills shared memory with cp.async (LDGSTS): ``cuobjdump -sass`` of the
     built library."""
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
@@ -480,7 +562,7 @@ def check_sparse_gemm_sass() -> None:
     bad = [n for n, c in counts.items()
            if not (c["hmma_bf16" if "bf16" in n else "hmma_tf32"]
                    and c["ldgsts"])]
-    if len(counts) != 15 or bad:
+    if len(counts) != 20 or bad:
         raise AssertionError(f"sparse GEMM kernels without TF32 / BF16 "
                              f"HMMA or LDGSTS: {bad or counts}")
 
@@ -513,34 +595,69 @@ def fmt_range(t: list) -> str:
     return f"{t[0]:.4f} ms (range {t[1]:.4f}-{t[2]:.4f})"
 
 
-def device_profile(fn, iters: int = 20):
+def device_profile(fn, iters: int = 20, windows: int = 3):
     """Device time per call summed over the kernels, memsets and copies
-    ``fn`` launches (torch.profiler / CUPTI, one profiling window), L2
-    flushed before each call by a 64 MB ``bitwise_not`` (left out): the
-    card's own time without the host's launch overhead.  Returns (ms,
-    {name: ms}, device events a call), or (None, {}, 0) when the profiler
-    saw no kernel."""
+    ``fn`` launches (torch.profiler / CUPTI), L2 flushed before each call
+    by :func:`l2_flush` (left out): the card's own time without the
+    host's launch overhead.  Returns (ms, {name: ms}, device events a
+    call), or (None, {}, 0) when the profiler saw no kernel.
+
+    A window's trace can miss records and can hold records of an earlier
+    window, which arrive late: late in a full run K4g once read 0.454 ms
+    for the 0.73 of every other reading (each of the call's three kernels
+    at about 0.61 of its time), windows held 7-19 of their 20 flushes, and
+    a window of K1's backward held an earlier window's records of the same
+    kernel (twice its time).  So each window keeps only the records that
+    start at or after its first flush, ``windows`` windows are taken, and
+    each kernel's time a call is its mean duration over every record kept
+    times its launches a call, a whole number: the largest count any one
+    window keeps over ``iters``, rounded up (a window that lost a record
+    of every call's kernel would scale its time down by the share lost).
+    The kernels line takes its times in turns (:func:`take_turns`), which
+    loses no record.  (The flush was a ``bitwise_not`` before, whose name
+    the measured functions' own ``bitwise_not`` kernels shared: they were
+    left out of the sums.)"""
     from torch.profiler import ProfilerActivity, profile
 
-    src = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    dst = torch.empty_like(src)
+    buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            torch.bitwise_not(src, out=dst)
-            fn()
-        torch.cuda.synchronize()
-    per_kernel, n = {}, 0
-    for e in prof.events():
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and "bitwise_not" not in e.name):
-            n += 1
-            per_kernel[e.name] = (per_kernel.get(e.name, 0.0)
-                                  + e.time_range.elapsed_us() / 1e3 / iters)
-    if not per_kernel:
+    durations, most, short = {}, {}, []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                l2_flush(buf)
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        starts = [e.time_range.start for e in device
+                  if FLUSH_KERNEL in e.name]
+        if not starts:
+            short.append(0)
+            continue
+        first = min(starts)
+        counts = {}
+        for e in device:
+            if e.time_range.start < first or FLUSH_KERNEL in e.name:
+                continue
+            d = durations.setdefault(e.name, [0.0, 0])
+            d[0] += e.time_range.elapsed_us() / 1e3
+            d[1] += 1
+            counts[e.name] = counts.get(e.name, 0) + 1
+        for name, n in counts.items():
+            most[name] = max(most.get(name, 0), n)
+        if len(starts) < iters:
+            short.append(len(starts))
+    if short:
+        log(f"device_profile: {len(short)} of {windows} windows lost flush "
+            f"records (held {short} of {iters})")
+    if not durations:
         return None, {}, 0
-    return sum(per_kernel.values()), per_kernel, n / iters
+    per_call = {name: math.ceil(n / iters) for name, n in most.items()}
+    per_kernel = {name: total / n * per_call[name]
+                  for name, (total, n) in durations.items()}
+    return (sum(per_kernel.values()), per_kernel, sum(per_call.values()))
 
 
 def device_ms(fn, iters: int = 20):
@@ -601,6 +718,7 @@ KERNELS = {"pillar_scatter": pillar_scatter.scatter_sorted_to_canvas,
            "keymatch_gemm": sparse_gather_gemm.keymatch_gemm,
            "gather_gemm": sparse_gather_gemm.gather_gemm,
            "gather_gemm_bf16": sparse_gather_gemm.gather_gemm_bf16,
+           "keymatch_gemm_bf16": sparse_gather_gemm.keymatch_gemm_bf16,
            "rulebook_inverse": sparse_gather_gemm.rulebook_inverse,
            "join_grad_features": sparse_gather_gemm.join_grad_features,
            "join_grad_weights": sparse_gather_gemm.join_grad_weights,
@@ -997,29 +1115,40 @@ def serve_second(card: str):
 # kernels vs plain versions
 # --------------------------------------------------------------------------
 
-def k1_in_turns(kernel, library) -> dict:
-    """K1 and its library yardstick timed in alternation (kernel, library,
-    library, kernel, ...), K1_TURNS of each, CUDA events around each call
-    with L2 flushed before it.  -> {"kernel": [median, min, max],
-    "library": [...]}."""
+def take_turns(fns: dict, turns: int = K1_TURNS) -> dict:
+    """Functions of the same inputs timed in alternation (the order of
+    ``fns``, then the reverse, over and over), ``turns`` calls of each
+    after two warm-up calls of each: CUDA events around each call,
+    recorded after an L2 flush and a GPU sleep of IN_TURNS_SLEEP_CYCLES,
+    so that the host has queued the call's launches before the first of
+    them may start and the events time the card's work, not the host's.
+    -> {key: [median, min, max]} in ms."""
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
-    for fn in (kernel, library, kernel, library):
-        fn()
-    times = {"kernel": [], "library": []}
-    order = ("kernel", "library", "library", "kernel")
-    for i in range(2 * K1_TURNS):
-        name = order[i % 4]
-        fn = kernel if name == "kernel" else library
+    for _ in range(2):
+        for fn in fns.values():
+            fn()
+    torch.cuda.synchronize()
+    times = {name: [] for name in fns}
+    order = list(fns) + list(fns)[::-1]
+    for i in range(len(fns) * turns):
+        name = order[i % len(order)]
         flush.zero_()
+        torch.cuda._sleep(IN_TURNS_SLEEP_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fns[name]()
         end.record()
         torch.cuda.synchronize()
         times[name].append(start.elapsed_time(end))
     return {k: [float(np.median(v)), min(v), max(v)]
             for k, v in times.items()}
+
+
+def in_turns(kernel, other, turns: int = K1_TURNS) -> dict:
+    """:func:`take_turns` of two functions (kernel, other, other, kernel,
+    ...).  -> {"kernel": [median, min, max], "other": [...]} in ms."""
+    return take_turns({"kernel": kernel, "other": other}, turns)
 
 
 def k1_forward(call, card: str, what: str) -> tuple:
@@ -1030,6 +1159,7 @@ def k1_forward(call, card: str, what: str) -> tuple:
     the device, event times)."""
     (feats, lin, hw), _ = call
     B, V, C = feats.shape
+    e = feats.element_size()
     got = pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw)
     ref = pillar_scatter.scatter_sorted_to_canvas_plain(feats, lin, hw)
     torch.cuda.synchronize()
@@ -1074,40 +1204,36 @@ def k1_forward(call, card: str, what: str) -> tuple:
                feats, lin, hw),
            "library_ms": library}
     ev = {k: cuda_ms(fn) for k, fn in fns.items()}
-    turns = k1_in_turns(fns["ms"], library)
     # bytes this data needs: the occupied rows' features, every id, the
     # whole canvas written once
-    nbytes = rows * C * 4 + B * V * 4 + B * hw * C * 4
+    nbytes = rows * C * e + B * V * 4 + B * hw * C * e
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"K1 pillar_scatter {what} [{card}]: B={B} V={V} C={C} hw={hw}, "
+    log(f"K1 pillar_scatter {what} [{card}]: {feats.dtype}, B={B} V={V} "
+        f"C={C} hw={hw}, "
         f"{rows} occupied rows; kernel == plain exactly; events: kernel "
         f"{fmt_range(ev['ms'])}, plain {fmt_range(ev['plain_ms'])}, "
         f"index_copy_ {fmt_range(ev['library_ms'])}; bound "
         f"{bound_ms:.5f} ms ({nbytes} bytes)")
-    log(f"K1 pillar_scatter {what} [{card}]: in alternation, {K1_TURNS} "
-        f"turns each: kernel {fmt_range(turns['kernel'])}, zeros + "
-        f"index_copy_ {fmt_range(turns['library'])}")
     entry = {"name": "pillar_scatter", "route": "cuda",
              "source": "automatic_as_built_reconstruction_tpu_torch/csrc/"
                        "pillar_scatter.cu",
              "replaces": "automatic_as_built_reconstruction_tpu/ops/pallas/"
                          "pillar_scatter.py:61",
-             "shape": f"B={B} V={V} C={C} hw={hw}", "occupied_rows": rows,
+             "shape": f"B={B} V={V} C={C} hw={hw} {feats.dtype}",
+             "occupied_rows": rows,
              "max_abs_err": 0.0, "bound_ms": bound_ms, "bound_by": "bytes",
-             "bytes": nbytes, "in_turns_event_ms": turns,
-             # as csrc/pillar_scatter.cu launches it
-             "grid": [-(-B * V * (C // 4) // 256), 256]}
+             "bytes": nbytes,
+             # as csrc/pillar_scatter.cu launches it: a thread a 16-byte
+             # chunk of a row
+             "grid": [-(-B * V * (C * e // 16) // 256), 256]}
     return entry, fns, ev
 
 
-def phase_k1(call, gather_call, launches: int, gather_launches: int,
-             card: str):
-    """-> (kernels-line entry with event times, {key: fn} to time on the
-    device).  The backward (the gather kernel) on the canvas gradient and
-    ids training gave it."""
-    entry, fns, ev = k1_forward(call, card, "served pillar request")
-    # the backward on the training step's canvas gradient and ids, and on
-    # the same with the rows shuffled and dropped ids in between
+def k1_backward(gather_call, card: str, what: str) -> tuple:
+    """K1's backward (the gather kernel) on a recorded call, and on the
+    same with the rows shuffled and with dropped ids in between: kernel ==
+    plain exactly.  -> (entry fields, {key: fn} to time on the device,
+    event times)."""
     (dcanvas, glin), _ = gather_call
     gB, ghw, gC = dcanvas.shape
     gV = glin.shape[1]
@@ -1118,36 +1244,90 @@ def phase_k1(call, gather_call, launches: int, gather_launches: int,
     gperm = torch.randperm(gV, device=glin.device,
                            generator=torch.Generator(glin.device)
                            .manual_seed(1))
-    for what, ids in (("training", glin),
+    for case, ids in (("as recorded", glin),
                       ("rows shuffled", glin[:, gperm].contiguous()),
                       ("negative ids", bad_ids.int().contiguous())):
         g = pillar_scatter.pillar_gather(dcanvas, ids)
         r = pillar_scatter.pillar_gather_plain(dcanvas, ids)
         torch.cuda.synchronize()
         if not torch.equal(g, r):
-            raise AssertionError(f"pillar_gather kernel != plain ({what})")
+            raise AssertionError(f"pillar_gather kernel != plain ({what}, "
+                                 f"{case})")
     grows = int(gok.sum())
-    log(f"K1 pillar_gather [{card}]: B={gB} V={gV} C={gC} hw={ghw}, "
-        f"{grows} valid rows: kernel == plain exactly on the training "
-        f"call, with the rows shuffled and with negative ids")
-    bfns = {"backward_ms": lambda: pillar_scatter.pillar_gather(dcanvas,
-                                                               glin),
-            "backward_plain_ms": lambda: pillar_scatter.pillar_gather_plain(
-                dcanvas, glin)}
-    ev.update({k: cuda_ms(fn) for k, fn in bfns.items()})
-    fns.update(bfns)
+    log(f"K1 pillar_gather {what} [{card}]: {dcanvas.dtype}, B={gB} V={gV} "
+        f"C={gC} hw={ghw}, {grows} valid rows: kernel == plain exactly as "
+        f"recorded, with the rows shuffled and with negative ids")
+    fns = {"backward_ms": lambda: pillar_scatter.pillar_gather(dcanvas,
+                                                              glin),
+           "backward_plain_ms": lambda: pillar_scatter.pillar_gather_plain(
+               dcanvas, glin)}
+    ev = {k: cuda_ms(fn) for k, fn in fns.items()}
     # the backward: the valid rows' cells read, every id, every row written
-    gbytes = grows * gC * 4 + gB * gV * 4 + gB * gV * gC * 4
+    e = dcanvas.element_size()
+    gbytes = grows * gC * e + gB * gV * 4 + gB * gV * gC * e
     gbound_ms = gbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"K1 pillar_gather [{card}]: events: kernel "
+    log(f"K1 pillar_gather {what} [{card}]: events: kernel "
         f"{fmt_range(ev['backward_ms'])}, plain "
         f"{fmt_range(ev['backward_plain_ms'])}; bound {gbound_ms:.5f} ms "
         f"({gbytes} bytes); no single PyTorch call zeroes the dropped rows, "
         f"so no library time")
-    entry.update(launches=launches, backward_kernel="pillar_gather_kernel",
-                 backward_launches=gather_launches,
-                 backward_max_abs_err=0.0, backward_bound_ms=gbound_ms,
-                 backward_bound_by="bytes", backward_library_ms=None)
+    fields = {"backward_kernel": "pillar_gather_kernel",
+              "backward_shape": f"B={gB} V={gV} C={gC} hw={ghw} "
+                                f"{dcanvas.dtype}",
+              "backward_max_abs_err": 0.0, "backward_bound_ms": gbound_ms,
+              "backward_bound_by": "bytes", "backward_library_ms": None}
+    return fields, fns, ev
+
+
+def phase_k1(call, gather_call, launches: int, gather_launches: int,
+             card: str):
+    """-> (kernels-line entry with event times, {key: fn} to time on the
+    device).  The backward (the gather kernel) on the canvas gradient and
+    ids training gave it."""
+    entry, fns, ev = k1_forward(call, card, "served pillar request")
+    fields, bfns, bev = k1_backward(gather_call, card, "training")
+    fns.update(bfns)
+    ev.update(bev)
+    entry.update(fields, launches=launches,
+                 backward_launches=gather_launches)
+    return entry, fns, ev
+
+
+def phase_k1_bf16(call, gather_call, kitti_call, per_path: dict,
+                  card: str):
+    """K1 on bfloat16 rows: forward on the bf16 pillar path's served
+    request, backward on its training step's canvas gradient, both with
+    their bounds in bytes; the same at the KITTI B = 8 shape (the served
+    KITTI request's ids with its features in bfloat16, and a bfloat16
+    canvas gradient drawn from a seed for the backward) under ``kitti_*``
+    keys.  Its launches are K1's on the bf16 paths (``per_path``)."""
+    entry, fns, ev = k1_forward(call, card, "bf16 served pillar request")
+    fields, bfns, bev = k1_backward(gather_call, card, "bf16 training")
+    fns.update(bfns)
+    ev.update(bev)
+    entry.update(fields)
+    (kfeats, klin, khw), _ = kitti_call
+    kfeats = kfeats.bfloat16()
+    kentry, kfns, kev = k1_forward(((kfeats, klin, khw), {}), card,
+                                   "KITTI request in bf16")
+    dcanvas = torch.randn((*kfeats.shape[:1], khw, kfeats.shape[2]),
+                          device=kfeats.device,
+                          generator=torch.Generator(kfeats.device)
+                          .manual_seed(2)).bfloat16()
+    kfields, kbfns, kbev = k1_backward(((dcanvas, klin), {}), card,
+                                       "KITTI shape in bf16")
+    kfns.update(kbfns)
+    kev.update(kbev)
+    for key, fn in kfns.items():
+        fns["kitti_" + key] = fn
+        ev["kitti_" + key] = kev[key]
+    entry["kitti"] = {k: v for k, v in {**kentry, **kfields}.items()
+                      if k not in ("name", "route", "source", "replaces")}
+    entry.update(name="pillar_scatter@bf16", counter="pillar_scatter",
+                 paths=list(per_path),
+                 launches=sum(n["pillar_scatter"] for n in per_path.values()),
+                 backward_launches=sum(n["pillar_gather"]
+                                       for n in per_path.values()))
     return entry, fns, ev
 
 
@@ -1294,7 +1474,8 @@ def phase_k2(call, second_call, launches: int, card: str):
         bit_equal[what] = [equal, total]
         bound, _, _, flops = iou_bound_ms(x, y)
         pairs = x.shape[0] * x.shape[1] * y.shape[1]
-        dev, _ = device_ms(lambda: rotated_iou.rotate_iou_matrix(x, y))
+        dev = take_turns({"k": lambda: rotated_iou.rotate_iou_matrix(
+            x, y)})["k"][0]
         set_ms[what] = dev
         log(f"K2 rotated_iou [{card}]: {what} R={x.shape[0]} N={x.shape[1]} "
             f"K={y.shape[1]}, criteria {list(criteria)}: kernel vs plain max "
@@ -1302,8 +1483,8 @@ def phase_k2(call, second_call, launches: int, card: str):
             f"bit; rejected by the circles "
             f"{shares[what]['circles']:.4f}, by the axes "
             f"{shares[what]['axes']:.4f}, clipped "
-            f"{shares[what]['clipped']:.4f}; device "
-            f"{'not measured' if dev is None else f'{dev:.5f} ms'}, bound "
+            f"{shares[what]['clipped']:.4f}; device, in turns "
+            f"{dev:.5f} ms, bound "
             f"{bound:.5f} ms, {flops / pairs:.2f} needed flops a "
             f"pair")
     # with criterion 0 a zero-area B keeps all of A: IoU 1.0 (the pad box
@@ -1347,15 +1528,21 @@ def join_shape(call) -> str:
             f"K={w.shape[0]} Cin={w.shape[1]} Cout={w.shape[2]}")
 
 
-def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
-    """``keymatch_gemm`` or ``gather_gemm`` against its plain version on
-    every join the serving run's warm-up request gave it; each join's
-    device time, bound and tile occupancy.  -> (kernels-line entry with
-    event times, {key: fn} to time on the device)."""
-    keymatch = name == "keymatch_gemm"
-    bf16 = name == "gather_gemm_bf16"
-    # the bf16 form is gather_gemm on bfloat16 inputs; it counts apart
-    kernel = KERNELS["gather_gemm" if bf16 else name]
+def phase_sparse_gemm(name: str, calls: list, launches: int, card: str,
+                      step_calls: tuple = ()):
+    """``keymatch_gemm`` or ``gather_gemm`` (``*_bf16``: the tile's
+    bfloat16 form) against its plain version on every join of a served
+    request (``calls``, recorded by its warm-up) and, where given, of a
+    training step (``step_calls``); each served join's device time in
+    turns with the plain version (:func:`in_turns`: CUDA events behind a
+    GPU sleep, L2 flushed), bound and tile occupancy.  -> (kernels-line
+    entry with its device and event times, {key: fn} left to time on the
+    device)."""
+    keymatch = name.startswith("keymatch_gemm")
+    bf16 = name.endswith("_bf16")
+    # a bf16 form is its join's function on bfloat16 inputs; it counts
+    # apart
+    kernel = KERNELS[name[:-len("_bf16")] if bf16 else name]
     plain = (sparse_gather_gemm.keymatch_gemm_plain if keymatch
              else sparse_gather_gemm.gather_gemm_plain)
 
@@ -1367,16 +1554,19 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
         feats, _, table, w = operands(call)
         return feats.shape[0] * table.shape[-1] * w.numel()
 
+    def tolerance(scale: float) -> float:
+        return BF16_GEMM_RTOL * scale if bf16 else GEMM_ATOL
+
     def check(call):
         """-> (max abs difference, largest reference value)."""
         got = kernel(*call[0])
         ref = plain(*operands(call))
         torch.cuda.synchronize()
         err, scale = float((got - ref).abs().max()), float(ref.abs().max())
-        tol = BF16_GEMM_RTOL * scale if bf16 else GEMM_ATOL
-        if not (err <= tol and torch.isfinite(got).all()):
+        if not (err <= tolerance(scale) and torch.isfinite(got).all()):
             raise AssertionError(f"{name} {join_shape(call)}: kernel vs "
-                                 f"plain max abs err {err} > {tol}")
+                                 f"plain max abs err {err} > "
+                                 f"{tolerance(scale)}")
         return err, scale
 
     def need(call) -> dict:
@@ -1401,30 +1591,44 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
                 "bound_fp32_simt_ms": max(simt_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
-    largest = max(calls, key=work)
+    largest = max(range(len(calls)), key=lambda i: work(calls[i]))
     smallest = next(c for c in calls
                     if tuple(operands(c)[3].shape) == (27, 16, 16))
     worst = 0.0
-    per_join = []
-    for call in calls:          # every join of the request
+    per_join, per_join_plain = [], []
+    for i, call in enumerate(calls):          # every join of the request
         err, scale = check(call)
         worst = max(worst, err)
         n = need(call)
-        ms, _ = device_ms(lambda: kernel(*call[0]))
-        per_join.append(ms)
+        turns = in_turns(lambda: kernel(*call[0]),
+                         lambda: plain(*operands(call)),
+                         SPARSE_TURNS if i == largest else JOIN_TURNS)
+        per_join.append(turns["kernel"][0])
+        per_join_plain.append(turns["other"][0])
+        if i == largest:
+            big_turns = turns
         log(f"{name} [{card}]: {join_shape(call)}: kernel vs plain max abs "
-            f"err {err:.3g} (values up to {scale:.3g}); device "
-            f"{'not measured' if ms is None else f'{ms:.5f} ms'}; bound "
+            f"err {err:.3g} (values up to {scale:.3g}); device, in turns "
+            f"with the plain version: kernel {fmt_range(turns['kernel'])}, "
+            f"plain {fmt_range(turns['other'])}; bound "
             f"{n['bound_ms']:.5f} ms ({n['bound_by']}; fp32 SIMT "
             f"{n['bound_fp32_simt_ms']:.5f}); {n['hits']} hits, "
             f"{n['pairs']} non-empty (tile, tap) pairs, tile occupancy "
             f"{n['occupancy']:.4f}")
+    step_worst = 0.0
+    for call in step_calls:                   # every join of a step
+        err, scale = check(call)
+        step_worst = max(step_worst, err / scale)
+    if step_calls:
+        log(f"{name} [{card}]: the {len(step_calls)} joins of a training "
+            f"step: every one within {BF16_GEMM_RTOL if bf16 else GEMM_ATOL}"
+            f"{' of its max |out|' if bf16 else ''} of its plain version "
+            f"(worst {step_worst:.3g} of its max |out|)")
     occupancy = [need(c)["occupancy"] for c in calls]
-    per_request = (None if None in per_join else sum(per_join))
+    per_request = sum(per_join)
     log(f"{name} [{card}]: device time of the {len(calls)} joins of one "
-        f"request: {per_join}, summed "
-        f"{'not measured' if per_request is None else f'{per_request:.5f}'}"
-        f" ms")
+        f"request, in turns with the plain version: {per_join}, summed "
+        f"{per_request:.5f} ms")
 
     if keymatch:
         # the four call forms of the JAX function give one result, and
@@ -1442,63 +1646,76 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str):
                                 True, 384),
             "grouped taps": kernel(feats, in_keys, q_keys[:, perm], w[perm],
                                    None, 256, 768, True, 384, 3)}
-        n = 4096
+        n = min(4096, feats.shape[1])
         shuffle = torch.randperm(n, device=feats.device,
                                  generator=torch.Generator(
                                      feats.device).manual_seed(0))
         sub = (feats[0, :n], in_keys[0, :n], q_keys[0, :, :n])
-        forms["unsorted keys (4096 rows)"] = kernel(
+        forms[f"unsorted keys ({n} rows)"] = kernel(
             sub[0][shuffle], sub[1][shuffle], sub[2], w)
         torch.cuda.synchronize()
+        scale = float(base.abs().max())
         for form, out in forms.items():
             ref = (kernel(*sub, w) if form.startswith("unsorted") else base)
             err = float((out - ref).abs().max())
             log(f"{name} [{card}]: form '{form}' vs the default call: max "
                 f"abs diff {err:.3g}")
             # only the grouped form sums the taps in another order
-            if err > (GEMM_ATOL if form == "grouped taps" else 0.0):
+            if err > (tolerance(scale) if form == "grouped taps" else 0.0):
                 raise AssertionError(f"{name}: form {form} differs by {err}")
-        err = float((forms["unsorted keys (4096 rows)"]
-                     - plain(sub[0][shuffle], sub[1][shuffle], sub[2], w))
-                    .abs().max())
-        if not err <= GEMM_ATOL:
+        ref = plain(sub[0][shuffle], sub[1][shuffle], sub[2], w)
+        err = float((forms[f"unsorted keys ({n} rows)"] - ref).abs().max())
+        if not err <= tolerance(float(ref.abs().max())):
             raise AssertionError(f"{name}: unsorted keys vs plain: {err}")
 
-    fns = {"ms": lambda: kernel(*largest[0]),
-           "plain_ms": lambda: plain(*operands(largest))}
-    ev = {"ms": cuda_ms(fns["ms"], iters=20),
-          "plain_ms": cuda_ms(fns["plain_ms"], iters=5, warmup=1)}
-    big = need(largest)
-    taps = operands(largest)[2].numel()
-    log(f"{name} [{card}]: largest join {join_shape(largest)}: {big['hits']} "
-        f"hits of {taps} (tap, row) pairs ({100 * big['hits'] / taps:.1f} %), "
-        f"tile occupancy {big['occupancy']:.4f}; events: kernel "
-        f"{fmt_range(ev['ms'])}, plain {fmt_range(ev['plain_ms'])}; bound "
-        f"{big['bound_ms']:.5f} ms (ops at the "
-        f"{'bf16' if bf16 else '3xTF32'} rate "
+    big_call = calls[largest]
+    ev = {"ms": cuda_ms(lambda: kernel(*big_call[0]), iters=20),
+          "plain_ms": cuda_ms(lambda: plain(*operands(big_call)), iters=5,
+                              warmup=1)}
+    big = need(big_call)
+    taps = operands(big_call)[2].numel()
+    log(f"{name} [{card}]: largest join {join_shape(big_call)}: "
+        f"{big['hits']} hits of {taps} (tap, row) pairs "
+        f"({100 * big['hits'] / taps:.1f} %), tile occupancy "
+        f"{big['occupancy']:.4f}; device, in turns ({SPARSE_TURNS} calls "
+        f"each): kernel {fmt_range(big_turns['kernel'])}, plain "
+        f"{fmt_range(big_turns['other'])}; events around the call, host "
+        f"included: kernel {fmt_range(ev['ms'])}, plain "
+        f"{fmt_range(ev['plain_ms'])}; bound {big['bound_ms']:.5f} ms (ops "
+        f"at the {'bf16' if bf16 else '3xTF32'} rate "
         f"{big['ops_ms']:.5f}: {big['flops']} needed flops; bytes "
         f"{big['bytes_ms']:.5f}: {big['bytes']}); at the fp32 SIMT rate "
         f"{big['bound_fp32_simt_ms']:.5f}")
     s_ev = cuda_ms(lambda: kernel(*smallest[0]), iters=20)
     log(f"{name} [{card}]: smallest join {join_shape(smallest)}: events: "
         f"kernel {fmt_range(s_ev)}")
-    # the bf16 form replaces the shared-window kernel K3s that
+    # the bf16 gather form replaces the shared-window kernel K3s that
     # car.fhd.mixed's gather joins reach
     line = {"keymatch_gemm": 1098, "gather_gemm": 331,
-            "gather_gemm_bf16": 146}[name]
+            "gather_gemm_bf16": 146, "keymatch_gemm_bf16": 1098}[name]
     entry = {"name": name, "route": "cuda",
              "source": "automatic_as_built_reconstruction_tpu_torch/csrc/"
                        "sparse_gather_gemm.cu",
              "replaces": "automatic_as_built_reconstruction_tpu/ops/pallas/"
                          f"sparse_gather_gemm.py:{line}",
              "launches": launches, "max_abs_err": worst,
-             "shape": join_shape(largest), "hits": big["hits"],
+             "shape": join_shape(big_call), "hits": big["hits"],
+             "ms": big_turns["kernel"][0],
+             "plain_ms": big_turns["other"][0],
+             "in_turns_ms": {"kernel": big_turns["kernel"],
+                             "plain": big_turns["other"]},
+             "event_ms": ev["ms"], "plain_event_ms": ev["plain_ms"],
+             "ms_from": "in turns with the plain version: CUDA events "
+                        "behind a GPU sleep, L2 flushed",
              "bound_ms": big["bound_ms"], "bound_by": big["bound_by"],
              "bound_fp32_simt_ms": big["bound_fp32_simt_ms"],
-             "per_join_ms": per_join, "per_request_ms": per_request,
+             "per_join_ms": per_join, "per_join_plain_ms": per_join_plain,
+             "per_request_ms": per_request,
              "per_join_shape": [join_shape(c) for c in calls],
              "tile_occupancy": occupancy, "library_ms": None}
-    return entry, fns, ev
+    if step_calls:
+        entry["step_joins_worst_rel_err"] = step_worst
+    return entry, {}, {}
 
 
 def k5_cases(requests, pillar_request, pillar_cfg, cfg) -> list:
@@ -2297,15 +2514,15 @@ def phase_join_backward(wcalls: list, fcalls: list, card: str) -> tuple:
             if fcall is not None:
                 sgg.join_grad_features(fdout, fidx, ffound, w, N)
 
-        ms, _ = device_ms(kernels)
+        ms = take_turns({"kernels": kernels}, JOIN_TURNS)["kernels"][0]
         # the voxel means need no gradient: no dfeatures at the first join
         b = join_bound(feats, idx, found, dout, fcall is not None)
         per_join.append(ms)
         bounds.append(b["bound_ms"])
         log(f"join backward [{card}]: {what}: dW"
             f"{' + dfeatures' if fcall is not None else ''} kernel vs plain "
-            f"max err {json.dumps(errs)} of max |g|; device "
-            f"{'not measured' if ms is None else f'{ms:.5f} ms'}; bound "
+            f"max err {json.dumps(errs)} of max |g|; device, in turns "
+            f"{ms:.5f} ms; bound "
             f"{b['bound_ms']:.5f} ms by {b['bound_by']} (dW "
             f"{b['dw_bound_ms']:.5f} by {b['dw_bound_by']}, at the SIMT "
             f"rate {b['dw_bound_fp32_simt_ms']:.5f}; dfeatures "
@@ -3319,6 +3536,102 @@ def head_share(got: dict, ref: dict) -> dict:
             for k in ref}
 
 
+# --------------------------------------------------------------------------
+# bfloat16: the held head check and its control
+# --------------------------------------------------------------------------
+
+def with_mixed_precision(config: Path, tmp: Path) -> Path:
+    """A copy of ``config`` in ``tmp`` with ``train_config
+    .enable_mixed_precision: true``, the one line a user adds to a shipped
+    config to train, evaluate and serve it in bfloat16."""
+    text = config.read_text()
+    if "enable_mixed_precision" in text or "train_config: {" not in text:
+        raise ValueError(f"{config}: no train_config block to set the flag "
+                         f"in, or the flag is set already")
+    out = tmp / f"{config.stem}.mixed.config"
+    out.write_text(text.replace(
+        "train_config: {", "train_config: {\n  enable_mixed_precision: true",
+        1))
+    return out
+
+
+def plain_gather_reversed(features, gather_idx, found, weights, *args):
+    """The control: the gather join's plain version with its taps in
+    reverse order, the weights permuted alike (the same function, another
+    float32 sum order in its one matmul)."""
+    return sparse_gather_gemm.gather_gemm_plain(
+        features, gather_idx.flip(-2), found.flip(-2), weights.flip(0))
+
+
+def plain_keymatch_reversed(features, in_keys, q_keys, weights, *args):
+    """The control of the key-match join: its plain version with the taps
+    reversed, the weights permuted alike."""
+    return sparse_gather_gemm.keymatch_gemm_plain(
+        features, in_keys, q_keys.flip(-2), weights.flip(0))
+
+
+def conv2d_reversed(self, x):
+    """The control of the pillar path, whose one kernel (K1) copies rows
+    exactly: each RPN convolution with its input channels reversed, its
+    kernel's alike (the same function, another float32 sum order in
+    cuDNN), in the module's compute type as ``rpn.Conv2d`` computes."""
+    dt = self.compute_dtype or x.dtype
+    y = self._conv_forward(x.to(dt).flip(1), self.weight.to(dt).flip(1),
+                           None)
+    return y if self.bias is None else y + self.bias.to(dt).view(1, -1, 1, 1)
+
+
+def f32_twin(pod, **kw) -> PodInference:
+    """The same network and weights as ``pod`` in float32."""
+    cfg = dataclasses.replace(pod.cfg, compute_dtype="float32")
+    model = VoxelNet(cfg)
+    model.load_state_dict(pod.model.state_dict(), strict=True)
+    return PodInference(model, cfg, pod.anchors.cpu().numpy(),
+                        device=pod.device, **kw)
+
+
+def hold_bf16_heads(what: str, pod, f32_pod, requests, plain: list,
+                    control: list, card: str) -> dict:
+    """The bf16 network's heads on the kernels against the same network
+    on the plain versions (``plain``: [(module, name, fn)] substituted),
+    on each request: within CONTROL_MARGIN x the distance of the control
+    (the plain versions with another float32 sum order: ``control``,
+    substituted over ``plain``) from the plain versions.  The
+    bf16-vs-float32 distance (``f32_pod``) is printed beside, and each
+    distance as a share of it.  -> {"kernel_vs_plain", "control_vs_plain",
+    "bf16_vs_f32"}: per request, {head: share of max |x|}."""
+    report = {"kernel_vs_plain": [], "control_vs_plain": [],
+              "bf16_vs_f32": []}
+    for i, request in enumerate(requests):
+        heads = head_outputs(pod, request)
+        with contextlib.ExitStack() as stack:
+            for module, name, fn in plain:
+                stack.enter_context(substituted(module, name, fn))
+            ref = head_outputs(pod, request)
+            for module, name, fn in control:
+                stack.enter_context(substituted(module, name, fn))
+            ctl = head_outputs(pod, request)
+        kvp, cvp = head_share(heads, ref), head_share(ctl, ref)
+        bvf = head_share(ref, head_outputs(f32_pod, request))
+        for key, v in (("kernel_vs_plain", kvp), ("control_vs_plain", cvp),
+                       ("bf16_vs_f32", bvf)):
+            report[key].append(v)
+        log(f"{what} [{card}]: heads of request {i} (share of max |x|): "
+            f"kernels vs plain {kvp}; control vs plain {cvp}; bf16 vs "
+            f"float32 {bvf}; as shares of bf16 vs float32: kernels "
+            f"{ {k: round(kvp[k] / bvf[k], 4) for k in kvp} }, control "
+            f"{ {k: round(cvp[k] / bvf[k], 4) for k in cvp} }; held: "
+            f"kernels vs plain <= {CONTROL_MARGIN} x control vs plain")
+        for k in heads:
+            if not (torch.isfinite(heads[k]).all()
+                    and kvp[k] <= CONTROL_MARGIN * cvp[k]):
+                raise AssertionError(
+                    f"{what}: request {i} head {k}: kernels vs plain "
+                    f"{kvp[k]}, control vs plain {cvp[k]} (margin "
+                    f"{CONTROL_MARGIN})")
+    return report
+
+
 def rpn_share(pod, request, card: str, what: str) -> dict:
     """Device time (torch.profiler) of one request and of its RPN alone
     (the heads of the middle's canvas, in the model's compute dtype)."""
@@ -3346,9 +3659,9 @@ def car_fhd_mixed(card: str, tmp: Path, root: Path, fp32_pod) -> dict:
     bfloat16 on the car clone (B = 6, host rulebooks, the gather join's
     bfloat16 kernel forward, the float32 backward kernels); then four
     B = 2 requests through ``pod_inference_from_checkpoint`` (rulebooks
-    built on the device), the heads of the bf16 run on the kernels
-    against the bf16 run on the plain versions and the float32 network,
-    and the RPN's share of a request beside car.fhd's float32 one
+    built on the device), the heads of the bf16 run on the kernels held
+    against the bf16 run on the plain versions with the control
+    (:func:`hold_bf16_heads`: the taps reversed), and the RPN's share of a request beside car.fhd's float32 one
     (``fp32_pod``)."""
     what = "car.fhd.mixed"
     config = kitti_config(MIXED_CONFIG, tmp, root)
@@ -3379,38 +3692,275 @@ def car_fhd_mixed(card: str, tmp: Path, root: Path, fp32_pod) -> dict:
         {"gather_gemm_bf16": sjoins * len(requests), "rotated_iou": None})
     check_outputs(what, outs, pod)
     check_network_flags(f"{what} serving", pod, requests[0])
-    heads = head_outputs(pod, requests[0])
-    with substituted(middle, "gather_gemm", plain_gather):
-        plain = head_outputs(pod, requests[0])
-    f32_cfg = dataclasses.replace(cfg, compute_dtype="float32")
-    f32_model = VoxelNet(f32_cfg)
-    f32_model.load_state_dict(pod.model.state_dict(), strict=True)
-    f32 = head_outputs(PodInference(f32_model, f32_cfg,
-                                    pod.anchors.cpu().numpy(),
-                                    device="cuda", **kw), requests[0])
-    kernel_vs_plain = head_share(heads, plain)
-    bf16_vs_f32 = head_share(heads, f32)
-    log(f"{what} [{card}]: heads of request 0 (share of max |x|): bf16 on "
-        f"the kernels vs bf16 on the plain versions {kernel_vs_plain}; bf16 "
-        f"vs the float32 network {bf16_vs_f32}; held: kernel vs plain "
-        f"within {MIXED_HEAD_SHARE} of bf16 vs float32")
-    for k in heads:
-        if not (torch.isfinite(heads[k]).all() and kernel_vs_plain[k]
-                <= MIXED_HEAD_SHARE * bf16_vs_f32[k]):
-            raise AssertionError(f"{what}: head {k}: kernel vs plain "
-                                 f"{kernel_vs_plain[k]}, bf16 vs float32 "
-                                 f"{bf16_vs_f32[k]}")
+    heads = hold_bf16_heads(
+        f"{what} serving", pod, f32_twin(pod, **kw), requests[:2],
+        [(middle, "gather_gemm", plain_gather)],
+        [(middle, "gather_gemm", plain_gather_reversed)], card)
     shares = {"car.fhd.mixed (bf16)": rpn_share(pod, requests[2], card,
                                                 f"{what} serving"),
               "car.fhd (float32)": rpn_share(fp32_pod, requests[2], card,
                                              "second key-match")}
     report = dict(run["report"], latency_ms=float(np.median(lat)),
-                  heads_kernel_vs_plain=kernel_vs_plain,
-                  heads_bf16_vs_f32=bf16_vs_f32, rpn=shares)
+                  heads=heads, rpn=shares)
     return {"launches": {"car.fhd.mixed training": run["launches"],
                          "car.fhd.mixed serving": launches},
             "calls": calls["gather_gemm"], "report": report,
             "pod": pod, "requests": requests, "step": run["step"]}
+
+
+def stage_device_ms(pod, request, what: str, card: str) -> dict:
+    """Device time (torch.profiler) of each stage of one request: the
+    input stage, the network, decode + NMS.  -> {stage: ms}."""
+    pts, nv = pod._device_inputs(*request)
+    with torch.no_grad(), fp32_math():
+        vox = pod.voxelize(pts, nv)
+        preds = pod.model(*vox)
+    anchors = pod.anchors[None].expand(pts.shape[0], *pod.anchors.shape)
+    stages = {"voxelize": lambda: pod.voxelize(pts, nv),
+              "network": lambda: pod.model(*vox),
+              "decode_nms": lambda: predict(preds, anchors, pod.cfg)}
+
+    def timed(fn):
+        def call():
+            with torch.no_grad(), fp32_math():
+                fn()
+        return device_ms(call, iters=10)[0]
+
+    split = {k: timed(fn) for k, fn in stages.items()}
+    log(f"{what} [{card}]: device time of each stage of one request "
+        f"(torch.profiler): " + json.dumps(split))
+    return split
+
+
+def mixed_pillars(card: str, fp32_pod, fp32_latency_ms: float) -> dict:
+    """asbuilt_pillars.config with ``enable_mixed_precision`` at full
+    width (the PFN, K1 and the RPN in bfloat16): the trained checkpoint
+    served (four B = 2 requests twice over: latency, the device time of
+    each stage; the heads held against the plain K1 with the control,
+    beside ``fp32_pod``'s float32 heads), ``evaluate`` on the 32 val
+    scenes (its AP printed beside the float32 AP the JAX package gives,
+    every num_gt equal), and ``train()`` for MIXED_PILLAR_STEPS steps from
+    seeded weights (the loss falls; K1 and its backward on bf16 rows once
+    a step), each with the counters set to 0 just before and read just
+    after.  -> {"launches", "scatter_call", "gather_call", "report",
+    "pod", "requests", "step"}."""
+    what = "bf16 pillars"
+    report = {}
+    with torch.enable_grad(), tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        config = with_mixed_precision(CONFIG, tmp)
+        pod = pod_inference_from_checkpoint(
+            config, CHECKPOINT, device="cuda", max_voxels=MAX_VOXELS,
+            max_points_per_voxel=MAX_POINTS)
+        if pod.cfg.compute_dtype != "bfloat16":
+            raise AssertionError(f"{what}: the flag gave "
+                                 f"{pod.cfg.compute_dtype}")
+        requests = [pad_batch([generate_building_scene(s) for s in seeds])
+                    for seeds in REQUESTS]
+        with torch.no_grad():
+            outs, lat, serve_launches, calls = drive(
+                f"{what} serving", card, pod, requests, ROUNDS,
+                {"pillar_scatter": len(requests) * ROUNDS,
+                 "rotated_iou": None})
+            check_outputs(what, outs, pod)
+            check_network_flags(f"{what} serving", pod, requests[0])
+            scatter_call = calls["pillar_scatter"][0]
+            if scatter_call[0][0].dtype != torch.bfloat16:
+                raise AssertionError(f"{what}: K1 took "
+                                     f"{scatter_call[0][0].dtype} rows")
+            counts = [np.bincount(d["label_preds"],
+                                  minlength=pod.cfg.num_class).tolist()
+                      for d in pod.detections_list(outs[0])]
+            log(f"{what} serving [{card}]: median latency "
+                f"{np.median(lat):.3f} ms (float32 {fp32_latency_ms:.3f} "
+                f"ms, the same requests earlier in this run); detections "
+                f"per class on scenes 0, 1: {counts} (float32, the JAX "
+                f"package: {JAX_COUNTS_SCENES_0_1})")
+            report.update(latency_ms=float(np.median(lat)),
+                          stage_device_ms=stage_device_ms(
+                              pod, requests[2], f"{what} serving", card),
+                          stage_device_ms_f32=stage_device_ms(
+                              fp32_pod, requests[2], "float32 pillars "
+                              "serving", card),
+                          heads=hold_bf16_heads(
+                              f"{what} serving", pod, fp32_pod, requests[:2],
+                              [(pointpillars, "scatter_sorted_to_canvas",
+                                pillar_scatter
+                                .scatter_sorted_to_canvas_plain)],
+                              [(rpn.Conv2d, "forward", conv2d_reversed)],
+                              card))
+
+            for fn in KERNELS.values():
+                fn.launches = 0
+            t0 = time.perf_counter()
+            result = evaluate(config, CHECKPOINT, device="cuda")
+            ev_launches = {n: fn.launches for n, fn in KERNELS.items()}
+        expect_launches(f"{what}: evaluate", ev_launches,
+                        {"pillar_scatter": 16, "rotated_iou": 16})
+        diffs = {k: result[k] - v for k, v in JAX_EVAL_AP.items()
+                 if not k.endswith("num_gt")}
+        log(f"{what} [{card}]: evaluate on the 32 val scenes in "
+            f"{time.perf_counter() - t0:.1f} s; AP " + json.dumps(result))
+        log(f"{what} [{card}]: bf16 AP minus the float32 AP the JAX package "
+            f"gives (JAX_EVAL_AP; printed, not held): " + json.dumps(diffs))
+        if sorted(result) != sorted(JAX_EVAL_AP) or any(
+                result[k] != v for k, v in JAX_EVAL_AP.items()
+                if k.endswith("num_gt")):
+            raise AssertionError(f"{what}: evaluate gave {result}")
+        report["evaluate_ap"] = result
+
+        model_dir = tmp / "train"
+        tcalls = {"pillar_scatter": [], "pillar_gather": []}
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            seen = stack.enter_context(flags_in_modules())
+            for name in tcalls:
+                module, attr = CALL_SITES[name]
+                stack.enter_context(recording(module, attr, tcalls[name]))
+            state = train_mod.train(config, model_dir,
+                                    max_steps=MIXED_PILLAR_STEPS,
+                                    display_step=TRAIN_DISPLAY, device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr_launches = {n: fn.launches for n, fn in KERNELS.items()}
+        expect_launches(f"{what} training", tr_launches,
+                        {"pillar_scatter": MIXED_PILLAR_STEPS,
+                         "pillar_gather": MIXED_PILLAR_STEPS})
+        if seen != {(False, False)}:
+            raise AssertionError(f"{what} training: TF32 flags "
+                                 f"{sorted(seen)}")
+        windows = training_windows(model_dir, f"{what} training", card)
+        gather_call = tcalls["pillar_gather"][0]
+        if gather_call[0][0].dtype != torch.bfloat16:
+            raise AssertionError(f"{what}: K1's backward took "
+                                 f"{gather_call[0][0].dtype}")
+        bundle = train_mod.Bundle(config)
+        _, loader = bundle.input_reader(training=True, seed=1)
+        example = train_mod.to_device(next(iter(loader)), "cuda")
+        step_fn = train_mod.make_train_step(bundle)
+        ev = cuda_ms(lambda: step_fn(state, example), iters=10, warmup=2)
+        log(f"{what} training [{card}]: {MIXED_PILLAR_STEPS} steps of "
+            f"train() in {wall:.2f} s wall; device step (B=2, synchronised, "
+            f"events) {fmt_range(ev)}; launches {tr_launches}")
+        report.update(train_wall_s=wall, loss_windows=[w["loss"]
+                                                       for w in windows],
+                      device_step_ms=ev)
+    return {"launches": {"bf16 pillar serving": serve_launches,
+                         "bf16 pillar evaluate": ev_launches,
+                         "bf16 pillar training": tr_launches},
+            "scatter_call": scatter_call, "gather_call": gather_call,
+            "report": report, "pod": pod, "requests": requests,
+            "step": lambda: step_fn(state, example)}
+
+
+def mixed_keymatch(card: str, tmp: Path, root: Path) -> dict:
+    """SECOND key-match in bfloat16 (``enable_mixed_precision`` on
+    car.fhd.config and car.fhd.serving.config, at full width): ``train()``
+    of car.fhd for HOST_RB_STEPS steps at B = 6 on the car clone (the
+    loss falls; K4 in bf16 forward, the float32 backward kernels, once a
+    join a step; the device step; one step's joins recorded), its
+    ``evaluate`` (the KITTI table printed), then four B = 2 requests of
+    car.fhd.serving (seeded weights) with the heads held against the plain
+    joins with the control, beside the float32 network.  -> {"launches",
+    "calls", "step_calls", "report", "pod", "requests", "step"}."""
+    what = "bf16 key-match"
+    sgg = sparse_gather_gemm
+    config = with_mixed_precision(kitti_config(SECOND_TRAIN_CONFIG, tmp,
+                                               root), tmp)
+    bundle = train_mod.Bundle(config)
+    cfg = bundle.model_cfg
+    if not (cfg.compute_dtype == "bfloat16" and cfg.sparse_keymatch
+            and cfg.sparse_use_pallas_gemm):
+        raise AssertionError(f"{what}: not the bf16 key-match network")
+    plan = middle_plan(cfg, 17000)
+    joins = sum(b.n_subm + 1 for b in plan)
+    model_dir = tmp / "keymatch_bf16"
+    with torch.enable_grad():
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with flags_in_modules() as seen:
+            state = train_mod.train(config, model_dir,
+                                    max_steps=HOST_RB_STEPS,
+                                    display_step=HOST_RB_DISPLAY,
+                                    device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr_launches = {n: fn.launches for n, fn in KERNELS.items()}
+        expect_launches(f"{what} training", tr_launches, {
+            k: v * HOST_RB_STEPS for k, v in {
+                "keymatch_gemm_bf16": joins, "join_grad_weights": joins,
+                "join_grad_features": joins - 1,
+                "rulebook_inverse": joins - 1}.items()})
+        if seen != {(False, False)}:
+            raise AssertionError(f"{what} training: TF32 flags "
+                                 f"{sorted(seen)}")
+        windows = training_windows(model_dir, f"{what} training", card)
+        _, loader = bundle.input_reader(training=True, seed=1)
+        example = train_mod.to_device(next(iter(loader)), "cuda")
+        step_fn = train_mod.make_train_step(train_mod.Bundle(config))
+        step_calls = []
+        with recording(middle, "keymatch_gemm", step_calls):
+            step_fn(state, example)
+        torch.cuda.synchronize()
+        if len(step_calls) != joins:
+            raise AssertionError(f"{what}: a step recorded "
+                                 f"{len(step_calls)} joins, not {joins}")
+        ev = cuda_ms(lambda: step_fn(state, example), iters=5, warmup=1)
+        log(f"{what} training [{card}]: {HOST_RB_STEPS} steps of train() "
+            f"(B=6) in {wall:.2f} s wall; device step (synchronised, "
+            f"events) {fmt_range(ev)}; launches {tr_launches}")
+    if sgg.rulebook_collisions("cuda"):
+        raise AssertionError(f"{what}: a join's rulebook is not a "
+                             f"convolution's")
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    result = evaluate(config, model_dir, device="cuda")
+    ev_launches = {n: fn.launches for n, fn in KERNELS.items()}
+    batches = -(-SYNTH_VAL // bundle.config["eval_input_reader"][
+        "batch_size"])
+    expect_launches(f"{what}: evaluate", ev_launches,
+                    {"keymatch_gemm_bf16": joins * batches,
+                     "rotated_iou": batches})
+    log(f"{what} [{card}]: evaluate on the {SYNTH_VAL} validation frames "
+        f"in {time.perf_counter() - t0:.1f} s; KITTI table (not held):\n"
+        + result["result_str"])
+
+    kw = dict(max_voxels=SECOND_MAX_VOXELS,
+              max_points_per_voxel=SECOND_MAX_POINTS)
+    pod = pod_inference_from_checkpoint(
+        with_mixed_precision(SECOND_CONFIG, tmp), None, device="cuda",
+        seed=SECOND_SEED, **kw)
+    requests = [pad_batch([make_scene(s) for s in seeds])
+                for seeds in SECOND_REQUESTS]
+    splan = middle_plan(pod.cfg, SECOND_MAX_VOXELS)
+    sjoins = sum(b.n_subm + 1 for b in splan[:len(splan) - pod.cfg
+                                             .sparse_dense_tail_blocks])
+    outs, lat, serve_launches, calls = drive(
+        f"{what} serving", card, pod, requests, 1,
+        {"keymatch_gemm_bf16": sjoins * len(requests), "rotated_iou": None})
+    check_outputs(what, outs, pod)
+    check_network_flags(f"{what} serving", pod, requests[0])
+    heads = hold_bf16_heads(
+        f"{what} serving", pod, f32_twin(pod, **kw), requests,
+        [(middle, "keymatch_gemm", plain_keymatch)],
+        [(middle, "keymatch_gemm", plain_keymatch_reversed)], card)
+    total, _ = device_ms(lambda: pod(*requests[2]), iters=5)
+    log(f"{what} serving [{card}]: median latency {np.median(lat):.3f} ms; "
+        f"device time of one request {total} ms (torch.profiler)")
+    report = {"train_wall_s": wall, "loss_windows": [w["loss"]
+                                                     for w in windows],
+              "device_step_ms": ev, "latency_ms": float(np.median(lat)),
+              "request_device_ms": total, "heads": heads}
+    return {"launches": {"bf16 key-match training": tr_launches,
+                         "bf16 key-match evaluate": ev_launches,
+                         "bf16 key-match serving": serve_launches},
+            "calls": calls["keymatch_gemm"], "step_calls": step_calls,
+            "report": report, "pod": pod, "requests": requests,
+            "step": lambda: step_fn(state, example)}
 
 
 def host_rulebook_phases(card: str, tmp: Path, car: Path, mc: Path,
@@ -3432,8 +3982,9 @@ def kitti_phases(card: str, fp32_pod) -> dict:
     requests; on the multi-class clone pointpillars/all and all.fhd
     train; then the host-rulebook and bfloat16 SECOND configs
     (:func:`host_rulebook_phases`; ``fp32_pod``: car.fhd's float32
-    serving pod, for the RPN's share beside bfloat16's).  -> {"serve",
-    "pp", "pp_all", "all_fhd", "host"}."""
+    serving pod, for the RPN's share beside bfloat16's) and bfloat16
+    key-match SECOND on the car clone (:func:`mixed_keymatch`).  ->
+    {"serve", "pp", "pp_all", "all_fhd", "host", "mixed_km"}."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         car, mc = tmp / "kitti", tmp / "kitti_mc"
@@ -3444,30 +3995,31 @@ def kitti_phases(card: str, fp32_pod) -> dict:
         pp_all = train_pp_all(card, tmp / "all", mc)
         all_fhd = train_all_fhd(card, tmp / "all", mc)
         host = host_rulebook_phases(card, tmp, car, mc, fp32_pod)
+        (tmp / "keymatch_bf16").mkdir()
+        mixed_km = mixed_keymatch(card, tmp / "keymatch_bf16", car)
     return {"serve": serve, "pp": pp, "pp_all": pp_all, "all_fhd": all_fhd,
-            "host": host}
-
-
-def device_time(what: str, card: str, fn):
-    ms, per_kernel = device_ms(fn)
-    log(f"{what} [{card}]: device time per call "
-        f"{'not measured' if ms is None else f'{ms:.5f} ms'} "
-        f"(torch.profiler, L2 flushed): {fmt_kernels(per_kernel)}")
-    return ms
+            "host": host, "mixed_km": mixed_km}
 
 
 def time_entries(phases, per_path, card: str) -> list:
-    """Device time (torch.profiler) of every kernels-line entry, event
-    times beside it, launches by path.  -> the entries."""
+    """Device time of every kernels-line entry: all of its functions (the
+    kernel, its plain version, the library call; its backward and its
+    other shapes under prefixed keys) in turns with each other
+    (:func:`take_turns`), the events around each call without the sleep
+    (``ev``) beside them under *_event_ms; launches by path.  -> the
+    entries."""
     kernels = []
     for entry, fns, ev in phases:
-        measured = True
-        for key, fn in fns.items():
-            dev = device_time(f"{entry['name']} {key}", card, fn)
-            measured &= dev is not None
-            entry[key] = ev[key][0] if dev is None else dev
+        turns = take_turns(fns) if fns else {}
+        for key, t in turns.items():
+            entry[key] = t[0]
             entry["event_ms" if key == "ms"
                   else key[:-3] + "_event_ms"] = ev[key]
+        entry.setdefault("in_turns_ms", {}).update(turns)
+        if turns:
+            log(f"{entry['name']} [{card}]: in turns, {K1_TURNS} calls of "
+                f"each: " + "; ".join(f"{key} {fmt_range(t)}"
+                                      for key, t in turns.items()))
         counter = entry.get("counter", entry["name"])
         entry["launches_by_path"] = {
             path: per_path[path][counter]
@@ -3477,8 +4029,9 @@ def time_entries(phases, per_path, card: str) -> list:
             entry["backward_launches_by_path"] = {
                 path: {c: n[c] for c in counters} if len(counters) > 1
                 else n[counters[0]] for path, n in per_path.items()}
-        entry["ms_from"] = ("torch.profiler device time" if measured
-                            else "cuda events (median)")
+        entry.setdefault("ms_from", "in turns with its plain version and "
+                         "library call: CUDA events behind a GPU sleep, L2 "
+                         "flushed")
         kernels.append(entry)
     return kernels
 
@@ -3489,7 +4042,8 @@ def kitti_launches(kitti: dict) -> dict:
             **kitti["pp"]["launches"], **kitti["pp_all"]["launches"],
             **kitti["all_fhd"]["launches"],
             **{path: n for phase in kitti["host"].values()
-               for path, n in phase["launches"].items()}}
+               for path, n in phase["launches"].items()},
+            **kitti["mixed_km"]["launches"]}
 
 
 def profile_kitti(kitti: dict, card: str) -> None:
@@ -3510,6 +4064,13 @@ def profile_kitti(kitti: dict, card: str) -> None:
     profile_call("car.fhd.mixed serving (bf16)",
                  functools.partial(mixed["pod"], *mixed["requests"][2]),
                  card, mixed["report"]["latency_ms"])
+    km = kitti["mixed_km"]
+    with torch.enable_grad():
+        profile_call("bf16 key-match training step (car.fhd)", km["step"],
+                     card, km["report"]["device_step_ms"][0])
+    profile_call("bf16 key-match serving (car.fhd.serving)",
+                 functools.partial(km["pod"], *km["requests"][2]), card,
+                 km["report"]["latency_ms"])
 
 
 def main() -> int:
@@ -3525,6 +4086,7 @@ def main() -> int:
         second = serve_second(card)
         ev_launches = run_evaluate(card)
         training = train_pillars(card)
+        mixed_pp = mixed_pillars(card, pod, latency_ms)
         second_training = train_second(card)
         kitti = kitti_phases(card, second["pod"])
         km, gg = second["km_launches"], second["gg_launches"]
@@ -3534,7 +4096,7 @@ def main() -> int:
                     "second fused_mean": fm, "second dynamic": dyn,
                     "pillar training": training["launches"],
                     "second training": second_training["launches"],
-                    **kitti_launches(kitti)}
+                    **mixed_pp["launches"], **kitti_launches(kitti)}
         total = {name: sum(p[name] for p in per_path.values())
                  for name in KERNELS}
         log(f"launches by path: {json.dumps(per_path)}; summed {total}")
@@ -3558,7 +4120,15 @@ def main() -> int:
                   k5,
                   phase_sparse_gemm("gather_gemm_bf16",
                                     kitti["host"]["mixed"]["calls"],
-                                    total["gather_gemm_bf16"], card)]
+                                    total["gather_gemm_bf16"], card),
+                  phase_k1_bf16(mixed_pp["scatter_call"],
+                                mixed_pp["gather_call"],
+                                kitti["serve"]["calls"]["pillar_scatter"][0],
+                                mixed_pp["launches"], card),
+                  phase_sparse_gemm("keymatch_gemm_bf16",
+                                    kitti["mixed_km"]["calls"],
+                                    total["keymatch_gemm_bf16"], card,
+                                    kitti["mixed_km"]["step_calls"])]
         # the joins' backward, shared by the two families: its numbers go
         # into both entries
         bw_fields, bw_fns, bw_ev = phase_join_backward(
@@ -3573,13 +4143,14 @@ def main() -> int:
             fns.update(bw_fns)
             ev.update(bw_ev)
         phases[0][0]["backward_counters"] = ["pillar_gather"]
-        # last: the profiler's tracing slows later launches down.  Each
-        # time in the kernels line is device time, with the event times
-        # (median, min, max) beside it under *_event_ms.
+        # each time in the kernels line is the median of its calls in
+        # turns, with the event times (median, min, max) beside it under
+        # *_event_ms
         kernels = time_entries(phases, per_path, card)
         launch_bound = [e for e in kernels
                         if e["name"] in ("pillar_scatter",
                                          "pillar_scatter@kitti",
+                                         "pillar_scatter@bf16",
                                          "voxel_mean")]
         floors = launch_floor(empty_kernel, card, {
             e["name"]: e["grid"] for e in launch_bound})
@@ -3593,6 +4164,13 @@ def main() -> int:
                          card,
                          second_training["report"]["device_step_ms"][0])
         profile_call("serving", lambda: pod(*requests[2]), card, latency_ms)
+        profile_call("bf16 pillar serving",
+                     functools.partial(mixed_pp["pod"],
+                                       *mixed_pp["requests"][2]), card,
+                     mixed_pp["report"]["latency_ms"])
+        with torch.enable_grad():
+            profile_call("bf16 pillar training step", mixed_pp["step"], card,
+                         mixed_pp["report"]["device_step_ms"][0])
         for what, key, lat in (("second key-match", "pod", "latency_ms"),
                                ("second gather-GEMM", "gg", "gg_latency_ms"),
                                ("second fused_mean", "fused",

@@ -389,14 +389,120 @@ def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     in_keys = sparse_conv.linearize(torch.zeros(2, feats.shape[1], 3,
                                                 dtype=torch.int32,
                                                 device=cuda), (12, 40, 40))
-    with pytest.raises(TypeError):       # no bf16 key-match kernel
-        sgg.keymatch_gemm(feats, in_keys, idx, w)
+    with pytest.raises(TypeError):       # key-match: bf16 features, fp32 W
+        sgg.keymatch_gemm(feats, in_keys, idx, w.float())
+    with pytest.raises(TypeError):       # the named form takes bf16 only
+        sgg.keymatch_gemm_bf16(feats.float(), in_keys, idx, w.float())
+    with pytest.raises(ValueError):      # key-match: odd Cin
+        sgg.keymatch_gemm(feats[..., :15].contiguous(), in_keys, idx,
+                          w[:, :15].contiguous())
     with pytest.raises(TypeError):       # the backward kernels: fp32 only
         sgg.join_grad_weights(feats, idx, found,
                               torch.zeros(2, feats.shape[1], 16,
                                           dtype=torch.bfloat16,
                                           device=cuda))
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["random", "unsorted", "sentinels"])
+@pytest.mark.parametrize("K,cin,cout", BF16_JOINS)
+def test_keymatch_gemm_bf16_kernel_equals_plain(cuda, K, cin, cout, case):
+    """The tile's bfloat16 form with the key lookup (K4 in bfloat16)
+    against its plain version (the bf16 inputs upcast to float32, one
+    matmul) within 1e-4 of max |out|: on key-sorted sites, on unsorted
+    keys (the scan), and with rows 64-127 querying absent keys or
+    nothing (zeros); the JAX function's call forms give one result."""
+    feats, _, _, in_keys, q_keys, w, _, _ = _sparse_join(
+        cuda, K, cin, cout, sort_keys=case != "unsorted")
+    feats, w = feats.bfloat16(), w.bfloat16()
+    if case == "unsorted":
+        assert bool((in_keys[:, 1:] < in_keys[:, :-1]).any())
+    if case == "sentinels":
+        q_keys = q_keys.clone()
+        q_keys[..., 64:96] = 12 * 40 * 40 + 7     # outside the grid's keys
+        q_keys[..., 96:128] = sparse_conv.INT32_MAX
+    before = (sgg.keymatch_gemm.launches, sgg.keymatch_gemm_bf16.launches)
+    got = sgg.keymatch_gemm(feats, in_keys, q_keys, w)
+    ref = sgg.keymatch_gemm_plain(feats, in_keys, q_keys, w)
+    torch.cuda.synchronize()
+    assert (sgg.keymatch_gemm.launches,
+            sgg.keymatch_gemm_bf16.launches) == (before[0], before[1] + 1)
+    assert got.dtype == ref.dtype == torch.float32
+    scale = float(ref.abs().max())
+    assert scale > 1.0
+    assert float((got - ref).abs().max()) <= 1e-4 * scale
+    if case == "sentinels":
+        assert bool((got[:, 64:128] == 0).all())
+    one = sgg.keymatch_gemm_bf16(feats[1], in_keys[1], q_keys[1], w, None,
+                                 64, 128, False, 0, 1)
+    assert torch.equal(one, got[1])
+    if K == 27:
+        perm = torch.as_tensor(sgg.group_perm((3, 3, 3)), device=cuda)
+        grouped = sgg.keymatch_gemm(feats, in_keys, q_keys[:, perm],
+                                    w[perm], None, 256, 768, True, 384, 3)
+        assert float((grouped - ref).abs().max()) <= 1e-4 * scale
+
+
+def test_keymatch_gemm_bf16_backward_upcasts(cuda):
+    """A bfloat16 key-match join's backward runs the float32 kernels on
+    the upcast dout, features and weights over the join's rulebook, and
+    casts back: bf16 gradients equal to the plain float32 backward of the
+    same values rounded once."""
+    feats, _, _, in_keys, q_keys, w, _, _ = _sparse_join(cuda, 27, 32, 64)
+    feats = feats.bfloat16().requires_grad_()
+    w = w.bfloat16().requires_grad_()
+    dout = torch.randn(feats.shape[0], q_keys.shape[-1], 64, device=cuda)
+    launches = _join_grad_launches()
+    sgg.keymatch_gemm(feats, in_keys, q_keys, w).backward(dout)
+    torch.cuda.synchronize()
+    assert _join_grad_launches() == tuple(n + 1 for n in launches)
+    idx, hit = sparse_conv._merge_lookup(in_keys, q_keys.flatten(-2))
+    df, dw = sgg.join_backward_plain(
+        feats.detach().float(), idx.view(q_keys.shape), hit.view(
+            q_keys.shape), w.detach().float(), dout)
+    assert feats.grad.dtype == w.grad.dtype == torch.bfloat16
+    for got, want in ((feats.grad, df), (w.grad, dw)):
+        err = float((got.float() - want).abs().max())
+        assert err <= 2 ** -8 * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("C", [64, 32])     # the pillar configs' widths
+def test_pillar_scatter_bf16_kernels_equal_plain(cuda, C):
+    """K1 and its backward on bfloat16 rows (8 or 4 chunks of 16 bytes a
+    row): equal to the plain versions bit for bit, on the served pillar
+    ids, shuffled and with negative ids, one launch a call."""
+    lin, hw = _served_pillar_ids(cuda, (0, 1))
+    B, V = lin.shape
+    g = torch.Generator(device=cuda).manual_seed(C)
+    feats = torch.randn(B, V, C, device=cuda, generator=g).bfloat16()
+    dcanvas = torch.randn(B, hw, C, device=cuda, generator=g).bfloat16()
+    shuffled = torch.randperm(V, device=cuda, generator=g)
+    negative = torch.where(torch.arange(V, device=cuda) % 5 == 0,
+                           -1 - torch.arange(V, device=cuda) % 4, lin).int()
+    for f, ids in ((feats, lin),
+                   (feats[:, shuffled].contiguous(),
+                    lin[:, shuffled].contiguous()),
+                   (feats, negative)):
+        before = (pillar_scatter.scatter_sorted_to_canvas.launches,
+                  pillar_scatter.pillar_gather.launches)
+        canvas = pillar_scatter.scatter_sorted_to_canvas(f, ids, hw)
+        ref = pillar_scatter.scatter_sorted_to_canvas_plain(f, ids, hw)
+        back = pillar_scatter.pillar_gather(dcanvas, ids)
+        back_ref = pillar_scatter.pillar_gather_plain(dcanvas, ids)
+        torch.cuda.synchronize()
+        assert (pillar_scatter.scatter_sorted_to_canvas.launches,
+                pillar_scatter.pillar_gather.launches) == (
+                    before[0] + 1, before[1] + 1)
+        assert canvas.dtype == back.dtype == torch.bfloat16
+        assert torch.equal(canvas, ref) and torch.equal(back, back_ref)
+    # through autograd: the gradient of the bf16 rows is the gather
+    f = feats.clone().requires_grad_()
+    pillar_scatter.scatter_sorted_to_canvas(f, lin, hw).backward(dcanvas)
+    assert torch.equal(f.grad, pillar_scatter.pillar_gather_plain(dcanvas,
+                                                                  lin))
+    with pytest.raises(ValueError):     # a bf16 row of 12 values: 24 bytes
+        pillar_scatter.scatter_sorted_to_canvas(
+            feats[..., :12].contiguous(), lin, hw)
 
 
 def _join_grad_launches():

@@ -706,8 +706,8 @@ def test_evaluate_refuses_what_is_not_ported(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="multi-device"):
         train.evaluate(PORT_CFG / "asbuilt_pillars_tiny.config",
                        device="cpu", num_devices=4)
-    # enable_mixed_precision: SECOND's bfloat16 network (car.fhd.mixed) is
-    # built; a pillar network in bfloat16 is not ported and is refused
+    # enable_mixed_precision: SECOND's bfloat16 network (car.fhd.mixed) and
+    # the pillar network in bfloat16 are built, parameters in float32
     bundle = train.Bundle(PORT_CFG.parent / "second" / "car"
                           / "car.fhd.mixed.config")
     assert bundle.model_cfg.compute_dtype == "bfloat16"
@@ -718,8 +718,11 @@ def test_evaluate_refuses_what_is_not_ported(tmp_path, monkeypatch):
     mixed = tmp_path / "mixed.config"
     mixed.write_text(text.replace("train_config: {",
                                   "train_config: {\n  enable_mixed_precision: true", 1))
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        train.Bundle(mixed)
+    bundle = train.Bundle(mixed)
+    assert bundle.model_cfg.compute_dtype == "bfloat16"
+    assert bundle.model.voxel_feature_extractor.dtype == torch.bfloat16
+    assert bundle.model.rpn.conv_cls.compute_dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in bundle.model.parameters())
 
 
 @pytest.mark.slow

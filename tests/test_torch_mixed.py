@@ -77,6 +77,11 @@ def _np_tree(tree):
 def _jax_step(path, init, example):
     """The JAX package's training forward on its host rulebooks: (heads
     NHWC float32, loss terms, gradients as the port's state dict)."""
+    return _jax_steps(path, init, [example])[0]
+
+
+def _jax_steps(path, init, examples):
+    """:func:`_jax_step` on each of ``examples``, one compiled step."""
     bundle = jax_train.Bundle(path)
     model, cfg = bundle.model, bundle.model_cfg
 
@@ -95,11 +100,14 @@ def _jax_step(path, init, example):
 
         return jax.grad(loss_fn, has_aux=True)(variables["params"])
 
-    grads, (preds, terms) = step(init, example)
-    grads = jax_weight_import.to_torch_state_dict(
-        {"params": _np_tree(grads), "batch_stats": init["batch_stats"]})
-    return ({k: np.asarray(preds[k], np.float32) for k in HEADS},
-            {k: float(v) for k, v in terms.items()}, grads)
+    out = []
+    for example in examples:
+        grads, (preds, terms) = step(init, example)
+        grads = jax_weight_import.to_torch_state_dict(
+            {"params": _np_tree(grads), "batch_stats": init["batch_stats"]})
+        out.append(({k: np.asarray(preds[k], np.float32) for k in HEADS},
+                    {k: float(v) for k, v in terms.items()}, grads))
+    return out
 
 
 @pytest.fixture(scope="module")

@@ -206,24 +206,20 @@ def test_flat_pfn_matches_jax_segment_ops_and_the_padded_path(
     {"vfe_name": "PillarFeatureNetRadius"},
     {"with_distance": True},
     {"rpn_layer_strides": (1, 2), "rpn_upsample_strides": (0.5, 1.0)},
-    {"compute_dtype": "bfloat16"},
-    {"middle_name": "SpMiddleFHD", "compute_dtype": "bfloat16",
-     "sparse_keymatch": True, "sparse_use_pallas_gemm": True},
     {"middle_name": "SpMiddleFHD", "compute_dtype": "float16"},
     {"use_yaw_quality_head": True},
     {"encode_background_as_zeros": False},
     {"use_direction_classifier": False},
     {"middle_name": "DenseMiddle"},
     {"vfe_name": "SimpleVoxelRadius"},
-], ids=["radius", "with_distance", "frac_upsample", "pillar_bf16",
-        "keymatch_bf16", "sparse_middle_fp16", "yaw_quality",
+], ids=["radius", "with_distance", "frac_upsample", "sparse_middle_fp16",
+        "yaw_quality",
         "softmax_scores", "no_direction_head", "dense_middle",
         "simple_voxel_radius"])
 def test_unported_options_raise(variant):
-    """Options that are not ported are refused, not served: among them
-    bfloat16 pillars and bfloat16 key-match joins (K4 in bfloat16), which
-    no config of the repository asks for; the sparse middle in bfloat16
-    on rulebooks is ported (``tests/test_torch_mixed.py``)."""
+    """Options that are not ported are refused, not served; float16
+    among them.  bfloat16 is ported for both families
+    (``tests/test_torch_mixed*.py``)."""
     _, tcfg, _ = build_from_config(PORT_CFG / "asbuilt_pillars_tiny.config")
     with pytest.raises(NotImplementedError):
         tvn.VoxelNet(dataclasses.replace(tcfg, **variant))
