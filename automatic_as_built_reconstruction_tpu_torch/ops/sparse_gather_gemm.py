@@ -45,12 +45,18 @@ take float32 only and raise on anything else.
 Both are differentiable in features and weights, as the JAX package's
 ``custom_vjp`` makes them (``_gather_gemm_bwd`` :411, ``_keymatch_bwd``
 :1237): with grad recorded they run as autograd Functions whose
-backward takes the join's rulebook (key-match: through
-``ops.sparse_conv._merge_lookup``, as the reference does) into
-``csrc/sparse_join_grad.cu``: ``dfeatures`` as the forward gather-GEMM
-kernel over the inverted rulebook (:func:`rulebook_inverse`, then
-:func:`join_grad_features`) and ``dW`` by a per-tap reduction kernel
-(:func:`join_grad_weights`), neither computed where it is not needed.
+backward takes the join's rulebook (key-match: :func:`keymatch_rulebook`,
+a hash table lookup of the join's keys, where the reference runs
+``ops.sparse_conv._merge_lookup``) into
+``csrc/sparse_join_grad.cu``: ``dW`` as the hits of each tap
+(:func:`rulebook_hits`), then a reduction GEMM per tap on the tensor
+cores (:func:`join_grad_weights`); ``dfeatures`` as the rulebook's inverse
+(:func:`rulebook_inverse`), then a kernel that multiplies only the rows
+each tap hits by ``W[k]^T`` (:func:`join_grad_features`); neither half
+computed where it is not needed.  Each step has a plain version here
+(:func:`rulebook_hits_plain`, :func:`grad_weights_from_hits_plain`,
+:func:`rulebook_inverse_plain`, :func:`grad_features_from_inverse_plain`)
+that the tests hold against the plain backward.
 On the CPU the Functions run the plain forward and
 :func:`join_backward_plain`, which mirrors the reference's backward line
 for line.  As there, a bfloat16 join's backward runs in float32 (``dout``,
@@ -72,10 +78,16 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _GATHER_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 # feats, in_keys, q_keys, sorted_flag, W, out | B, N, R, K, Cin, Cout | stream
 _KEYMATCH_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
-# idx, found, inv, inv_found, collisions | B, K, R, N | stream
-_INVERSE_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
-# feats, idx, found, dout, partial, dW | B, N, R, K, Cin, Cout | stream
+# in_keys, q_keys, table_keys, table_rows, idx, found | B, N, R, K | stream
+_RULEBOOK_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+# idx, found, inv, collisions | B, K, R, N | stream
+_INVERSE_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _P)
+# idx, found, chunk_counts, hits, counts | B, K, R, N | stream
+_HITS_ARGTYPES = (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P)
+# feats, dout, hits, counts, partial, dW | B, N, R, K, Cin, Cout | stream
 _TAP_GRAD_ARGTYPES = (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
+# dout, inv, W, dfeats | B, N, R, K, Cin, Cout | stream
+_GRAD_F_ARGTYPES = (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)
 KERNEL_COUTS = (8, 16, 32, 64, 128)
 MAX_SMEM_BYTES = 232448          # what one block may use on an H100
 TILE_R = 64                      # output rows per block of the kernel
@@ -237,7 +249,7 @@ def _keymatch_forward(features, in_keys, q_keys, weights) -> torch.Tensor:
     N, M = features.shape[-2], q_keys.shape[-1]
     features, in_keys = features.contiguous(), in_keys.contiguous()
     q_keys, weights = q_keys.contiguous(), weights.contiguous()
-    ascending = (in_keys[..., 1:] >= in_keys[..., :-1]).all()   # on device
+    ascending = _ascending(in_keys)
     out = torch.empty((B, M, Cout) if batched else (M, Cout),
                       dtype=torch.float32, device=features.device)
     symbol = "keymatch_gemm_bf16_launch" if bf16 else "keymatch_gemm_launch"
@@ -253,6 +265,64 @@ def _keymatch_forward(features, in_keys, q_keys, weights) -> torch.Tensor:
     else:
         keymatch_gemm.launches += 1
     return out
+
+
+def _ascending(in_keys: torch.Tensor) -> torch.Tensor:
+    """Whether every scan's keys ascend, as a one-byte flag on the device
+    (no host synchronisation): the kernels' key lookup searches them if
+    so, and scans them otherwise."""
+    return (in_keys[..., 1:] >= in_keys[..., :-1]).all()
+
+
+def keymatch_rulebook_plain(in_keys: torch.Tensor, q_keys: torch.Tensor):
+    """Plain PyTorch version of :func:`keymatch_rulebook`:
+    ``ops.sparse_conv._merge_lookup`` (a sort and a search), as the
+    reference's ``_keymatch_bwd`` runs it."""
+    K, R = q_keys.shape[-2:]
+    idx, hit = _merge_lookup(in_keys, q_keys.flatten(-2))
+    return (idx.unflatten(-1, (K, R)).contiguous(),
+            hit.unflatten(-1, (K, R)).contiguous())
+
+
+def keymatch_rulebook(in_keys: torch.Tensor, q_keys: torch.Tensor):
+    """The rulebook of a key-match join, what its backward joins on:
+    in_keys [..., N], q_keys [..., K, R] (int32) -> (idx [..., K, R]
+    int32, found bool); ``idx`` is the row of ``in_keys`` that holds the
+    query key, and means something only where ``found``.  CUDA tensors
+    launch ``keymatch_rulebook_kernel`` (a lookup of every query key in a
+    hash table of the keys that ``keymatch_table_kernel`` builds, in any
+    order of the keys; idx 0 where not found); CPU tensors take the plain
+    version."""
+    if not in_keys.is_cuda:
+        return keymatch_rulebook_plain(in_keys, q_keys)
+    if in_keys.dtype != torch.int32 or q_keys.dtype != torch.int32:
+        raise TypeError(f"kernel takes int32 keys, got {in_keys.dtype} / "
+                        f"{q_keys.dtype}")
+    if q_keys.device != in_keys.device:
+        raise ValueError("in_keys and q_keys on different devices")
+    K, R = q_keys.shape[-2:]
+    N = in_keys.shape[-1]
+    B = int(np.prod(in_keys.shape[:-1], dtype=np.int64))
+    in_keys, q_keys = in_keys.contiguous(), q_keys.contiguous()
+    dev = q_keys.device
+    idx = torch.empty(q_keys.shape, dtype=torch.int32, device=dev)
+    found = torch.empty(q_keys.shape, dtype=torch.bool, device=dev)
+    bits = _build.function("sparse_gather_gemm", "keymatch_table_bits",
+                           (_I,))(N)
+    table = torch.empty((2, B, 1 << bits), dtype=torch.int32, device=dev)
+    fn = _build.function("sparse_gather_gemm", "keymatch_rulebook_launch",
+                         _RULEBOOK_ARGTYPES)
+    with torch.cuda.device(in_keys.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(in_keys.data_ptr(), q_keys.data_ptr(), table[0].data_ptr(),
+                 table[1].data_ptr(), idx.data_ptr(), found.data_ptr(), B, N,
+                 R, K, stream)
+    _build.check(err, "keymatch_rulebook_launch")
+    keymatch_rulebook.launches += 1
+    return idx, found
+
+
+keymatch_rulebook.launches = 0
 
 
 def _records_grad(*tensors) -> bool:
@@ -298,12 +368,8 @@ class _KeymatchGemm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         features, in_keys, q_keys, weights = ctx.saved_tensors
-        K, R = q_keys.shape[-2:]
-        idx, hit = _merge_lookup(in_keys, q_keys.flatten(-2))
-        dfeats, dW = _join_grads(ctx, features,
-                                 idx.unflatten(-1, (K, R)).contiguous(),
-                                 hit.unflatten(-1, (K, R)).contiguous(),
-                                 weights, dout)
+        idx, hit = keymatch_rulebook(in_keys, q_keys)
+        dfeats, dW = _join_grads(ctx, features, idx, hit, weights, dout)
         return dfeats, None, None, dW
 
 
@@ -467,19 +533,114 @@ def join_backward_plain(features, gather_idx, found, weights, dout,
     return dfeats, dW
 
 
+def rulebook_hits_plain(gather_idx: torch.Tensor, found: torch.Tensor,
+                        N: int):
+    """Plain PyTorch version of :func:`rulebook_hits`: the row-ordered
+    ``nonzero`` of each tap's ``found``.  -> (hits [K, B * R, 2] int32,
+    counts [K] int32): the hits of tap k at ``hits[k, :counts[k]]``, each
+    (feature row ``b * N + j``, dout row ``b * R + r``) with j the entry
+    clipped to ``[0, N)``, in ascending dout row; -1 past them."""
+    K, R = gather_idx.shape[-2:]
+    idx = gather_idx.reshape(-1, K, R).transpose(0, 1).long()   # [K, B, R]
+    hit = found.reshape(-1, K, R).transpose(0, 1)
+    B = idx.shape[1]
+    hits = torch.full((K, B * R, 2), -1, dtype=torch.int32,
+                      device=idx.device)
+    counts = torch.zeros(K, dtype=torch.int32, device=idx.device)
+    for k in range(K):
+        b, r = hit[k].nonzero(as_tuple=True)      # row order: b, then r
+        n = b.numel()
+        hits[k, :n, 0] = (b * N + idx[k, b, r].clamp(0, N - 1)).int()
+        hits[k, :n, 1] = (b * R + r).int()
+        counts[k] = n
+    return hits, counts
+
+
+def rulebook_hits(gather_idx: torch.Tensor, found: torch.Tensor, N: int):
+    """The hits of each tap of a join's rulebook: idx / found [..., K, R]
+    (int32, bool) -> (hits [K, B * R, 2] int32, counts [K] int32) as
+    :func:`rulebook_hits_plain` gives them (past ``counts[k]`` a tap's
+    rows are left as they were).  CUDA tensors launch the compaction of
+    ``csrc/sparse_join_grad.cu`` (a count kernel and a write kernel; the
+    counts stay on the device); CPU tensors take the plain version."""
+    if not gather_idx.is_cuda:
+        return rulebook_hits_plain(gather_idx, found, N)
+    if gather_idx.dtype != torch.int32 or found.dtype != torch.bool:
+        raise TypeError(f"kernel takes int32 idx and bool found, got "
+                        f"{gather_idx.dtype} / {found.dtype}")
+    K, R = gather_idx.shape[-2:]
+    B = int(np.prod(gather_idx.shape[:-2], dtype=np.int64))
+    if max(B * R, B * N) >= 2 ** 31:
+        raise ValueError(f"B * R = {B * R} and B * N = {B * N} must stay "
+                         f"below 2^31")
+    gather_idx, found = gather_idx.contiguous(), found.contiguous()
+    dev = gather_idx.device
+    chunks = _build.function("sparse_join_grad", "tap_hits_chunks",
+                             (_I, _I))(B, R)
+    chunk_counts = torch.empty((K, chunks), dtype=torch.int32, device=dev)
+    hits = torch.empty((K, B * R, 2), dtype=torch.int32, device=dev)
+    counts = torch.empty(K, dtype=torch.int32, device=dev)
+    fn = _build.function("sparse_join_grad", "tap_hits_launch",
+                         _HITS_ARGTYPES)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(gather_idx.data_ptr(), found.data_ptr(),
+                 chunk_counts.data_ptr(), hits.data_ptr(), counts.data_ptr(),
+                 B, K, R, N, stream)
+    _build.check(err, "tap_hits_launch")
+    rulebook_hits.launches += 1
+    return hits, counts
+
+
+rulebook_hits.launches = 0
+
+
+def grad_weights_from_hits_plain(features, dout, hits, counts):
+    """Plain PyTorch version of the dW kernel's step: ``dW[k] = A^T D``
+    over the hits of tap k (:func:`rulebook_hits`), A the feature rows and
+    D the dout rows they name (features [..., N, Cin], dout [..., R,
+    Cout] with their batch rows flattened)."""
+    Cin, Cout = features.shape[-1], dout.shape[-1]
+    rows_f = features.reshape(-1, Cin)
+    rows_d = dout.reshape(-1, Cout).to(features.dtype)
+    dW = torch.zeros((hits.shape[0], Cin, Cout), dtype=features.dtype,
+                     device=features.device)
+    for k in range(hits.shape[0]):
+        pairs = hits[k, :int(counts[k])].long()
+        dW[k] = rows_f[pairs[:, 0]].T @ rows_d[pairs[:, 1]]
+    return dW
+
+
 def rulebook_inverse_plain(gather_idx: torch.Tensor, found: torch.Tensor,
-                           N: int):
-    """Plain PyTorch version of :func:`rulebook_inverse`: (inv [..., K, N]
-    int32, -1 where no entry; inv_found bool).  Where two entries of a tap
-    take one slot, one of them wins here; the kernel counts them."""
+                           N: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`rulebook_inverse`: inv [..., K, N]
+    int32, -1 where no entry.  Where two entries of a tap take one slot,
+    one of them wins here; the kernel counts them."""
     R = gather_idx.shape[-1]
     idx = torch.where(found, gather_idx.long().clamp(0, N - 1), N)
     rows = torch.arange(R, dtype=torch.int32, device=idx.device)
     inv = torch.full((*idx.shape[:-1], N + 1), -1, dtype=torch.int32,
                      device=idx.device)
     inv.scatter_(-1, idx, rows.expand(idx.shape).contiguous())
-    inv = inv[..., :N].contiguous()
-    return inv, inv >= 0
+    return inv[..., :N].contiguous()
+
+
+def grad_features_from_inverse_plain(dout, inv, weights):
+    """Plain PyTorch version of the dfeatures kernel: dout [..., R, Cout],
+    the rulebook's inverse inv [..., K, N] (-1: no source), weights [K,
+    Cin, Cout] -> [..., N, Cin], each input row's sum of ``dout[inv[k, j]]
+    @ W[k]^T`` over the taps that hit it, in ascending tap order."""
+    K, N = inv.shape[-2:]
+    lead = dout.shape[:-2]
+    dfeats = torch.zeros((*lead, N, weights.shape[1]), dtype=dout.dtype,
+                         device=dout.device)
+    w = weights.to(dout.dtype)
+    for k in range(K):
+        src = inv[..., k, :].long()
+        rows = torch.gather(dout, -2, src.clamp(min=0)[..., None].expand(
+            *src.shape, dout.shape[-1]))
+        dfeats += torch.where(src[..., None] >= 0, rows @ w[k].T, 0.0)
+    return dfeats
 
 
 _COLLISIONS: dict = {}
@@ -496,11 +657,13 @@ def rulebook_collisions(device) -> int:
     return 0 if t is None else int(t)
 
 
-def rulebook_inverse(gather_idx: torch.Tensor, found: torch.Tensor, N: int):
+def rulebook_inverse(gather_idx: torch.Tensor, found: torch.Tensor,
+                     N: int) -> torch.Tensor:
     """The inverse of a join's rulebook: idx / found [..., K, R] (int32,
-    bool) -> (inv [..., K, N] int32, inv_found [..., K, N] bool) with
-    ``inv[k, idx[k, r]] = r`` where ``found`` (idx clipped to ``[0, N)``).
-    CUDA tensors launch ``rulebook_inverse_kernel``; CPU tensors take the
+    bool) -> inv [..., K, N] int32 with ``inv[k, idx[k, r]] = r`` where
+    ``found`` (idx clipped to ``[0, N)``), -1 elsewhere.  CUDA tensors
+    launch ``rulebook_inverse_kernel``, which counts the entries that find
+    their slot taken (:func:`rulebook_collisions`); CPU tensors take the
     plain version."""
     if not gather_idx.is_cuda:
         return rulebook_inverse_plain(gather_idx, found, N)
@@ -513,7 +676,6 @@ def rulebook_inverse(gather_idx: torch.Tensor, found: torch.Tensor, N: int):
     dev = gather_idx.device
     inv = torch.empty((*gather_idx.shape[:-1], N), dtype=torch.int32,
                       device=dev)
-    inv_found = torch.empty(inv.shape, dtype=torch.bool, device=dev)
     if dev not in _COLLISIONS:
         _COLLISIONS[dev] = torch.zeros((), dtype=torch.int32, device=dev)
     fn = _build.function("sparse_join_grad", "rulebook_inverse_launch",
@@ -521,11 +683,10 @@ def rulebook_inverse(gather_idx: torch.Tensor, found: torch.Tensor, N: int):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(gather_idx.data_ptr(), found.data_ptr(), inv.data_ptr(),
-                 inv_found.data_ptr(), _COLLISIONS[dev].data_ptr(), B, K, R,
-                 N, stream)
+                 _COLLISIONS[dev].data_ptr(), B, K, R, N, stream)
     _build.check(err, "rulebook_inverse_launch")
     rulebook_inverse.launches += 1
-    return inv, inv_found
+    return inv
 
 
 rulebook_inverse.launches = 0
@@ -536,20 +697,36 @@ def join_grad_features(dout: torch.Tensor, gather_idx: torch.Tensor,
                        N: int) -> torch.Tensor:
     """dfeatures [..., N, Cin] of a join: dout [..., R, Cout], rulebook
     [..., K, R], weights [K, Cin, Cout].  CUDA tensors: the rulebook's
-    inverse (:func:`rulebook_inverse`), then the gather-GEMM kernel on
-    (dout, inverse, W[k]^T), which needs Cin in ``KERNEL_COUTS``; CPU
-    tensors take :func:`join_backward_plain`."""
+    inverse (``rulebook_inverse_kernel``), then ``grad_features_kernel``
+    over the rows each tap hits, which needs Cin in ``KERNEL_COUTS``; CPU
+    tensors take :func:`grad_features_plain`."""
     if not dout.is_cuda:
         return grad_features_plain(dout, gather_idx, found, weights, N)
     _check_cuda(dout, weights, {"gather_idx": (gather_idx, torch.int32),
                                 "found": (found, torch.bool)})
-    Cin = weights.shape[1]
+    K, Cin, Cout = weights.shape
     if Cin not in KERNEL_COUTS:
         raise ValueError(f"the features' gradient takes Cin in "
                          f"{KERNEL_COUTS}, got {Cin}")
-    inv, inv_found = rulebook_inverse(gather_idx, found, N)
-    wt = weights.transpose(1, 2).contiguous()        # [K, Cout, Cin]
-    out = _launch_gather(dout, inv, inv_found, wt)
+    smem = _build.function("sparse_join_grad", "grad_features_smem_bytes",
+                           (_I, _I, _I))(K, Cin, Cout)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"K {K}, Cin {Cin}, Cout {Cout}: the features' "
+                         f"gradient needs more shared memory than a block "
+                         f"has ({smem} > {MAX_SMEM_BYTES} bytes)")
+    R = gather_idx.shape[-1]
+    B = int(np.prod(gather_idx.shape[:-2], dtype=np.int64))
+    inv = rulebook_inverse(gather_idx, found, N)
+    dout, weights = dout.contiguous(), weights.contiguous()
+    out = torch.empty((*dout.shape[:-2], N, Cin), dtype=torch.float32,
+                      device=dout.device)
+    fn = _build.function("sparse_join_grad", "grad_features_launch",
+                         _GRAD_F_ARGTYPES)
+    with torch.cuda.device(dout.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(dout.data_ptr(), inv.data_ptr(), weights.data_ptr(),
+                 out.data_ptr(), B, N, R, K, Cin, Cout, stream)
+    _build.check(err, "grad_features_launch")
     join_grad_features.launches += 1
     return out
 
@@ -561,9 +738,10 @@ def join_grad_weights(features: torch.Tensor, gather_idx: torch.Tensor,
                       found: torch.Tensor, dout: torch.Tensor
                       ) -> torch.Tensor:
     """dW [K, Cin, Cout] of a join: features [..., N, Cin], rulebook [...,
-    K, R], dout [..., R, Cout].  CUDA tensors launch the per-tap reduction
-    kernels (partials, then their sum in a fixed order); CPU tensors take
-    :func:`join_backward_plain`."""
+    K, R], dout [..., R, Cout].  CUDA tensors: the hits of each tap
+    (:func:`rulebook_hits`), then the per-tap reduction GEMM (partials on
+    the tensor cores, then their sum in a fixed order); CPU tensors take
+    :func:`grad_weights_plain`."""
     if not features.is_cuda:
         return grad_weights_plain(features, gather_idx, found, dout)
     for name, (t, dtype) in {"features": (features, torch.float32),
@@ -582,9 +760,9 @@ def join_grad_weights(features: torch.Tensor, gather_idx: torch.Tensor,
                          f"128, got {Cin} and {Cout}")
     B = int(np.prod(features.shape[:-2], dtype=np.int64))
     features, dout = features.contiguous(), dout.contiguous()
-    gather_idx, found = gather_idx.contiguous(), found.contiguous()
+    hits, counts = rulebook_hits(gather_idx, found, N)
     parts = _build.function("sparse_join_grad", "tap_grad_parts",
-                            (_I, _I, _I))(B, R, K)
+                            (_I, _I, _I, _I, _I))(B, R, K, Cin, Cout)
     dev = features.device
     partial = torch.empty((K, parts, Cin, Cout), dtype=torch.float32,
                           device=dev)
@@ -593,9 +771,9 @@ def join_grad_weights(features: torch.Tensor, gather_idx: torch.Tensor,
                          _TAP_GRAD_ARGTYPES)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(features.data_ptr(), gather_idx.data_ptr(), found.data_ptr(),
-                 dout.data_ptr(), partial.data_ptr(), dW.data_ptr(), B, N, R,
-                 K, Cin, Cout, stream)
+        err = fn(features.data_ptr(), dout.data_ptr(), hits.data_ptr(),
+                 counts.data_ptr(), partial.data_ptr(), dW.data_ptr(), B, N,
+                 R, K, Cin, Cout, stream)
     _build.check(err, "tap_grad_launch")
     join_grad_weights.launches += 1
     return dW
@@ -632,10 +810,12 @@ def tile_occupancy(found: torch.Tensor):
 
 
 __all__ = ["KERNEL_COUTS", "TILE_R", "count_hits", "gather_gemm",
-           "gather_gemm_bf16", "gather_gemm_plain", "grad_features_plain",
-           "grad_weights_plain",
+           "gather_gemm_bf16", "gather_gemm_plain",
+           "grad_features_from_inverse_plain", "grad_features_plain",
+           "grad_weights_from_hits_plain", "grad_weights_plain",
            "group_perm", "join_backward_plain",
            "join_grad_features", "join_grad_weights", "keymatch_found",
            "keymatch_gemm", "keymatch_gemm_bf16", "keymatch_gemm_plain",
-           "rulebook_collisions",
+           "keymatch_rulebook", "keymatch_rulebook_plain",
+           "rulebook_collisions", "rulebook_hits", "rulebook_hits_plain",
            "rulebook_inverse", "rulebook_inverse_plain", "tile_occupancy"]

@@ -6,8 +6,9 @@
 2. builds every kernel in ``automatic_as_built_reconstruction_tpu_torch/
    csrc/`` with nvcc (one process per source, all at once), prints what
    ptxas reports (registers, shared memory, spills), and checks with
-   ``cuobjdump -sass`` that every sparse-GEMM kernel multiplies in TF32 on
-   the tensor cores and fills shared memory by cp.async;
+   ``cuobjdump -sass`` that every sparse-GEMM kernel and both backward
+   GEMM kernels of the joins multiply in TF32 on the tensor cores and fill
+   shared memory by cp.async, and that the backward has no float atomic;
 3. serves the as-built pillar detector (``asbuilt_pillars.config`` at full
    width, trained ``artifacts/asbuilt_r2_step8000.pkl``) through
    ``pod_inference_from_checkpoint``: four requests of two synthetic
@@ -63,8 +64,9 @@
    caps raise ``CapacitySaturationError`` it says so and takes the caps
    the reference measured for this config.  The counters are set to 0
    just before and read just after: the forward join and its backward
-   (dW every join, the rulebook's inverse and dfeatures every join but
-   the first) once a join a step, as the plan says.  It reports steps/s
+   (the key-match rulebook, the hits and dW every join, the rulebook's
+   inverse and dfeatures every join but the first) once a join a step,
+   as the plan says.  It reports steps/s
    of each window, host prep of a batch on one thread against the device
    step (events) and, at the end, a profile of one step; checks the loss
    (finite, the last window below the first), one step at B = 2 in
@@ -72,8 +74,10 @@
    card (loss terms, every gradient, the parameters after the update, the
    BatchNorm statistics), records one step's backward calls for the
    kernel phase, runs ``evaluate`` on the validation frames (the KITTI
-   table printed, not held; the detections of two frames against the
-   port's CPU run, as sets), holds the KITTI protocol on the validation
+   table printed, not held; two frames' heads against a float64 forward
+   of the checkpoint within F32_HEAD_SHARE of their max |x|, a TF32
+   control outside it; their detections against the port's CPU run, as
+   sets), holds the KITTI protocol on the validation
    ground truth given as detections (precision 1 at every threshold it
    samples) and restarts with a larger ``max_steps``, which must resume;
 6c. KITTI PointPillars and multi-class KITTI, on synthetic KITTI clones
@@ -138,11 +142,14 @@
    gradient, shuffled and with negative ids, timed against its bound and
    the scatter timed against zeros + ``index_copy_`` in alternation, 30
    turns each; the sparse joins' backward kernels at every join of a
-   SECOND training step, against the plain backward, with their device
-   time and bound; for the rotated IoU the pillar and SECOND inputs, a
-   1000 x 1000 set with degenerate boxes and one of nearly touching pairs,
-   each with the outputs equal bit for bit and the share of the pairs
-   each of its rejection tests takes; for the two sparse GEMMs every join
+   SECOND training step, against the plain backward (and the key-match
+   rulebook against ``_merge_lookup``), with their device time and
+   bound, and at the largest join dW, dfeatures, their steps and the
+   rulebook lookup in turns beside the bound and the per-tap floor; for
+   the rotated IoU the pillar and SECOND inputs, a 1000 x 1000 set with
+   degenerate boxes and one of nearly touching pairs, each with the
+   outputs equal bit for bit and the share of the pairs each of its
+   rejection tests takes; for the two sparse GEMMs every join
    of a request,
    each with its device time in turns with the plain version (CUDA
    events behind a GPU sleep, L2 flushed: one method for every join),
@@ -277,6 +284,18 @@ SECOND_REQUESTS = [(1000, 1001), (1002, 1003), (1004, 1005), (1006, 1007)]
 # tap on the tensor cores in the kernels and cuDNN on the card; one
 # matmul and oneDNN on the CPU)
 HEAD_TOL = dict(rtol=5e-4, atol=5e-4)
+# the heads of the 40-step car.fhd checkpoint on the card against a
+# float64 forward of it, as a share of each head's max |x|.  40 steps move
+# the BatchNorm running statistics a third of the way (momentum 0.01), so
+# in eval the RPN's activations reach ~1e4 and the heads 1e3-6e3; there
+# float32 rounding alone reaches HEAD_TOL's atol at the small elements
+# (head_drift.py, nine checkpoints, H100 80GB HBM3 at 700 W: the CPU's
+# float32 heads used up to 0.54 of HEAD_TOL against float64, the card's
+# up to 0.74, card against CPU up to 0.80; that check failed on 3 of about
+# 12 runs).  Against max |x| the card's float32 lay at most 1.27e-6 from
+# float64, the CPU's at most 7.7e-7; the control, the card's heads with
+# TF32 on in the RPN, must lie outside the limit on every run
+F32_HEAD_SHARE = 1e-5
 # kernel vs plain on the card: up to 27 x 64 products, 3xTF32 (as accurate
 # as fp32: tests/test_torch_sparse_gemm.py) summed tap by tap on the
 # tensor cores, against one fp32 cuBLAS dot, on values of order 1
@@ -510,6 +529,7 @@ def build_kernels() -> Path:
                                        "spill")):
                 log(f"  ptxas {name}: {line.strip()}")
     check_sparse_gemm_sass()
+    check_join_grad_sass()
     return empty
 
 
@@ -565,6 +585,35 @@ def check_sparse_gemm_sass() -> None:
     if len(counts) != 20 or bad:
         raise AssertionError(f"sparse GEMM kernels without TF32 / BF16 "
                              f"HMMA or LDGSTS: {bad or counts}")
+
+
+def check_join_grad_sass() -> None:
+    """Every instantiation of the joins' two backward GEMM kernels
+    (``tap_grad_mma_kernel``: 12 output tiles; ``grad_features_kernel``:
+    5 widths) multiplies on the tensor cores in TF32 and fills shared
+    memory with cp.async, and the library has no float atomic (RED or
+    ATOM on F32): ``cuobjdump -sass`` of the built library."""
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = run([str(cuobjdump), "-sass",
+                str(_build.lib_path("sparse_join_grad"))])
+    counts, atomics = {}, []
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        lines = body.splitlines()
+        atomics += [x.strip() for x in lines
+                    if ("RED" in x or "ATOM" in x) and ".F32" in x]
+        if "tap_grad_mma_kernel" in name or "grad_features_kernel" in name:
+            counts[name.strip()] = {
+                "hmma_tf32": sum("HMMA" in x and "TF32" in x for x in lines),
+                "ldgsts": sum("LDGSTS" in x for x in lines)}
+    bad = [n for n, c in counts.items()
+           if not (c["hmma_tf32"] and c["ldgsts"])]
+    log(f"  join backward SASS: {len(counts)} GEMM kernels, each with TF32 "
+        f"HMMA and LDGSTS; float atomics: {atomics or 'none'}")
+    if len(counts) != 17 or bad or atomics:
+        raise AssertionError(f"join backward kernels without TF32 HMMA or "
+                             f"LDGSTS, or with float atomics: "
+                             f"{bad or atomics or counts}")
 
 
 # --------------------------------------------------------------------------
@@ -707,8 +756,10 @@ def recording(module, name: str, calls: list):
 # --------------------------------------------------------------------------
 
 # the port's kernel wrappers (K1 is two: the scatter and, in training, its
-# backward, the gather; the sparse joins' backward is three: the rulebook
-# inverse, dfeatures through the gather-GEMM kernel, the dW reduction; K5
+# backward, the gather; the sparse joins' backward is four: the hits of
+# each tap and the per-tap dW reduction, the rulebook's inverse and the
+# dfeatures kernel over the rows each tap hits, and the key-match join's
+# backward a fifth before them, its rulebook by the join's key lookup; K5
 # is three: its key route's key kernel and segment-and-mean kernel, and
 # the first-appearance route's table kernel), and where the main paths
 # look each kernel or function up
@@ -719,6 +770,8 @@ KERNELS = {"pillar_scatter": pillar_scatter.scatter_sorted_to_canvas,
            "gather_gemm": sparse_gather_gemm.gather_gemm,
            "gather_gemm_bf16": sparse_gather_gemm.gather_gemm_bf16,
            "keymatch_gemm_bf16": sparse_gather_gemm.keymatch_gemm_bf16,
+           "keymatch_rulebook": sparse_gather_gemm.keymatch_rulebook,
+           "rulebook_hits": sparse_gather_gemm.rulebook_hits,
            "rulebook_inverse": sparse_gather_gemm.rulebook_inverse,
            "join_grad_features": sparse_gather_gemm.join_grad_features,
            "join_grad_weights": sparse_gather_gemm.join_grad_weights,
@@ -959,6 +1012,18 @@ def heads_mismatch(got: dict, ref: dict):
     err = {k: float((got[k] - ref[k]).abs().max()) for k in ref}
     bad = [k for k in ref if not torch.allclose(got[k], ref[k], **HEAD_TOL)]
     return err, (bad[0] if bad else None)
+
+
+def head_tolerance_used(got: dict, ref: dict) -> dict:
+    """{head: the largest |got - ref| / (atol + rtol |ref|) of HEAD_TOL,
+    with |ref| there}: a head is outside HEAD_TOL where this exceeds 1."""
+    out = {}
+    for k in ref:
+        share = (got[k] - ref[k]).abs() / (HEAD_TOL["atol"] + HEAD_TOL[
+            "rtol"] * ref[k].abs())
+        i = int(share.flatten().argmax())
+        out[k] = [float(share.flatten()[i]), float(ref[k].flatten()[i])]
+    return out
 
 
 def serve_second(card: str):
@@ -2429,7 +2494,10 @@ def join_bound(feats, idx, found, dout, dfeatures: bool = True) -> dict:
     dW reads the features, dout and the rulebook and writes dW; dfeatures
     reads dout, the rulebook and W and writes dfeatures.  A half's bound
     is the larger of its two times; the backward's is their sum (dW alone
-    where the input needs no gradient)."""
+    where the input needs no gradient).  Beside it, the floor of the
+    kernels' per-tap design, which reads a gathered row once per hit:
+    dW hits * (Cin + Cout) * 4 bytes, dfeatures the dout rows of the hits
+    and the dfeatures written."""
     Cin, Cout = feats.shape[-1], dout.shape[-1]
     hits = int(found.sum())
     book = idx.numel() * idx.element_size() + found.numel()
@@ -2452,6 +2520,10 @@ def join_bound(feats, idx, found, dout, dfeatures: bool = True) -> dict:
     out["dw_bound_fp32_simt_ms"] = max(flops / PEAK_FP32_PER_S * 1e3,
                                        out["dw_bytes"] / PEAK_BYTES_PER_S
                                        * 1e3)
+    out["dw_floor_ms"] = hits * (Cin + Cout) * 4 / PEAK_BYTES_PER_S * 1e3
+    out["dfeatures_floor_ms"] = ((hits * Cout + feats.numel()) * 4
+                                 / PEAK_BYTES_PER_S * 1e3
+                                 if dfeatures else 0.0)
     out["bound_ms"] = out["dw_bound_ms"] + out["dfeatures_bound_ms"]
     larger = ("dw" if out["dw_bound_ms"] >= out["dfeatures_bound_ms"]
               else "dfeatures")
@@ -2491,18 +2563,32 @@ def check_join(wcall, fcall) -> tuple:
 
 
 @torch.no_grad()
-def phase_join_backward(wcalls: list, fcalls: list, card: str) -> tuple:
+def phase_join_backward(wcalls: list, fcalls: list, mcalls: list,
+                        card: str) -> tuple:
     """The backward kernels against the plain backward at every join of
-    one training step (B = 6): dW (``join_grad_weights``) and dfeatures
-    (``join_grad_features``: the rulebook's inverse and the gather
-    kernel), rtol and atol JOIN_GRAD_TOL of max |g|; each join's device
-    time and bound.  -> (the kernels line's backward fields, {key: fn} and
-    event times for the largest join)."""
+    one training step (B = 6): dW (``join_grad_weights``: the hits of each
+    tap, the per-tap reduction GEMM) and dfeatures (``join_grad_features``:
+    the rulebook's inverse, the kernel over the rows each tap hits), rtol
+    and atol JOIN_GRAD_TOL of max |g|, and the rulebook that the key-match
+    backward looks up first (``keymatch_rulebook``, recorded in
+    ``mcalls`` join by join as ``wcalls``) equal to its plain version
+    (``_merge_lookup``); each join's device time and bound.  At the
+    largest join each half, its steps and the rulebook lookup against its
+    plain version in turns, with the bounds and the per-tap floor.  -> (the
+    kernels line's backward fields, {key: fn} and event times for the
+    largest join)."""
     sgg = sparse_gather_gemm
     by_rulebook = {id(c[0][1]): c for c in fcalls}
     worst, per_join, bounds = 0.0, [], []
-    for wcall in wcalls:
+    for wcall, mcall in zip(wcalls, mcalls):
         (feats, idx, found, dout), _ = wcall
+        (in_keys, q_keys), _ = mcall
+        ref_idx, ref_found = sgg.keymatch_rulebook_plain(in_keys, q_keys)
+        if not (torch.equal(found, ref_found) and torch.equal(
+                idx[found], ref_idx[found])):
+            raise AssertionError("keymatch_rulebook kernel != plain "
+                                 "version, or the recorded lookups do not "
+                                 "pair with the recorded joins")
         fcall = by_rulebook.get(id(idx))
         what, errs = check_join(wcall, fcall)
         worst = max(worst, *errs.values())
@@ -2527,12 +2613,19 @@ def phase_join_backward(wcalls: list, fcalls: list, card: str) -> tuple:
             f"{b['dw_bound_ms']:.5f} by {b['dw_bound_by']}, at the SIMT "
             f"rate {b['dw_bound_fp32_simt_ms']:.5f}; dfeatures "
             f"{b['dfeatures_bound_ms']:.5f}; {b['hits']} hits, "
-            f"{b['flops']} needed flops, {b['dw_bytes']} bytes a half)")
-    largest = max(wcalls, key=lambda c: int(c[0][2].sum())
-                  * c[0][0].shape[-1] * c[0][3].shape[-1])
-    feats, idx, found, dout = largest[0]
+            f"{b['flops']} needed flops, {b['dw_bytes']} bytes a half); "
+            f"per-tap floor dW {b['dw_floor_ms']:.5f}, dfeatures "
+            f"{b['dfeatures_floor_ms']:.5f}")
+    at = max(range(len(wcalls)), key=lambda i: int(wcalls[i][0][2].sum())
+             * wcalls[i][0][0].shape[-1] * wcalls[i][0][3].shape[-1])
+    feats, idx, found, dout = wcalls[at][0]
     (fdout, fidx, ffound, w, N), _ = by_rulebook[id(idx)]
+    (in_keys, q_keys), _ = mcalls[at]
     b = join_bound(feats, idx, found, dout)
+    # the rulebook lookup reads the keys and query keys once and writes
+    # idx and found once
+    book_bytes = (in_keys.numel() + q_keys.numel()) * 4 + idx.numel() * 5
+    book_bound = book_bytes / PEAK_BYTES_PER_S * 1e3
     # which side is nearer float64, at the largest join
     f64 = {"dW": sgg.grad_weights_plain(feats.double(), idx, found,
                                         dout.double()),
@@ -2549,39 +2642,74 @@ def phase_join_backward(wcalls: list, fcalls: list, card: str) -> tuple:
     del f64, f32
     log(f"join backward [{card}]: largest join, max error against float64 "
         f"as a share of max |g|: {json.dumps(vs64)}")
+    # each half and its steps in turns: dW = the hits + the reduction,
+    # dfeatures = the inverse + the kernel over the hit rows; the rulebook
+    # lookup of the key-match backward and its plain version beside them
+    halves = take_turns({
+        "dw": lambda: sgg.join_grad_weights(feats, idx, found, dout),
+        "dfeatures": lambda: sgg.join_grad_features(fdout, fidx, ffound, w,
+                                                    N),
+        "hits": lambda: sgg.rulebook_hits(idx, found, N),
+        "inverse": lambda: sgg.rulebook_inverse(fidx, ffound, N),
+        "rulebook": lambda: sgg.keymatch_rulebook(in_keys, q_keys),
+        "rulebook_plain": lambda: sgg.keymatch_rulebook_plain(in_keys,
+                                                              q_keys)})
     fns = {"backward_ms": lambda: (
                sgg.join_grad_weights(feats, idx, found, dout),
                sgg.join_grad_features(fdout, fidx, ffound, w, N)),
            "backward_plain_ms": lambda: (
                sgg.grad_weights_plain(feats, idx, found, dout),
-               sgg.grad_features_plain(fdout, fidx, ffound, w, N)),
-           "backward_dw_ms": lambda: sgg.join_grad_weights(
-               feats, idx, found, dout),
-           "backward_dfeatures_ms": lambda: sgg.join_grad_features(
-               fdout, fidx, ffound, w, N)}
+               sgg.grad_features_plain(fdout, fidx, ffound, w, N))}
     ev = {k: cuda_ms(fn, iters=10, warmup=2) for k, fn in fns.items()}
     shape = (f"B={feats.shape[0]} N={feats.shape[1]} R={idx.shape[-1]} "
              f"K={idx.shape[-2]} Cin={feats.shape[-1]} Cout={dout.shape[-1]}")
-    log(f"join backward [{card}]: largest join {shape}: events "
+    log(f"join backward [{card}]: largest join {shape}, {b['hits']} hits: "
+        f"in turns dW {fmt_range(halves['dw'])} (bound "
+        f"{b['dw_bound_ms']:.5f} by {b['dw_bound_by']}, per-tap floor "
+        f"{b['dw_floor_ms']:.5f}), of which the hits "
+        f"{fmt_range(halves['hits'])}; dfeatures "
+        f"{fmt_range(halves['dfeatures'])} (bound "
+        f"{b['dfeatures_bound_ms']:.5f} by {b['dfeatures_bound_by']}, "
+        f"per-tap floor {b['dfeatures_floor_ms']:.5f}), of which the inverse "
+        f"{fmt_range(halves['inverse'])}; the key-match backward's rulebook "
+        f"lookup {fmt_range(halves['rulebook'])} (bound {book_bound:.5f} by "
+        f"bytes; plain, _merge_lookup, {fmt_range(halves['rulebook_plain'])})"
+        f"; events "
         + "; ".join(f"{k[:-3]} {fmt_range(v)}" for k, v in ev.items())
         + f"; bound {b['bound_ms']:.5f} ms; {len(wcalls)} joins, "
         f"{len(fcalls)} with dfeatures; per join device ms {per_join}")
-    fields = {"backward_kernel": "rulebook_inverse_kernel + "
-                                 "gather_gemm_kernel (dfeatures), "
-                                 "tap_grad_partial_kernel + "
-                                 "tap_grad_sum_kernel (dW)",
+    fields = {"backward_kernel": "tap_hits_count_kernel + "
+                                 "tap_hits_write_kernel + "
+                                 "tap_grad_mma_kernel + tap_grad_sum_kernel "
+                                 "(dW), rulebook_inverse_kernel + "
+                                 "grad_features_kernel (dfeatures); "
+                                 "key-match: keymatch_table_kernel + "
+                                 "keymatch_rulebook_kernel "
+                                 "(csrc/sparse_gather_gemm.cu) first",
               "backward_source": "automatic_as_built_reconstruction_tpu_"
                                  "torch/csrc/sparse_join_grad.cu",
               "backward_shape": shape,
+              "backward_hits": b["hits"],
               "backward_max_err_of_max_g": worst,
               "backward_vs_float64": vs64,
+              "backward_dw_ms": halves["dw"][0],
+              "backward_dfeatures_ms": halves["dfeatures"][0],
+              "backward_hits_ms": halves["hits"][0],
+              "backward_inverse_ms": halves["inverse"][0],
+              "backward_rulebook_ms": halves["rulebook"][0],
+              "backward_rulebook_plain_ms": halves["rulebook_plain"][0],
+              "backward_rulebook_bound_ms": book_bound,
+              "backward_rulebook_bound_by": "bytes",
+              "backward_halves_in_turns_ms": halves,
               "backward_bound_ms": b["bound_ms"],
               "backward_bound_by": b["bound_by"],
               "backward_dw_bound_ms": b["dw_bound_ms"],
               "backward_dw_bound_by": b["dw_bound_by"],
               "backward_dw_bound_fp32_simt_ms": b["dw_bound_fp32_simt_ms"],
+              "backward_dw_floor_ms": b["dw_floor_ms"],
               "backward_dfeatures_bound_ms": b["dfeatures_bound_ms"],
               "backward_dfeatures_bound_by": b["dfeatures_bound_by"],
+              "backward_dfeatures_floor_ms": b["dfeatures_floor_ms"],
               "backward_per_join_ms": per_join,
               "backward_per_join_bound_ms": bounds,
               "backward_library_ms": None}
@@ -2641,10 +2769,11 @@ def train_second(card: str) -> dict:
     device step; one training step's backward calls recorded for the
     kernel phase; one step at B = 2, float32 on the kernels against
     float64 on the plain versions; ``evaluate`` on the 12 validation
-    frames (the KITTI table; two frames' detections against the port's
-    CPU run); perfect detections; a restart that resumes.  -> {"launches",
-    "report", "wcalls", "fcalls", "step": one more step, for the
-    profile}."""
+    frames (the KITTI table; two frames' heads against float64, their
+    detections against the port's CPU run); perfect detections; a
+    restart that resumes.  -> {"launches", "report", "wcalls", "fcalls",
+    "mcalls": the rulebook lookups of the key-match backward, "step": one
+    more step, for the profile}."""
     report = {}
     sgg = sparse_gather_gemm
     with torch.enable_grad(), tempfile.TemporaryDirectory() as tmp:
@@ -2695,6 +2824,7 @@ def train_second(card: str) -> dict:
             f"{launches}")
         want = dict.fromkeys(KERNELS, 0) | {
             "keymatch_gemm": joins * steps, "join_grad_weights": joins * steps,
+            "rulebook_hits": joins * steps, "keymatch_rulebook": joins * steps,
             "join_grad_features": (joins - 1) * steps,
             "rulebook_inverse": (joins - 1) * steps}
         if launches != want or state.step != steps:
@@ -2736,16 +2866,21 @@ def train_second(card: str) -> dict:
             f"{fmt_range(ev)}: host prep on one thread is "
             f"{100 * report['host_prep_share']:.1f} % of prep + device step")
 
-        # one step's backward calls, for the kernel phase
-        wcalls, fcalls = [], []
+        # one step's backward calls, for the kernel phase: the joins'
+        # backward kernels and the rulebook that each key-match backward
+        # looks up first, join by join in one order
+        wcalls, fcalls, mcalls = [], [], []
         with recording(sgg, "join_grad_weights", wcalls), \
-                recording(sgg, "join_grad_features", fcalls):
+                recording(sgg, "join_grad_features", fcalls), \
+                recording(sgg, "keymatch_rulebook", mcalls):
             step_fn(state, example)
         torch.cuda.synchronize()
-        if (len(wcalls), len(fcalls)) != (joins, joins - 1):
-            raise AssertionError(f"one step recorded {len(wcalls)} dW and "
-                                 f"{len(fcalls)} dfeatures calls, expected "
-                                 f"{joins} and {joins - 1}")
+        if (len(wcalls), len(fcalls), len(mcalls)) != (joins, joins - 1,
+                                                       joins):
+            raise AssertionError(f"one step recorded {len(wcalls)} dW, "
+                                 f"{len(fcalls)} dfeatures and "
+                                 f"{len(mcalls)} key-lookup calls, expected "
+                                 f"{joins}, {joins - 1} and {joins}")
         if sgg.rulebook_collisions("cuda"):
             raise AssertionError("a join's rulebook is not a convolution's: "
                                  f"{sgg.rulebook_collisions('cuda')} "
@@ -2807,10 +2942,49 @@ def train_second(card: str) -> dict:
                     dets[dev, thr] = {k: v.cpu().numpy()
                                       for k, v in out.items()}
             heads[dev] = {k: v.float().cpu() for k, v in preds.items()}
-        err, bad_head = heads_mismatch(heads["cuda"], heads["cpu"])
-        if bad_head is not None:
-            raise AssertionError(f"second evaluate: head {bad_head} card vs "
-                                 f"CPU {err}, tolerance {HEAD_TOL}")
+        # the heads on the card against a float64 forward of the same
+        # checkpoint on the card (the plain key-match join), as a share of
+        # each head's max |x| (F32_HEAD_SHARE), with the card's heads under
+        # TF32 as the control that must fall outside it; HEAD_TOL's
+        # distances are printed beside
+        f64 = copy.deepcopy(eb.model).double()
+        ex = {k: v.double() if v.is_floating_point() else v
+              for k, v in train_mod.to_device(val, "cuda").items()}
+        with torch.no_grad(), fp32_math(), substituted(
+                middle, "keymatch_gemm", plain_keymatch):
+            preds = f64.eval()(ex["voxels"], ex["num_points"],
+                               ex["coordinates"])
+        truth = {k: v.cpu() for k, v in preds.items()}
+        del f64, preds
+        ex = train_mod.to_device(val, "cuda")
+        with torch.no_grad(), tf32_on():
+            preds = eb.model.eval()(ex["voxels"], ex["num_points"],
+                                    ex["coordinates"])
+        control = {k: v.double().cpu() for k, v in preds.items()}
+        del preds, ex
+        card64 = {k: v.double() for k, v in heads["cuda"].items()}
+        cpu64 = {k: v.double() for k, v in heads["cpu"].items()}
+        shares = {"card": head_share(card64, truth),
+                  "cpu": head_share(cpu64, truth),
+                  "tf32_control": head_share(control, truth)}
+        used = {"card_vs_f64": head_tolerance_used(card64, truth),
+                "cpu_vs_f64": head_tolerance_used(cpu64, truth),
+                "card_vs_cpu": head_tolerance_used(heads["cuda"],
+                                                   heads["cpu"])}
+        scale = {k: float(v.abs().max()) for k, v in truth.items()}
+        detail = (f"shares of max |x| against float64 {shares} (limit "
+                  f"{F32_HEAD_SHARE}; max |x| {scale}); HEAD_TOL "
+                  f"{HEAD_TOL} used at the worst element, with the "
+                  f"reference's value there: {used}")
+        for k in truth:
+            if not (torch.isfinite(heads["cuda"][k]).all()
+                    and shares["card"][k] <= F32_HEAD_SHARE):
+                raise AssertionError(f"second evaluate: head {k} card vs "
+                                     f"float64: {detail}")
+            if not shares["tf32_control"][k] > F32_HEAD_SHARE:
+                raise AssertionError(f"second evaluate: the TF32 control "
+                                     f"of head {k} is within the limit: "
+                                     f"{detail}")
         counts = {}
         for thr in thresholds:
             diff = detections_mismatch(dets["cuda", thr], dets["cpu", thr],
@@ -2821,9 +2995,11 @@ def train_second(card: str) -> dict:
                                      f"validation frames: {diff}")
             counts[thr] = int(dets["cpu", thr]["valid"].sum())
         log(f"second training [{card}]: validation frames 0 and 1: heads "
-            f"card vs CPU max abs diff {err} (within {HEAD_TOL}); "
-            f"detections equal the CPU run's as sets ({counts} boxes by "
-            f"score threshold)")
+            f"on the card within F32_HEAD_SHARE of float64, the TF32 "
+            f"control outside: {detail}; detections equal the CPU run's as "
+            f"sets ({counts} boxes by score threshold)")
+        report["heads_vs_f64"] = {"share_of_max": shares,
+                                  "head_tol_used": used}
         report["perfect_ap"] = {k: v for k, v in perfect_eval(
             root / "kitti_infos_val.pkl", card).items() if k != "result_str"}
 
@@ -2840,7 +3016,8 @@ def train_second(card: str) -> dict:
             f"{steps + SECOND_RESUME_STEPS} resumed at step {steps} and "
             f"ended at {state2.step}")
     return {"launches": launches, "report": report, "wcalls": wcalls,
-            "fcalls": fcalls, "step": lambda: step_fn(state, example)}
+            "fcalls": fcalls, "mcalls": mcalls,
+            "step": lambda: step_fn(state, example)}
 
 
 # --------------------------------------------------------------------------
@@ -3229,7 +3406,12 @@ def train_all_fhd(card: str, tmp: Path, root: Path) -> dict:
     falls; every join's backward kernels of one step against the plain
     backward; one step at B = 2, float32 on the kernels against float64
     on the plain versions (:func:`second_step_mismatch`); ``evaluate``
-    prints the three-class table.  -> {"launches", "report"}."""
+    prints the three-class table.  The key-match backward's rulebook
+    (``keymatch_rulebook``, a hash table of the keys) of every join of
+    that step against its plain version, on keys that do not ascend
+    where the config has no ``sort_voxels_by_key``; the largest lookup on
+    such keys timed against ``_merge_lookup`` in turns.
+    -> {"launches", "report"}."""
     what = "all.fhd training"
     config = kitti_config(ALL_FHD_CONFIG, tmp, root)
     bundle = train_mod.Bundle(config)
@@ -3278,6 +3460,7 @@ def train_all_fhd(card: str, tmp: Path, root: Path) -> dict:
     train_launches = {n: fn.launches for n, fn in KERNELS.items()}
     expect_launches(what, train_launches, {
         "keymatch_gemm": joins * steps, "join_grad_weights": joins * steps,
+        "rulebook_hits": joins * steps, "keymatch_rulebook": joins * steps,
         "join_grad_features": (joins - 1) * steps,
         "rulebook_inverse": (joins - 1) * steps})
     log(f"{what} [{card}]: {steps} steps of train() in {wall:.2f} s wall "
@@ -3291,25 +3474,61 @@ def train_all_fhd(card: str, tmp: Path, root: Path) -> dict:
     examples = [prep_ds.example(*next(stream)) for _ in range(6)]
     example = train_mod.to_device(batching.merge_batch(examples), "cuda")
     step_fn = train_mod.make_train_step(train_mod.Bundle(config))
-    wcalls, fcalls = [], []
+    wcalls, fcalls, mcalls = [], [], []
     sgg = sparse_gather_gemm
     with torch.enable_grad(), recording(sgg, "join_grad_weights", wcalls), \
-            recording(sgg, "join_grad_features", fcalls):
+            recording(sgg, "join_grad_features", fcalls), \
+            recording(sgg, "keymatch_rulebook", mcalls):
         step_fn(state, example)
     torch.cuda.synchronize()
+    if (len(wcalls), len(fcalls), len(mcalls)) != (joins, joins - 1,
+                                                   joins):
+        raise AssertionError(f"{what}: one step recorded {len(wcalls)} dW, "
+                             f"{len(fcalls)} dfeatures and {len(mcalls)} "
+                             f"key-lookup calls")
     by_rulebook = {id(c[0][1]): c for c in fcalls}
-    worst = 0.0
+    worst, unordered = 0.0, []
     with torch.no_grad():
-        for wcall in wcalls:
+        for i, (wcall, mcall) in enumerate(zip(wcalls, mcalls)):
+            (in_keys, q_keys), _ = mcall
+            idx, found = wcall[0][1], wcall[0][2]
+            ref_idx, ref_found = sgg.keymatch_rulebook_plain(in_keys, q_keys)
+            if not (torch.equal(found, ref_found) and torch.equal(
+                    idx[found], ref_idx[found])):
+                raise AssertionError(f"{what}: join {i}: keymatch_rulebook "
+                                     f"kernel != plain version")
+            if not bool(sgg._ascending(in_keys)):
+                unordered.append(i)
             _, errs = check_join(wcall, by_rulebook.get(id(wcall[0][1])))
             worst = max(worst, *errs.values())
-    if (len(wcalls), len(fcalls)) != (joins, joins - 1):
-        raise AssertionError(f"{what}: one step recorded {len(wcalls)} dW "
-                             f"and {len(fcalls)} dfeatures calls")
     log(f"{what} [{card}]: one step's {len(wcalls)} joins: backward kernels "
         f"vs plain within {worst:.3g} of max |g| (tolerance "
-        f"{JOIN_GRAD_TOL})")
-    del wcalls, fcalls
+        f"{JOIN_GRAD_TOL}); every join's rulebook lookup equal to "
+        f"_merge_lookup's; joins whose keys do not ascend: {unordered} of "
+        f"{list(range(len(mcalls)))}")
+    lookup = {}
+    if unordered:
+        at = max(unordered, key=lambda i: mcalls[i][0][1].numel())
+        (in_keys, q_keys), _ = mcalls[at]
+        with torch.no_grad():
+            turns = take_turns({
+                "rulebook": lambda: sgg.keymatch_rulebook(in_keys, q_keys),
+                "rulebook_plain": lambda: sgg.keymatch_rulebook_plain(
+                    in_keys, q_keys)})
+        # the keys and query keys read once, idx and found written once
+        book_bytes = (in_keys.numel() + q_keys.numel()) * 4 + \
+            q_keys.numel() * 5
+        lookup = {"join": at, "shape": list(q_keys.shape),
+                  "n": in_keys.shape[-1], "ms": turns["rulebook"],
+                  "plain_ms": turns["rulebook_plain"],
+                  "bound_ms": book_bytes / PEAK_BYTES_PER_S * 1e3}
+        log(f"{what} [{card}]: the largest rulebook lookup on keys that "
+            f"do not ascend, join {at} (q_keys {list(q_keys.shape)}, "
+            f"N={in_keys.shape[-1]}), in turns: keymatch_rulebook "
+            f"{fmt_range(turns['rulebook'])}; "
+            f"plain, _merge_lookup, {fmt_range(turns['rulebook_plain'])}; "
+            f"bound {lookup['bound_ms']:.5f} ms by bytes")
+    del wcalls, fcalls, mcalls
     ev = cuda_ms(lambda: step_fn(state, example), iters=5, warmup=1)
     log(f"{what} [{card}]: device step (B=6, synchronised, events) "
         f"{fmt_range(ev)}")
@@ -3342,7 +3561,10 @@ def train_all_fhd(card: str, tmp: Path, root: Path) -> dict:
                          "all.fhd evaluate": eval_launches},
             "report": {"steps": steps, "wall_s": wall, "windows": windows,
                        "site_caps": caps, "saturated": saturated,
-                       "join_backward_worst": worst, "device_step_ms": ev,
+                       "join_backward_worst": worst,
+                       "rulebook_unordered_joins": unordered,
+                       "rulebook_unordered_lookup": lookup,
+                       "device_step_ms": ev,
                        "f32_vs_f64": summary}}
 
 
@@ -3661,8 +3883,8 @@ def car_fhd_mixed(card: str, tmp: Path, root: Path, fp32_pod) -> dict:
     B = 2 requests through ``pod_inference_from_checkpoint`` (rulebooks
     built on the device), the heads of the bf16 run on the kernels held
     against the bf16 run on the plain versions with the control
-    (:func:`hold_bf16_heads`: the taps reversed), and the RPN's share of a request beside car.fhd's float32 one
-    (``fp32_pod``)."""
+    (:func:`hold_bf16_heads`: the taps reversed), and the RPN's share of
+    a request beside car.fhd's float32 one (``fp32_pod``)."""
     what = "car.fhd.mixed"
     config = kitti_config(MIXED_CONFIG, tmp, root)
     bundle = train_mod.Bundle(config)
@@ -3670,7 +3892,8 @@ def car_fhd_mixed(card: str, tmp: Path, root: Path, fp32_pod) -> dict:
     joins = sum(b.n_subm + 1 for b in plan)
     run = train_host_rulebook(config, what, card, {
         "gather_gemm_bf16": joins, "join_grad_weights": joins,
-        "join_grad_features": joins - 1, "rulebook_inverse": joins - 1})
+        "rulebook_hits": joins, "join_grad_features": joins - 1,
+        "rulebook_inverse": joins - 1})
     if sparse_gather_gemm.rulebook_collisions("cuda"):
         raise AssertionError(f"{what}: a host rulebook is not a "
                              f"convolution's")
@@ -3892,6 +4115,7 @@ def mixed_keymatch(card: str, tmp: Path, root: Path) -> dict:
         expect_launches(f"{what} training", tr_launches, {
             k: v * HOST_RB_STEPS for k, v in {
                 "keymatch_gemm_bf16": joins, "join_grad_weights": joins,
+                "rulebook_hits": joins, "keymatch_rulebook": joins,
                 "join_grad_features": joins - 1,
                 "rulebook_inverse": joins - 1}.items()})
         if seen != {(False, False)}:
@@ -4132,10 +4356,13 @@ def main() -> int:
         # the joins' backward, shared by the two families: its numbers go
         # into both entries
         bw_fields, bw_fns, bw_ev = phase_join_backward(
-            second_training["wcalls"], second_training["fcalls"], card)
-        del second_training["wcalls"], second_training["fcalls"]
-        bw_counters = ["rulebook_inverse", "join_grad_features",
-                       "join_grad_weights"]
+            second_training["wcalls"], second_training["fcalls"],
+            second_training["mcalls"], card)
+        del (second_training["wcalls"], second_training["fcalls"],
+             second_training["mcalls"])
+        bw_counters = ["keymatch_rulebook", "rulebook_hits",
+                       "join_grad_weights", "rulebook_inverse",
+                       "join_grad_features"]
         for entry, fns, ev in phases[3:5]:
             entry.update(bw_fields, backward_counters=bw_counters,
                          backward_launches={c: total[c]

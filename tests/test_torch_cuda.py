@@ -506,8 +506,8 @@ def test_pillar_scatter_bf16_kernels_equal_plain(cuda, C):
 
 
 def _join_grad_launches():
-    return (sgg.rulebook_inverse.launches, sgg.join_grad_features.launches,
-            sgg.join_grad_weights.launches)
+    return (sgg.rulebook_hits.launches, sgg.rulebook_inverse.launches,
+            sgg.join_grad_features.launches, sgg.join_grad_weights.launches)
 
 
 @pytest.mark.parametrize("family", ["keymatch", "gather", "strided"])
@@ -517,8 +517,9 @@ def _join_grad_launches():
 def test_sparse_join_backward_kernels_equal_plain(cuda, family, K, cin,
                                                   cout):
     """The gradients of a join on the card (the rulebook's inverse and the
-    gather-GEMM kernel for dfeatures, the per-tap reduction for dW)
-    against the plain backward on the same rulebook: rtol and atol
+    kernel over the rows each tap hits for dfeatures, the hits of each tap
+    and the per-tap reduction GEMM for dW) against the plain backward on
+    the same rulebook: rtol and atol
     chip_smoke.JOIN_GRAD_TOL of max|g|; pad rows get exactly 0; dfeatures
     only where the input needs it (Cin = 4: the voxel means); the same
     bits twice; no rulebook collision."""
@@ -552,10 +553,13 @@ def test_sparse_join_backward_kernels_equal_plain(cuda, family, K, cin,
         return f.grad, wt.grad
 
     before = _join_grad_launches()
+    lookups = sgg.keymatch_rulebook.launches
     df, dw = grads()
     torch.cuda.synchronize()
     after = _join_grad_launches()
-    assert after == (before[0] + need_f, before[1] + need_f, before[2] + 1)
+    assert after == (before[0] + 1, before[1] + need_f, before[2] + need_f,
+                     before[3] + 1)
+    assert sgg.keymatch_rulebook.launches == lookups + (family == "keymatch")
     ref_f, ref_w = sgg.join_backward_plain(feats, idx, found, w, g)
     tol = chip_smoke.JOIN_GRAD_TOL
     torch.testing.assert_close(dw, ref_w, rtol=tol,
@@ -571,6 +575,146 @@ def test_sparse_join_backward_kernels_equal_plain(cuda, family, K, cin,
     assert sgg.rulebook_collisions(cuda) == 0
 
 
+def _gather_join(cuda, K, cin, cout, B=2, n=700, pad=68):
+    """A submanifold gather join: (feats, idx, found, w, valid)."""
+    feats, coords, valid, _, _, w, grid, kernel = _sparse_join(
+        cuda, K, cin, cout, B=B, n=n, pad=pad)
+    rb = sparse_conv.build_submanifold_rulebook_merge(coords, valid, grid,
+                                                      kernel)
+    return feats, rb.gather_idx, rb.found.clone(), w, valid
+
+
+def _hold_join_grads(feats, idx, found, w, dout, need_f=True):
+    """Both backward kernels against the plain backward (JOIN_GRAD_TOL of
+    max |g|), the same bits twice.  -> (dfeatures, dW)."""
+    N = feats.shape[-2]
+    got = [(sgg.join_grad_features(dout, idx, found, w, N) if need_f
+            else None, sgg.join_grad_weights(feats, idx, found, dout))
+           for _ in range(2)]
+    ref_f, ref_w = sgg.join_backward_plain(feats, idx, found, w, dout,
+                                           need_f)
+    torch.cuda.synchronize()
+    tol = chip_smoke.JOIN_GRAD_TOL
+    for g, ref in ((got[0][0], ref_f), (got[0][1], ref_w)):
+        if ref is None:
+            continue
+        torch.testing.assert_close(g, ref, rtol=tol,
+                                   atol=tol * float(ref.abs().max()))
+    assert torch.equal(got[0][1], got[1][1])
+    assert not need_f or torch.equal(got[0][0], got[1][0])
+    return got[0]
+
+
+@pytest.mark.parametrize("case", ["tap_without_hits", "many_parts",
+                                  "one_element", "unbatched"])
+def test_sparse_join_backward_edge_cases(cuda, case):
+    """A tap that no row hits (its dW is exactly 0) and rows that hit
+    nothing; a join whose taps' hits span many parts of the dW reduction
+    (6000 sites in each 12 x 40 x 40 grid: every tap's hits in every part,
+    and the centre tap's parts of more chunks than the ring has stages);
+    B = 1; the unbatched call form."""
+    B, n = (2, 6000) if case == "many_parts" else (2, 700)
+    if case == "one_element":
+        B = 1
+    feats, idx, found, w, valid = _gather_join(cuda, 27, 32, 64, B=B, n=n)
+    if case == "tap_without_hits":
+        found[:, 5] = False
+        found[:, :, 64:128] = False
+    dout = torch.randn(B, idx.shape[-1], 64, device=cuda)
+    df, dw = _hold_join_grads(feats, idx, found, w, dout)
+    hits, counts = sgg.rulebook_hits(idx, found, feats.shape[-2])
+    assert bool((df[~valid] == 0).all())
+    if case == "tap_without_hits":
+        assert int(counts[5]) == 0 and bool((dw[5] == 0).all())
+    if case == "many_parts":
+        fn = sgg._build.function("sparse_join_grad", "tap_grad_parts",
+                                 (sgg._I,) * 5)
+        parts = fn(B, idx.shape[-1], 27, 32, 64)
+        assert parts > 1 and int(counts.min()) >= 2 * parts
+        assert int(counts.max()) > 2 * 32 * parts
+    if case == "unbatched":
+        # an element alone: its dfeatures bit for bit the batched call's
+        one_f, _ = _hold_join_grads(feats[1], idx[1], found[1], w, dout[1])
+        assert torch.equal(one_f, df[1])
+
+
+@pytest.mark.parametrize("K,cin,cout,need_f", [
+    (27, 128, 128, True), (27, 8, 128, True), (27, 128, 8, True),
+    (27, 3, 6, False), (27, 24, 40, False)])
+def test_sparse_join_backward_other_widths(cuda, K, cin, cout, need_f):
+    """Widths beyond the SECOND joins: two output tiles along Cin and
+    Cout (128), the narrowest tiles, and rows that copy as 4-byte chunks
+    (dW only where Cin is not a width of the dfeatures kernel)."""
+    feats, idx, found, w, _ = _gather_join(cuda, K, cin, cout)
+    dout = torch.randn(idx.shape[0], idx.shape[-1], cout, device=cuda)
+    _hold_join_grads(feats, idx, found, w, dout, need_f)
+
+
+@pytest.mark.parametrize("family", ["gather", "strided"])
+def test_rulebook_hits_kernel_equals_plain(cuda, family):
+    """The compaction: each tap's hits (feature row, dout row) in
+    ascending dout row and their count, equal to the row-ordered
+    ``nonzero`` of ``found`` (the plain version); entries out of range
+    clipped where found."""
+    feats, coords, valid, _, _, w, grid, kernel = _sparse_join(cuda, 27, 16,
+                                                               16)
+    if family == "strided":
+        layout = sparse_conv.build_strided_layout_merge(
+            coords, valid, grid, (3, 3, 3), (2, 2, 2), (1, 1, 1), 1024)
+        idx, found = layout.gather_idx, layout.found
+    else:
+        rb = sparse_conv.build_submanifold_rulebook_merge(coords, valid, grid,
+                                                          kernel)
+        idx, found = rb.gather_idx.clone(), rb.found
+        idx[:, :, ::7] = -5                      # clipped where found
+    N = feats.shape[1]
+    before = sgg.rulebook_hits.launches
+    hits, counts = sgg.rulebook_hits(idx, found, N)
+    ref, ref_counts = sgg.rulebook_hits_plain(idx.cpu(), found.cpu(), N)
+    torch.cuda.synchronize()
+    assert sgg.rulebook_hits.launches == before + 1
+    assert torch.equal(counts.cpu(), ref_counts)
+    assert int(counts.sum()) == int(found.sum()) > 0
+    for k in range(27):
+        n = int(counts[k])
+        assert torch.equal(hits[k, :n].cpu(), ref[k, :n])
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "sentinels",
+                                  "one_element", "unbatched", "strided"])
+def test_keymatch_rulebook_kernel_equals_plain(cuda, case):
+    """The key-match backward's rulebook by its hash table lookup
+    against ``_merge_lookup`` (the plain version): ``found`` equal, ``idx``
+    equal where found; key-sorted sites, unsorted keys, absent keys and
+    sentinel queries, B = 1, the unbatched form, a strided join's query
+    keys."""
+    feats, coords, valid, in_keys, q_keys, w, grid, kernel = _sparse_join(
+        cuda, 27, 16, 16, sort_keys=case != "unsorted",
+        B=1 if case == "one_element" else 2)
+    if case == "sentinels":
+        q_keys = q_keys.clone()
+        q_keys[..., 64:96] = 12 * 40 * 40 + 7      # outside the grid's keys
+        q_keys[..., 96:128] = sparse_conv.INT32_MAX
+    if case == "strided":
+        sites = sparse_conv.build_strided_sites(coords, valid, grid,
+                                                (3, 3, 3), (2, 2, 2),
+                                                (1, 1, 1), 1024)
+        q_keys = sparse_conv.strided_tap_keys(sites, grid, (3, 3, 3),
+                                              (2, 2, 2), (1, 1, 1))
+    if case == "unbatched":
+        in_keys, q_keys = in_keys[1], q_keys[1]
+    before = sgg.keymatch_rulebook.launches
+    idx, found = sgg.keymatch_rulebook(in_keys, q_keys)
+    ref_idx, ref_found = sgg.keymatch_rulebook_plain(in_keys, q_keys)
+    torch.cuda.synchronize()
+    assert sgg.keymatch_rulebook.launches == before + 1
+    assert idx.dtype == torch.int32 and idx.shape == q_keys.shape
+    assert torch.equal(found, ref_found) and bool(found.any())
+    assert torch.equal(idx[found], ref_idx[found])
+    if case == "sentinels":
+        assert not bool(found[..., 64:128].any())
+
+
 def test_rulebook_inverse_kernel_counts_collisions(cuda):
     """A rulebook that is no convolution's (two rows of a tap read one
     input row): the inverse kernel counts the entry it cannot place;
@@ -580,10 +724,10 @@ def test_rulebook_inverse_kernel_counts_collisions(cuda):
     found = torch.tensor([[[1, 1, 0, 1], [1, 1, 1, 0]]], dtype=torch.bool,
                          device=cuda)
     before = sgg.rulebook_collisions(cuda)
-    inv, inv_found = sgg.rulebook_inverse(idx, found, 5)
+    inv = sgg.rulebook_inverse(idx, found, 5)
     assert sgg.rulebook_collisions(cuda) == before + 1
-    ref, ref_found = sgg.rulebook_inverse_plain(idx, found, 5)
-    assert torch.equal(inv_found, ref_found)
+    ref = sgg.rulebook_inverse_plain(idx, found, 5)
+    assert torch.equal(inv >= 0, ref >= 0)
     assert torch.equal(inv[0, 0], ref[0, 0])
     assert int(inv[0, 1, 3]) in (0, 1) and int(inv[0, 1, 0]) == 2
 

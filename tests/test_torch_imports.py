@@ -61,7 +61,10 @@ import automatic_as_built_reconstruction_tpu_torch.data.synth_kitti
 import automatic_as_built_reconstruction_tpu_torch.cli
 import automatic_as_built_reconstruction_tpu_torch.ops.rulebook_host
 import chip_smoke
+import head_drift
+import join_grad_ablation
 import rotated_iou_ablation
+import second_step_ab
 import sparse_gemm_ablation
 import train_precision
 import voxel_mean_ablation

@@ -5,9 +5,12 @@ runs them), in every call form, batched, with unsorted keys, sentinel
 rows, a strided join and an input that needs no gradient.
 
 On the CPU the port's wrappers run as autograd Functions over the plain
-forward and ``join_backward_plain``.  The card's route (the rulebook's
-inverse, then the forward gather-GEMM on ``W[k]^T``) is held here to the
-plain backward through the plain versions of its two steps.
+forward and ``join_backward_plain``.  The card's routes are held here to
+the plain backward and to the JAX package's backward through the plain
+versions of their steps: dfeatures as the rulebook's inverse, then each
+input row's sum over the taps that hit it of ``dout[inv] @ W[k]^T``; dW
+as the hits of each tap (the row-ordered ``nonzero`` of ``found``), then
+``A^T D`` over them.
 
 Tolerance: rtol 1e-5, atol 1e-5 x max|g| of the gradient (a 27-tap sum of
 8- and 16-channel fp32 products taken in another order).
@@ -198,42 +201,159 @@ def test_no_features_gradient_where_none_is_needed(monkeypatch):
     assert out.grad_fn is None
 
 
-@pytest.mark.parametrize("strided", [False, True], ids=["subm", "strided"])
-def test_the_card_route_for_dfeatures_is_the_plain_backward(strided):
-    """dfeatures as the card computes it, through the plain versions of
-    its steps: the rulebook's inverse (each input row at most once per
-    tap, for a submanifold and a strided join alike), then the forward
-    gather-GEMM on (dout, inverse, W[k]^T), batched."""
-    probs = [padded_problem(s, strided=strided) for s in (40, 41)]
-    idx, found = [], []
+def batched_rulebook(strided, seeds=(40, 41)):
+    """Two problems' rulebooks stacked (the port's builders), their
+    features, one weight set and a cotangent: (feats, idx, found, w, dout,
+    the JAX rulebooks)."""
+    probs = [padded_problem(s, strided=strided) for s in seeds]
+    idx, found, jrb = [], [], []
     for feats, coords, valid, *_ in probs:
         tc, tv = t(coords), t(valid)
         if strided:
-            k, s, p, cap = STRIDED
-            rb = sc.build_strided_layout_merge(tc, tv, GRID, k, s, p, cap)
+            k, s_, p, cap = STRIDED
+            rb = sc.build_strided_layout_merge(tc, tv, GRID, k, s_, p, cap)
         else:
             rb = sc.build_submanifold_rulebook_merge(tc, tv, GRID)
         idx.append(rb.gather_idx)
         found.append(rb.found)
+        jrb.append(rulebook(coords, valid, strided))
     idx, found = torch.stack(idx), torch.stack(found)
-    N = probs[0][0].shape[0]
+    feats = t(np.stack([p[0] for p in probs]))
     w = t(probs[0][5])
-    dout = t(cotangent((2, idx.shape[-1], w.shape[2]), 42))
-    inv, inv_found = sgg.rulebook_inverse_plain(idx, found, N)
+    dout = t(cotangent((2, idx.shape[-1], w.shape[2]), seeds[0] + 2))
+    return feats, idx, found, w, dout, jrb
+
+
+def jax_backward(feats, jrb, w, dout, shared=True):
+    """(dfeatures, dW) of the JAX package's ``_gather_gemm_bwd`` mapped
+    over the batch element by element (dW summed)."""
+    dfs, dws = [], []
+    for b, rb in enumerate(jrb):
+        res = (jnp.asarray(feats[b].numpy()), rb.gather_idx, rb.found,
+               jnp.asarray(w.numpy()))
+        jf, _, _, jw = jsgg._gather_gemm_bwd(True, TILE, WINDOW, shared, res,
+                                             jnp.asarray(dout[b].numpy()))
+        dfs.append(np.asarray(jf))
+        dws.append(np.asarray(jw))
+    return np.stack(dfs), sum(dws)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["subm", "strided"])
+def test_the_card_route_for_dfeatures_is_the_plain_backward(strided):
+    """dfeatures as the card computes it, through the plain versions of
+    its steps: the rulebook's inverse (each input row at most once per
+    tap, for a submanifold and a strided join alike), then each input
+    row's sum of ``dout[inv[k, j]] @ W[k]^T`` over the taps that hit it,
+    in tap order, batched; against the plain backward and the JAX
+    package's ``custom_vjp`` backward."""
+    feats, idx, found, w, dout, jrb = batched_rulebook(strided)
+    N = feats.shape[1]
+    inv = sgg.rulebook_inverse_plain(idx, found, N)
     # a convolution's rulebook: the inverse holds every found entry once
-    assert int(inv_found.sum()) == int(found.sum()) > 0
+    assert int((inv >= 0).sum()) == int(found.sum()) > 0
     rows = torch.gather(inv.long().clamp(min=0), -1,
                         idx.long().clamp(0, N - 1))
     r = torch.arange(idx.shape[-1]).expand(idx.shape)
     assert bool((rows == r)[found].all())
-    # (the kernel reads inv = -1 as no source; the plain gather needs an
-    # index in range where inv_found is false)
-    via_inverse = sgg.gather_gemm_plain(dout, inv.clamp(min=0), inv_found,
-                                        w.transpose(1, 2))
+    via_inverse = sgg.grad_features_from_inverse_plain(dout, inv, w)
     want = sgg.grad_features_plain(dout, idx, found, w, N)
     np.testing.assert_allclose(via_inverse.numpy(), want.numpy(), rtol=RTOL,
                                atol=ATOL_SHARE * float(want.abs().max()))
+    assert_grad(via_inverse, jax_backward(feats, jrb, w, dout)[0],
+                "dfeatures through the inverse")
     assert torch.equal(sgg.join_grad_features(dout, idx, found, w, N), want)
+
+
+@pytest.mark.parametrize("strided", [False, True], ids=["subm", "strided"])
+def test_the_card_route_for_dw_is_the_plain_backward(strided):
+    """dW as the card computes it, through the plain versions of its
+    steps: each tap's hits, which are the row-ordered ``nonzero`` of its
+    ``found`` (feature row ``b N + j`` with j clipped, dout row ``b R +
+    r``), then ``A^T D`` over them; against the plain backward and the
+    JAX package's ``custom_vjp`` backward."""
+    feats, idx, found, w, dout, jrb = batched_rulebook(strided)
+    B, K, R = idx.shape
+    N = feats.shape[1]
+    hits, counts = sgg.rulebook_hits_plain(idx, found, N)
+    assert hits.shape == (K, B * R, 2) and int(counts.sum()) == int(
+        found.sum()) > 0
+    for k in range(K):
+        b, r = np.nonzero(found[:, k].numpy())
+        n = int(counts[k])
+        assert n == b.size
+        j = np.clip(idx[:, k].numpy()[b, r], 0, N - 1)
+        np.testing.assert_array_equal(hits[k, :n, 0].numpy(), b * N + j)
+        np.testing.assert_array_equal(hits[k, :n, 1].numpy(), b * R + r)
+        assert bool((hits[k, n:] == -1).all())
+    via_hits = sgg.grad_weights_from_hits_plain(feats, dout, hits, counts)
+    want = sgg.grad_weights_plain(feats, idx, found, dout)
+    np.testing.assert_allclose(via_hits.numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL_SHARE * float(want.abs().max()))
+    assert_grad(via_hits, jax_backward(feats, jrb, w, dout)[1],
+                "dW through the hits")
+    assert torch.equal(sgg.join_grad_weights(feats, idx, found, dout), want)
+
+
+def test_the_card_routes_clip_and_skip_like_the_reference():
+    """Entries out of range are clipped to [0, N) where found and an entry
+    not found adds nothing, in the hits and the inverse alike; a tap with
+    no hit has an empty list and a zero dW."""
+    rng = np.random.default_rng(44)
+    B, N, K, R, ci, co = 2, 12, 4, 9, 4, 8
+    feats = t(rng.normal(size=(B, N, ci)).astype(np.float32))
+    idx = rng.integers(-3, N + 3, (B, K, R)).astype(np.int32)
+    found = rng.random((B, K, R)) < 0.7
+    found[:, 2] = False                            # a tap with no hit
+    dout = t(rng.normal(size=(B, R, co)).astype(np.float32))
+    hits, counts = sgg.rulebook_hits_plain(t(idx), t(found), N)
+    assert int(counts[2]) == 0
+    assert bool(((hits[..., 0] >= -1) & (hits[..., 0] < B * N)).all())
+    dw = sgg.grad_weights_from_hits_plain(feats, dout, hits, counts)
+    want = sgg.grad_weights_plain(feats, t(idx), t(found), dout)
+    assert bool((dw[2] == 0).all())
+    np.testing.assert_allclose(dw.numpy(), want.numpy(), rtol=RTOL,
+                               atol=ATOL_SHARE * float(want.abs().max()))
+    # the inverse of a rulebook with one row a tap read at most once
+    perm = np.stack([np.stack([rng.permutation(N)[:R] - 2 * (k == 0)
+                               for k in range(K)]) for _ in range(B)])
+    pidx = t(perm.astype(np.int32))
+    pfound = t(found & (perm >= 0))
+    inv = sgg.rulebook_inverse_plain(pidx, pfound, N)
+    w = t(rng.normal(size=(K, ci, co)).astype(np.float32))
+    np.testing.assert_allclose(
+        sgg.grad_features_from_inverse_plain(dout, inv, w).numpy(),
+        sgg.grad_features_plain(dout, pidx, pfound, w, N).numpy(),
+        rtol=RTOL, atol=ATOL_SHARE * 10)
+
+
+def test_keymatch_backward_looks_up_its_rulebook_once(monkeypatch):
+    """The key-match backward joins on ``keymatch_rulebook`` (on the CPU
+    its plain version, ``_merge_lookup``, as the reference's
+    ``_keymatch_bwd`` looks it up): one lookup a backward, the rulebook
+    the backward functions get."""
+    feats, _, _, in_keys, q_keys, w = padded_problem(45)
+    g = cotangent((q_keys.shape[1], w.shape[2]), 46)
+    looked, joined = [], []
+    lookup, grad_w = sgg.keymatch_rulebook, sgg.join_grad_weights
+
+    def spy_lookup(*args):
+        looked.append(lookup(*args))
+        return looked[-1]
+
+    def spy_grad_w(features, idx, found, dout):
+        joined.append((idx, found))
+        return grad_w(features, idx, found, dout)
+
+    monkeypatch.setattr(sgg, "keymatch_rulebook", spy_lookup)
+    monkeypatch.setattr(sgg, "join_grad_weights", spy_grad_w)
+    port_grads(lambda f, wt: sgg.keymatch_gemm(f, t(in_keys), t(q_keys), wt),
+               feats, w, g)
+    assert len(looked) == len(joined) == 1
+    assert joined[0][0] is looked[0][0] and joined[0][1] is looked[0][1]
+    idx, hit = sc._merge_lookup(t(in_keys), t(q_keys).flatten())
+    assert torch.equal(looked[0][1], hit.view(q_keys.shape))
+    assert torch.equal(looked[0][0][looked[0][1]],
+                       idx.view(q_keys.shape)[looked[0][1]])
 
 
 def test_join_backward_plain_clips_and_masks_like_the_reference():
@@ -254,3 +374,29 @@ def test_join_backward_plain_clips_and_masks_like_the_reference():
                                      t(dout))
     assert_grad(df, jf, "dfeatures")
     assert_grad(dw, jw, "dW")
+
+
+def test_ablation_variants_follow_the_kernel_source():
+    """``join_grad_ablation.py`` derives its timing variants from
+    ``csrc/sparse_join_grad.cu``: a leave-out probe by text substitution,
+    which must still apply exactly once and change the source; an
+    alternative by a -D flag, which must name a tuning constant that the
+    source guards with ``#ifndef`` and set it to another value than its
+    default."""
+    import re
+
+    import join_grad_ablation as ablation
+
+    sources = ablation.variant_sources()
+    shipped = ablation.SOURCE.read_text()
+    assert sources.pop("kernels") == shipped
+    assert sources
+    for name, src in sources.items():
+        _, subs, defines = ablation.VARIANTS[name]
+        assert bool(subs) != bool(defines), name
+        if subs:
+            assert src != shipped, name
+        for macro, value in defines.items():
+            default = re.search(rf"#ifndef {macro}\n#define {macro} (\d+)\n",
+                                shipped)
+            assert default and int(default.group(1)) != value, name
