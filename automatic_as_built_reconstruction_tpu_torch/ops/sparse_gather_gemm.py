@@ -33,11 +33,16 @@ is the launch grid's second axis).
 Both joins also take bfloat16 features and weights (the middle of
 ``compute_dtype="bfloat16"``: ``car.fhd.mixed``'s gather joins, the
 key-match joins of ``car.fhd`` and ``car.fhd.serving`` with
-``enable_mixed_precision``): a second form of the kernel's tile, with
-either lookup, multiplies them on the tensor cores as ``mma.sync`` bf16
-with float32 accumulation, in one pass (a product of two bfloat16 values
-is exact in float32), and gives float32; its launches count on
-:func:`gather_gemm_bf16` and :func:`keymatch_gemm_bf16`.  The plain
+``enable_mixed_precision``): a second tile, designed for Hopper, with
+either lookup: 128 output rows a block and two warpgroups, a ring of
+three stages on mbarriers into which ``W[k]`` comes by the tensor memory
+accelerator and each warpgroup copies its own rows with ``cp.async``,
+two taps ahead of the products, which run on ``wgmma`` (bf16 x bf16 ->
+float32, each tap's partial added to the sums in tap order; a product of
+two bfloat16 values is exact in float32); it gives float32
+(:func:`bf16_tile` reports its rows, stages, shared memory and blocks an
+SM at a shape), and its launches count on :func:`gather_gemm_bf16` and
+:func:`keymatch_gemm_bf16`.  The plain
 versions, :func:`gather_gemm_plain` and :func:`keymatch_gemm_plain`,
 multiply the bfloat16 inputs upcast to float32.  The backward kernels
 take float32 only and raise on anything else.
@@ -166,6 +171,20 @@ def _check_cuda(features, weights, others: dict,
         raise ValueError(f"weights {tuple(weights.shape)}: empty")
 
 
+def bf16_tile(K: int, Cin: int, Cout: int) -> dict:
+    """The bfloat16 tile at a join's shape: {"rows": output rows a block,
+    "stages": the depth of its ring, "smem_bytes": its shared memory,
+    "blocks_per_sm": how many of its blocks fit an SM at once} (builds the
+    library; needs a GPU for the last; no launch)."""
+    fn = _build.function("sparse_gather_gemm", "sparse_gemm_bf16_tile",
+                         (_I, _I, _I, _P))
+    out = (ctypes.c_int * 4)()
+    _build.check(fn(K, Cin, Cout, ctypes.addressof(out)),
+                 "sparse_gemm_bf16_tile")
+    return {"rows": out[0], "stages": out[1], "smem_bytes": out[2],
+            "blocks_per_sm": out[3]}
+
+
 def _check_smem(K: int, Cin: int, Cout: int,
                 symbol: str = "sparse_gemm_smem_bytes") -> None:
     fn = _build.function("sparse_gather_gemm", symbol, (_I, _I, _I))
@@ -174,17 +193,18 @@ def _check_smem(K: int, Cin: int, Cout: int,
                          f"memory than a block has ({MAX_SMEM_BYTES} bytes)")
 
 
-def _aligned4(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 4-byte aligned address (the bf16 tile's
-    narrowest ``cp.async`` copies 4 bytes)."""
+def _aligned(t: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """``t`` contiguous at an ``nbytes``-aligned address (the bf16 tile's
+    narrowest ``cp.async`` of the features copies 4 bytes; its weights
+    come by the tensor memory accelerator, which wants 16)."""
     t = t.contiguous()
-    return t if t.data_ptr() % 4 == 0 else t.clone()
+    return t if t.data_ptr() % nbytes == 0 else t.clone()
 
 
 def _kernel_operands(features, weights):
     """(features, weights) as the tile takes them, its shared memory
     checked: the float32 tile, or for bfloat16 the tile's bfloat16 form
-    (an even Cin, 4-byte aligned operands)."""
+    (an even Cin, 4-byte aligned features, 16-byte aligned weights)."""
     K, Cin, Cout = weights.shape
     if features.dtype != torch.bfloat16:
         _check_smem(K, Cin, Cout)
@@ -192,7 +212,7 @@ def _kernel_operands(features, weights):
     if Cin % 2:
         raise ValueError(f"the bfloat16 kernel takes an even Cin, got {Cin}")
     _check_smem(K, Cin, Cout, "sparse_gemm_bf16_smem_bytes")
-    return _aligned4(features), _aligned4(weights)
+    return _aligned(features, 4), _aligned(weights, 16)
 
 
 def _launch_gather(features, gather_idx, found, weights) -> torch.Tensor:

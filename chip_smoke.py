@@ -558,33 +558,39 @@ def launch_floor(lib: Path, card: str, grids: dict) -> dict:
 
 def check_sparse_gemm_sass() -> None:
     """Every instantiation of the two float32 sparse-GEMM kernels
-    multiplies on the tensor cores in TF32 (HMMA ... TF32), every one of
-    the two joins' bfloat16 forms in bf16 (HMMA ... BF16), and each
-    fills shared memory with cp.async (LDGSTS): ``cuobjdump -sass`` of the
+    multiplies on the tensor cores in TF32 (HMMA ... TF32) and fills
+    shared memory with cp.async (LDGSTS); every one of the two joins'
+    bfloat16 forms multiplies with wgmma in bf16 (HGMMA ... BF16), fills
+    its stages with cp.async and waits on mbarriers (SYNCS); the library
+    has no float atomic (RED or ATOM on F32): ``cuobjdump -sass`` of the
     built library."""
     cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
     sass = run([str(cuobjdump), "-sass",
                 str(_build.lib_path("sparse_gather_gemm"))])
-    counts = {}
+    counts, atomics = {}, []
     for block in sass.split("Function : ")[1:]:
         name, body = block.split("\n", 1)
+        lines = body.splitlines()
+        atomics += [x.strip() for x in lines
+                    if ("RED" in x or "ATOM" in x) and ".F32" in x]
         if "gemm_kernel" not in name and "gemm_bf16_kernel" not in name:
             continue
-        lines = body.splitlines()
         counts[name.strip()] = {
             "hmma_tf32": sum("HMMA" in x and "TF32" in x for x in lines),
-            "hmma_bf16": sum("HMMA" in x and "BF16" in x for x in lines),
-            "ldgsts": sum("LDGSTS" in x for x in lines)}
+            "hgmma_bf16": sum("HGMMA" in x and "BF16" in x for x in lines),
+            "ldgsts": sum("LDGSTS" in x for x in lines),
+            "syncs": sum("SYNCS" in x for x in lines)}
     log(f"sparse GEMM SASS (cuobjdump -sass): {json.dumps(counts)}")
     opcodes = sorted({x.split()[1] for x in sass.splitlines()
-                      if "HMMA" in x and len(x.split()) > 1})
-    log(f"  HMMA opcodes: {opcodes}")
+                      if "MMA" in x and len(x.split()) > 1})
+    log(f"  MMA opcodes: {opcodes}; float atomics: {atomics or 'none'}")
     bad = [n for n, c in counts.items()
-           if not (c["hmma_bf16" if "bf16" in n else "hmma_tf32"]
-                   and c["ldgsts"])]
-    if len(counts) != 20 or bad:
-        raise AssertionError(f"sparse GEMM kernels without TF32 / BF16 "
-                             f"HMMA or LDGSTS: {bad or counts}")
+           if not ((c["hgmma_bf16"] and c["syncs"]) if "bf16" in n
+                   else c["hmma_tf32"]) or not c["ldgsts"]]
+    if len(counts) != 20 or bad or atomics:
+        raise AssertionError(f"sparse GEMM kernels without TF32 HMMA, BF16 "
+                             f"HGMMA on mbarriers or LDGSTS, or with float "
+                             f"atomics: {bad or atomics or counts}")
 
 
 def check_join_grad_sass() -> None:
@@ -1659,6 +1665,17 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str,
     largest = max(range(len(calls)), key=lambda i: work(calls[i]))
     smallest = next(c for c in calls
                     if tuple(operands(c)[3].shape) == (27, 16, 16))
+    tiles = {}
+    if bf16:
+        for c in calls:
+            shape = tuple(operands(c)[3].shape)
+            tiles[shape] = sparse_gather_gemm.bf16_tile(*shape)
+        log(f"{name} [{card}]: the bf16 tile (wgmma, a ring on mbarriers) "
+            "at the request's joins: " + "; ".join(
+                f"K={k} Cin={i} Cout={o}: {t['rows']} rows a block, "
+                f"{t['stages']} stages, {t['smem_bytes']} bytes of shared "
+                f"memory, {t['blocks_per_sm']} blocks an SM"
+                for (k, i, o), t in tiles.items()))
     worst = 0.0
     per_join, per_join_plain = [], []
     for i, call in enumerate(calls):          # every join of the request
@@ -1778,6 +1795,8 @@ def phase_sparse_gemm(name: str, calls: list, launches: int, card: str,
              "per_request_ms": per_request,
              "per_join_shape": [join_shape(c) for c in calls],
              "tile_occupancy": occupancy, "library_ms": None}
+    if bf16:
+        entry["tile"] = tiles[tuple(operands(big_call)[3].shape)]
     if step_calls:
         entry["step_joins_worst_rel_err"] = step_worst
     return entry, {}, {}

@@ -302,17 +302,24 @@ def test_sparse_gemm_wrappers_refuse_what_the_kernels_do_not_take(cuda):
 
 
 # the joins of car.fhd.mixed's SpMiddleFHD (Cin -> Cout), its z-only
-# strided kernel, and Cin = 6 (the 4-byte copies)
+# strided kernel, Cin = 6 (the 4-byte copies), and the widths the tile
+# takes beyond them: Cin = 48 (padded to 64), Cin = 128 (A in two 64-value
+# blocks), Cout = 128 (W in two boxes, one block an SM)
 BF16_JOINS = [(27, 4, 16), (27, 16, 16), (27, 16, 32), (27, 32, 32),
-              (27, 32, 64), (27, 64, 64), (3, 64, 64), (27, 6, 8)]
+              (27, 32, 64), (27, 64, 64), (3, 64, 64), (27, 6, 8),
+              (27, 48, 32), (27, 64, 128), (27, 128, 64), (27, 128, 128)]
 
 
 def _bf16_rulebook(cuda, K, cin, cout, case):
     """bf16 feats / weights and a rulebook: ``random`` sites, rows 64-127
-    with no source at any tap (``empty``), or a dense 6 x 10 x 10 cube of
-    sites whose inner ones find every tap (``full``)."""
-    feats, coords, valid, _, _, w, grid, kernel = _sparse_join(cuda, K, cin,
-                                                               cout)
+    with no source at any tap (``empty``: the second half of the tile's
+    first block), rows 128-191 likewise (``half_miss``: the first half of
+    its second block), three scans of 776 rows (``ragged_b3``: the last
+    block holds 8 rows), or a dense 6 x 10 x 10 cube of sites whose inner
+    ones find every tap (``full``)."""
+    B, pad = (3, 76) if case == "ragged_b3" else (2, 68)
+    feats, coords, valid, _, _, w, grid, kernel = _sparse_join(
+        cuda, K, cin, cout, B=B, pad=pad)
     if case == "full":
         z, y, x = torch.meshgrid(torch.arange(6), torch.arange(10),
                                  torch.arange(10), indexing="ij")
@@ -326,18 +333,22 @@ def _bf16_rulebook(cuda, K, cin, cout, case):
     found = rb.found.clone()
     if case == "empty":
         found[..., 64:128] = False
+    if case == "half_miss":
+        found[..., 128:192] = False
     if case == "full":
         assert bool(found.all(-2).any())          # some row finds every tap
     return feats.bfloat16(), rb.gather_idx, found, w.bfloat16()
 
 
-@pytest.mark.parametrize("case", ["random", "empty", "full"])
+@pytest.mark.parametrize("case", ["random", "empty", "full", "half_miss",
+                                  "ragged_b3"])
 @pytest.mark.parametrize("K,cin,cout", BF16_JOINS)
 def test_gather_gemm_bf16_kernel_equals_plain(cuda, K, cin, cout, case):
     """The tile's bfloat16 form against its plain version (the bf16
     inputs upcast to float32, one matmul) within 1e-4 of max |out|: the
     products are exact in float32, the two differ in the order of their
-    sums only."""
+    sums only.  Rows with no source give zeros, also where one 64-row
+    half of a 128-row block misses every tap and the other hits."""
     feats, idx, found, w = _bf16_rulebook(cuda, K, cin, cout, case)
     before = (sgg.gather_gemm.launches, sgg.gather_gemm_bf16.launches)
     got = sgg.gather_gemm(feats, idx, found, w)
@@ -346,14 +357,19 @@ def test_gather_gemm_bf16_kernel_equals_plain(cuda, K, cin, cout, case):
     assert (sgg.gather_gemm.launches,
             sgg.gather_gemm_bf16.launches) == (before[0], before[1] + 1)
     assert got.dtype == ref.dtype == torch.float32
+    assert got.shape == ref.shape == (feats.shape[0], idx.shape[-1], cout)
     scale = float(ref.abs().max())
     assert scale > 1.0
     assert float((got - ref).abs().max()) <= 1e-4 * scale
     if case == "empty":
         assert bool((got[:, 64:128] == 0).all())
-    # unbatched, and the same bits again
-    one = sgg.gather_gemm_bf16(feats[1], idx[1], found[1], w)
-    assert torch.equal(one, got[1])
+    if case == "half_miss":
+        assert bool((got[:, 128:192] == 0).all())
+        assert bool((got[:, 192:256] != 0).any())
+    # the same bits again, and the last scan unbatched
+    assert torch.equal(sgg.gather_gemm(feats, idx, found, w), got)
+    one = sgg.gather_gemm_bf16(feats[-1], idx[-1], found[-1], w)
+    assert torch.equal(one, got[-1])
 
 
 def test_gather_gemm_bf16_backward_upcasts(cuda):
@@ -404,16 +420,22 @@ def test_bf16_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     torch.cuda.synchronize()
 
 
-@pytest.mark.parametrize("case", ["random", "unsorted", "sentinels"])
+@pytest.mark.parametrize("case", ["random", "unsorted", "sentinels",
+                                  "half_miss", "ragged_b3"])
 @pytest.mark.parametrize("K,cin,cout", BF16_JOINS)
 def test_keymatch_gemm_bf16_kernel_equals_plain(cuda, K, cin, cout, case):
     """The tile's bfloat16 form with the key lookup (K4 in bfloat16)
     against its plain version (the bf16 inputs upcast to float32, one
     matmul) within 1e-4 of max |out|: on key-sorted sites, on unsorted
-    keys (the scan), and with rows 64-127 querying absent keys or
-    nothing (zeros); the JAX function's call forms give one result."""
+    keys (the scan), with rows 64-127 querying absent keys or nothing
+    (zeros), with rows 128-191 (the first half of the second 128-row
+    block) querying nothing while rows 192-255 hit, and on three scans of
+    776 rows (the last block holds 8); the same bits twice, a scan equal
+    to its unbatched call; the JAX function's call forms give one
+    result."""
+    B, pad = (3, 76) if case == "ragged_b3" else (2, 68)
     feats, _, _, in_keys, q_keys, w, _, _ = _sparse_join(
-        cuda, K, cin, cout, sort_keys=case != "unsorted")
+        cuda, K, cin, cout, sort_keys=case != "unsorted", B=B, pad=pad)
     feats, w = feats.bfloat16(), w.bfloat16()
     if case == "unsorted":
         assert bool((in_keys[:, 1:] < in_keys[:, :-1]).any())
@@ -421,6 +443,9 @@ def test_keymatch_gemm_bf16_kernel_equals_plain(cuda, K, cin, cout, case):
         q_keys = q_keys.clone()
         q_keys[..., 64:96] = 12 * 40 * 40 + 7     # outside the grid's keys
         q_keys[..., 96:128] = sparse_conv.INT32_MAX
+    if case == "half_miss":
+        q_keys = q_keys.clone()
+        q_keys[..., 128:192] = sparse_conv.INT32_MAX
     before = (sgg.keymatch_gemm.launches, sgg.keymatch_gemm_bf16.launches)
     got = sgg.keymatch_gemm(feats, in_keys, q_keys, w)
     ref = sgg.keymatch_gemm_plain(feats, in_keys, q_keys, w)
@@ -431,11 +456,16 @@ def test_keymatch_gemm_bf16_kernel_equals_plain(cuda, K, cin, cout, case):
     scale = float(ref.abs().max())
     assert scale > 1.0
     assert float((got - ref).abs().max()) <= 1e-4 * scale
+    assert got.shape == (B, q_keys.shape[-1], cout)
     if case == "sentinels":
         assert bool((got[:, 64:128] == 0).all())
-    one = sgg.keymatch_gemm_bf16(feats[1], in_keys[1], q_keys[1], w, None,
+    if case == "half_miss":
+        assert bool((got[:, 128:192] == 0).all())
+        assert bool((got[:, 192:256] != 0).any())
+    assert torch.equal(sgg.keymatch_gemm(feats, in_keys, q_keys, w), got)
+    one = sgg.keymatch_gemm_bf16(feats[-1], in_keys[-1], q_keys[-1], w, None,
                                  64, 128, False, 0, 1)
-    assert torch.equal(one, got[1])
+    assert torch.equal(one, got[-1])
     if K == 27:
         perm = torch.as_tensor(sgg.group_perm((3, 3, 3)), device=cuda)
         grouped = sgg.keymatch_gemm(feats, in_keys, q_keys[:, perm],

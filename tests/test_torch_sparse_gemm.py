@@ -261,6 +261,57 @@ def test_3xtf32_split_is_as_accurate_as_fp32():
     assert carried > 2e-6
 
 
+def wgmma_bf16_matmul(a: torch.Tensor, b: torch.Tensor, K: int,
+                      partials: bool = True) -> torch.Tensor:
+    """``a @ b`` as the bfloat16 tile computes it on wgmma: ``a`` [rows,
+    K * cin] and ``b`` [K * cin, cout] hold bf16 values (in float32), so
+    every product is exact; per tap, k-steps of 16 in ascending order, each
+    wgmma adding its exact products to its input and rounding toward
+    zero.  With ``partials`` (the kernel) each tap's first k-step starts
+    from zero and the tap's partial is added into the fp32 sums with a
+    round-to-nearest add, taps in ascending order; without, one
+    accumulator is carried through every k-step of every tap."""
+    rows, cout = a.shape[0], b.shape[1]
+    cin = a.shape[1] // K
+    acc = torch.zeros(rows, cout)
+    ad, bd = a.double(), b.double()
+    for k in range(K):
+        d = torch.zeros(rows, cout) if partials else acc
+        for k0 in range(k * cin, (k + 1) * cin, 16):
+            d = rz_to_fp32(d.double() + ad[:, k0:k0 + 16] @ bd[k0:k0 + 16])
+        acc = acc + d if partials else d
+    return acc
+
+
+def test_bf16_tile_sums_stay_inside_the_bf16_tolerance():
+    """The accuracy behind chip_smoke.py's BF16_GEMM_RTOL (1e-4 of max
+    |out|) for the wgmma tile: at K = 27 taps of Cin = Cout = 64, order-1
+    bf16 values, its per-tap partials (four truncating k-steps each,
+    added to the sums rounded to nearest) lie within 5e-7 of the fp64
+    product relative to its largest value (2.2e-7 here), as close as a
+    float32 matmul (1.7e-7), 200 times inside the tolerance; one
+    accumulator carried through all 27 taps drifts ten times as far
+    (3.5e-6)."""
+    rng = np.random.default_rng(0)
+    K, cin, cout, rows = 27, 64, 64, 256
+    a = torch.from_numpy(rng.normal(size=(rows, K * cin)).astype(
+        np.float32)).bfloat16().float()
+    b = torch.from_numpy(rng.normal(size=(K * cin, cout)).astype(
+        np.float32)).bfloat16().float()
+    exact = a.double() @ b.double()
+    scale = float(exact.abs().max())
+
+    def rel_err(got):
+        return float((got.double() - exact).abs().max()) / scale
+
+    kernel = rel_err(wgmma_bf16_matmul(a, b, K))
+    fp32 = rel_err(a @ b)
+    carried = rel_err(wgmma_bf16_matmul(a, b, K, partials=False))
+    assert kernel <= 5e-7 and fp32 <= 5e-7
+    assert kernel * 200 <= 1e-4
+    assert carried > 2e-6 and carried > 10 * kernel
+
+
 def test_tile_occupancy_matches_a_brute_force_count():
     rng = np.random.default_rng(3)
     B, K, R, tile = 2, 27, 200, sgg.TILE_R   # R ragged: 3 tiles + 8 rows
@@ -286,12 +337,16 @@ def test_tile_occupancy_matches_a_brute_force_count():
 
 
 def test_ablation_variants_follow_the_kernel_source():
-    """``sparse_gemm_ablation.py`` derives its timing variants from
+    """``sparse_gemm_ablation.py`` derives its timing variants of the
+    float32 tile and of the bfloat16 tile from
     ``csrc/sparse_gather_gemm.cu`` by text substitution: each must still
     apply exactly once, and change the source."""
     import sparse_gemm_ablation
 
-    sources = sparse_gemm_ablation.variant_sources()
     shipped = sparse_gemm_ablation.SOURCE.read_text()
-    assert sources.pop("kernel") == shipped
-    assert sources and all(src != shipped for src in sources.values())
+    for variants, unchanged in ((sparse_gemm_ablation.VARIANTS, "kernel"),
+                                (sparse_gemm_ablation.BF16_VARIANTS,
+                                 "bf16_kernel")):
+        sources = sparse_gemm_ablation.variant_sources(variants)
+        assert sources.pop(unchanged) == shipped
+        assert sources and all(src != shipped for src in sources.values())
