@@ -255,14 +255,16 @@ class PointPillarsScatter(nn.Module):
                 coords: torch.Tensor) -> torch.Tensor:
         """voxel_features [B, V, F], coords [B, V, 3] (z, y, x) of voxels
         in any order: each scan's cell ids are unique, which is all the
-        kernel needs (-1 padding rows are dropped)."""
+        kernel needs.  -1 padding rows get the id H * W, which the kernel
+        and its plain version drop without reading the row, so whatever
+        such a row holds (NaN included) reaches neither the canvas nor,
+        in training, a gradient: the row's gradient is 0, as the JAX
+        module's ``where`` gives it."""
         B, V, nf = voxel_features.shape
         H, W = self.output_shape
-        valid = coords[..., 1] >= 0
-        lin = coords[..., 1] * W + coords[..., 2]
-        lin = torch.where(valid, lin, H * W).to(torch.int32)
-        feats = torch.where(valid[..., None], voxel_features,
-                            torch.zeros((), dtype=voxel_features.dtype,
-                                        device=voxel_features.device))
-        canvas = scatter_sorted_to_canvas(feats.contiguous(), lin, H * W)
+        lin = torch.where(coords[..., 1] >= 0,
+                          coords[..., 2].add(coords[..., 1], alpha=W),
+                          H * W).to(torch.int32)
+        canvas = scatter_sorted_to_canvas(voxel_features.contiguous(), lin,
+                                          H * W)
         return canvas.view(B, H, W, nf).permute(0, 3, 1, 2)

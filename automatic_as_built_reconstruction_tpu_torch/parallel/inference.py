@@ -129,11 +129,13 @@ class PodInference:
 def detections_mismatch(got: Dict[str, np.ndarray],
                         ref: Dict[str, np.ndarray], num_class: int,
                         box_atol: float = 1e-3,
-                        score_atol: float = 1e-4) -> Optional[str]:
+                        score_atol: float = 1e-4,
+                        box_rtol: float = 0.0) -> Optional[str]:
     """Compare two padded detection dicts as sets per (scan, class):
     equal counts, and each detection of ``got`` matched to its own
-    detection of ``ref`` with boxes within ``box_atol`` and scores within
-    ``score_atol``.  Returns None when they agree, else what differs."""
+    detection of ``ref`` with every box value within ``box_atol +
+    box_rtol * |ref's value|`` and scores within ``score_atol``.  Returns
+    None when they agree, else what differs."""
     for k in ref:
         if got[k].shape != ref[k].shape:
             return f"{k}: shape {got[k].shape} != {ref[k].shape}"
@@ -150,7 +152,8 @@ def detections_mismatch(got: Dict[str, np.ndarray],
             for box, score in zip(got["box3d_lidar"][b][sel_g],
                                   got["scores"][b][sel_g]):
                 ok = (~used
-                      & (np.abs(boxes_r - box).max(-1) <= box_atol)
+                      & (np.abs(boxes_r - box)
+                         <= box_atol + box_rtol * np.abs(boxes_r)).all(-1)
                       & (np.abs(scores_r - score) <= score_atol))
                 if not ok.any():
                     return f"scan {b} class {c}: no match for {box} {score}"

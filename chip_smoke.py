@@ -76,8 +76,11 @@
    kernel phase, runs ``evaluate`` on the validation frames (the KITTI
    table printed, not held; two frames' heads against a float64 forward
    of the checkpoint within F32_HEAD_SHARE of their max |x|, a TF32
-   control outside it; their detections against the port's CPU run, as
-   sets), holds the KITTI protocol on the validation
+   control outside it; their detections against the float64 forward's,
+   as sets within BOX_ATOL + F32_BOX_RTOL of each value, the TF32
+   control's outside that or DETECTION_CONTROL_RATIO times farther, the
+   CPU's distance printed), holds the KITTI
+   protocol on the validation
    ground truth given as detections (precision 1 at every threshold it
    samples) and restarts with a larger ``max_steps``, which must resume;
 6c. KITTI PointPillars and multi-class KITTI, on synthetic KITTI clones
@@ -138,8 +141,11 @@
    the taps-reversed control;
 7. holds each kernel against its plain PyTorch version on the card, on
    the inputs the main paths gave it (for the pillar scatter also with
-   the rows shuffled, and its backward on the training step's canvas
-   gradient, shuffled and with negative ids, timed against its bound and
+   the rows shuffled and on a canvas whose memory held NaN, one call's
+   device kernels profiled (one, no fill, also inside a profiled pillar
+   request), and its backward on the training step's canvas gradient,
+   shuffled, with negative ids and on memory that held NaN, timed against
+   its bound and
    the scatter timed against zeros + ``index_copy_`` in alternation, 30
    turns each; the sparse joins' backward kernels at every join of a
    SECOND training step, against the plain backward (and the key-match
@@ -173,8 +179,9 @@
    ``ms`` it reports: the card's work without the host's launch gaps), L2
    flushed before each call; checks the flat pillar VFE path against the padded
    one on a served request, and that it gives the same bits twice;
-8. times an empty kernel (one block, and the grids of K1 and K5) as the
-   launch floor beside those two;
+8. times an empty kernel (one block, and the grids of K1, from its
+   wrapper's launch plan, and of K5) as the launch floor beside those
+   two;
 9. prints a ``{"kernels": [...]}`` line (``launches`` is the sum over the
    main paths, ``launches_by_path`` each path's own count; K1's entry
    carries its backward's ``backward_*`` numbers and has a second entry,
@@ -296,6 +303,24 @@ HEAD_TOL = dict(rtol=5e-4, atol=5e-4)
 # float64, the CPU's at most 7.7e-7; the control, the card's heads with
 # TF32 on in the RPN, must lie outside the limit on every run
 F32_HEAD_SHARE = 1e-5
+# the detections ``predict`` decodes from those heads against the ones it
+# decodes from the float64 forward, as sets: every box value within
+# BOX_ATOL + F32_BOX_RTOL * |value|, scores within SCORE_ATOL.  An
+# untrained box head's exp() gives boxes of thousands of metres (4117.8 m
+# in one run of this check, 1.9e14 m in one of head_drift.py's), where
+# BOX_ATOL alone is a few float32 ulps and no float32 forward keeps it.
+# head_drift.py, eight checkpoints on an H100 80GB HBM3 at 700 W: the
+# card's float32 detections needed at most 2.28e-5 of a value beyond
+# BOX_ATOL (the CPU's 1.72e-5), so F32_BOX_RTOL is about 9x that.  The
+# TF32 control's lay 1.3e-4 to 6.7e-3 from float64 (box values), the
+# card's 0 to 1.5e-5: where the control's boxes stay inside BOX_ATOL
+# (three checkpoints of four), it must lie at least
+# DETECTION_CONTROL_RATIO times farther from float64 than the card's
+F32_BOX_RTOL = 2e-4
+DETECTION_CONTROL_RATIO = 10
+# the boxes the second score threshold of that check keeps: from the 8th
+# to the 32nd by score (chip_smoke.score_thresholds)
+DETECTION_RANKS = (8, 32)
 # kernel vs plain on the card: up to 27 x 64 products, 3xTF32 (as accurate
 # as fp32: tests/test_torch_sparse_gemm.py) summed tap by tap on the
 # tensor cores, against one fp32 cuBLAS dot, on values of order 1
@@ -530,6 +555,7 @@ def build_kernels() -> Path:
                 log(f"  ptxas {name}: {line.strip()}")
     check_sparse_gemm_sass()
     check_join_grad_sass()
+    check_pillar_scatter_sass()
     return empty
 
 
@@ -619,6 +645,41 @@ def check_join_grad_sass() -> None:
     if len(counts) != 17 or bad or atomics:
         raise AssertionError(f"join backward kernels without TF32 HMMA or "
                              f"LDGSTS, or with float atomics: "
+                             f"{bad or atomics or counts}")
+
+
+def check_pillar_scatter_sass() -> None:
+    """K1's library (its three kernels, the tiles, the rows and the
+    gather, each instantiated for rows of 4, 8 and 16 chunks and any other
+    width) has no atomic of any type (RED or ATOM) and moves rows in
+    16-byte loads and stores (LDG / STG .128): ``cuobjdump -sass`` of the
+    built library."""
+    cuobjdump = Path(_build.nvcc_path()).parent / "cuobjdump"
+    sass = run([str(cuobjdump), "-sass",
+                str(_build.lib_path("pillar_scatter"))])
+    counts, atomics = {}, []
+    for block in sass.split("Function : ")[1:]:
+        name, body = block.split("\n", 1)
+        lines = body.splitlines()
+        ops = []
+        for x in lines:
+            words = x.split("*/")[1].split() if "*/" in x else []
+            if words and words[0].startswith("@"):    # a predicate
+                words = words[1:]
+            if words:
+                ops.append(words[0])
+        atomics += [op for op in ops if op.startswith(("ATOM", "RED"))]
+        counts[name.strip()] = {
+            "ldg128": sum(op.startswith("LDG") and ".128" in op
+                          for op in ops),
+            "stg128": sum(op.startswith("STG") and ".128" in op
+                          for op in ops)}
+    log(f"  pillar scatter SASS: {json.dumps(counts)}; atomics: "
+        f"{atomics or 'none'}")
+    bad = [n for n, c in counts.items() if not (c["ldg128"] and c["stg128"])]
+    if len(counts) != 12 or bad or atomics:
+        raise AssertionError(f"pillar scatter kernels with atomics or "
+                             f"without 16-byte loads and stores: "
                              f"{bad or atomics or counts}")
 
 
@@ -905,6 +966,40 @@ def profile_call(what: str, call, card: str, latency_ms: float) -> dict:
         f"{fmt_kernels(top)}")
     return {"wall_ms": wall_ms, "busy_ms": busy, "busy_share": busy / wall_ms,
             "events": n, "top": top}
+
+
+def k1_in_request(pod, request, card: str) -> list:
+    """One pillar request under torch.profiler with K1's call site in a
+    ``record_function`` range: the device kernels the profiler links to
+    that range and to the operators under it, which must be one, the
+    scatter kernel (no fill).  -> their names."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    site = pointpillars.scatter_sorted_to_canvas
+    tag = "K1 pillar_scatter call"
+
+    def tagged(*args, **kwargs):
+        with record_function(tag):
+            return site(*args, **kwargs)
+
+    def kernels(e) -> list:
+        return [k.name for k in e.kernels] + [
+            n for c in e.cpu_children for n in kernels(c)]
+
+    with substituted(pointpillars, "scatter_sorted_to_canvas", tagged), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        pod(*request)
+        torch.cuda.synchronize()
+    found = [kernels(e) for e in prof.events() if e.name == tag
+             and e.device_type == torch.autograd.DeviceType.CPU]
+    log(f"serving [{card}]: the device kernels of K1's call in a profiled "
+        f"request: {found}")
+    if len(found) != 1 or len(found[0]) != 1 or \
+            "pillar_scatter_kernel" not in found[0][0]:
+        raise AssertionError(f"K1's call in a request launched {found}, not "
+                             f"one pillar_scatter_kernel")
+    return found[0]
 
 
 def serve(card: str):
@@ -1222,10 +1317,48 @@ def in_turns(kernel, other, turns: int = K1_TURNS) -> dict:
     return take_turns({"kernel": kernel, "other": other}, turns)
 
 
+def on_dirty_memory(fn, shape, dtype):
+    """``fn()`` right after a tensor of ``shape`` filled with NaN was freed,
+    so that the caching allocator hands its block to the ``torch.empty``
+    of the same size inside ``fn``: the result, which must lie in that
+    block (else the check would not be one)."""
+    dirty = torch.full(shape, float("nan"), dtype=dtype, device="cuda")
+    ptr = dirty.data_ptr()
+    del dirty
+    out = fn()
+    if out.data_ptr() != ptr:
+        raise AssertionError("the dirty block was not reused")
+    return out
+
+
+def k1_call_kernels(call, card: str, what: str) -> dict:
+    """The device kernels of one K1 forward call on the recorded inputs
+    (torch.profiler): on the tiles route exactly one, the scatter kernel,
+    and no fill; on the rows route the fill and the rows kernel."""
+    (feats, lin, hw), _ = call
+    B, V, C = feats.shape
+    route = pillar_scatter.scatter_plan(
+        B, V, hw, C * feats.element_size() // 16,
+        pillar_scatter.sm_count(feats.device)).route
+    _, per_kernel, events = device_profile(
+        lambda: pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw))
+    log(f"K1 pillar_scatter {what} [{card}]: the {route} route; one call's "
+        f"device kernels ({events} a call): {fmt_kernels(per_kernel)}")
+    kernel = ("pillar_scatter_kernel" if route == "tiles"
+              else "pillar_rows_kernel")
+    others = [k for k in per_kernel if kernel not in k]
+    if (events != (1 if route == "tiles" else 2)
+            or len(others) != (0 if route == "tiles" else 1)):
+        raise AssertionError(f"{what}: a K1 call on the {route} route ran "
+                             f"{per_kernel}")
+    return per_kernel
+
+
 def k1_forward(call, card: str, what: str) -> tuple:
     """K1's forward on a recorded call: kernel == plain exactly, also with
-    the rows shuffled; the ``zeros`` + ``index_copy_`` yardstick equal to
-    both; event times of the three and the kernel against the yardstick
+    the rows shuffled and on a canvas whose memory held NaN; the ``zeros``
+    + ``index_copy_`` yardstick equal to both; one call's device kernels
+    (one); event times of the three and the kernel against the yardstick
     in turns; the bound in bytes.  -> (entry fields, {key: fn} to time on
     the device, event times)."""
     (feats, lin, hw), _ = call
@@ -1237,6 +1370,16 @@ def k1_forward(call, card: str, what: str) -> tuple:
     if not torch.equal(got, ref):
         raise AssertionError(f"{what}: pillar_scatter kernel != plain "
                              f"version")
+    del got
+    dirty = on_dirty_memory(
+        lambda: pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw),
+        (B, hw, C), feats.dtype)
+    torch.cuda.synchronize()
+    if not torch.equal(dirty, ref):
+        raise AssertionError(f"{what}: pillar_scatter on a canvas of NaN "
+                             f"!= plain version")
+    del dirty
+    kernels = k1_call_kernels(call, card, what)
     # the same rows shuffled: unique ids in any order give the same canvas
     perm = torch.randperm(V, device=feats.device,
                           generator=torch.Generator(feats.device)
@@ -1251,8 +1394,8 @@ def k1_forward(call, card: str, what: str) -> tuple:
                              f"sorted")
     descents = int((lin[:, perm][:, 1:] < lin[:, perm][:, :-1]).sum())
     log(f"K1 pillar_scatter {what} [{card}]: rows shuffled ({descents} "
-        f"descents in the ids): kernel == plain == the sorted call's canvas "
-        f"exactly")
+        f"descents in the ids) and on a canvas whose memory held NaN: "
+        f"kernel == plain == the sorted call's canvas exactly")
     ok = (lin >= 0) & (lin < hw)
     rows = int(ok.sum())
     # library yardstick: one index_copy_ into the zeroed flat canvas
@@ -1275,6 +1418,8 @@ def k1_forward(call, card: str, what: str) -> tuple:
                feats, lin, hw),
            "library_ms": library}
     ev = {k: cuda_ms(fn) for k, fn in fns.items()}
+    plan = pillar_scatter.scatter_plan(B, V, hw, C * e // 16,
+                                       pillar_scatter.sm_count(feats.device))
     # bytes this data needs: the occupied rows' features, every id, the
     # whole canvas written once
     nbytes = rows * C * e + B * V * 4 + B * hw * C * e
@@ -1293,10 +1438,13 @@ def k1_forward(call, card: str, what: str) -> tuple:
              "shape": f"B={B} V={V} C={C} hw={hw} {feats.dtype}",
              "occupied_rows": rows,
              "max_abs_err": 0.0, "bound_ms": bound_ms, "bound_by": "bytes",
-             "bytes": nbytes,
-             # as csrc/pillar_scatter.cu launches it: a thread a 16-byte
-             # chunk of a row
-             "grid": [-(-B * V * (C * e // 16) // 256), 256]}
+             "bytes": nbytes, "device_kernels": list(kernels),
+             # as the wrapper launches it: its plan's route and blocks (a
+             # tile of canvas cells each, or a thread a chunk of a row)
+             "plan": plan._asdict(),
+             "grid": [plan.blocks, pillar_scatter.SCATTER_THREADS
+                      if plan.route == "tiles"
+                      else pillar_scatter.ROWS_THREADS]}
     return entry, fns, ev
 
 
@@ -1315,19 +1463,31 @@ def k1_backward(gather_call, card: str, what: str) -> tuple:
     gperm = torch.randperm(gV, device=glin.device,
                            generator=torch.Generator(glin.device)
                            .manual_seed(1))
+    # the gradient made contiguous before the dirty case, so that the
+    # wrapper's one allocation is the output's
+    dense = dcanvas.contiguous()
     for case, ids in (("as recorded", glin),
                       ("rows shuffled", glin[:, gperm].contiguous()),
-                      ("negative ids", bad_ids.int().contiguous())):
-        g = pillar_scatter.pillar_gather(dcanvas, ids)
+                      ("negative ids", bad_ids.int().contiguous()),
+                      ("on memory that held NaN", glin)):
         r = pillar_scatter.pillar_gather_plain(dcanvas, ids)
+        if case.startswith("on memory"):
+            g = on_dirty_memory(
+                lambda: pillar_scatter.pillar_gather(dense, ids),
+                (gB, gV, gC), dcanvas.dtype)
+        else:
+            g = pillar_scatter.pillar_gather(dcanvas, ids)
         torch.cuda.synchronize()
         if not torch.equal(g, r):
             raise AssertionError(f"pillar_gather kernel != plain ({what}, "
                                  f"{case})")
+        del g, r
+    del dense
     grows = int(gok.sum())
     log(f"K1 pillar_gather {what} [{card}]: {dcanvas.dtype}, B={gB} V={gV} "
         f"C={gC} hw={ghw}, {grows} valid rows: kernel == plain exactly as "
-        f"recorded, with the rows shuffled and with negative ids")
+        f"recorded, with the rows shuffled, with negative ids and on "
+        f"memory that held NaN")
     fns = {"backward_ms": lambda: pillar_scatter.pillar_gather(dcanvas,
                                                               glin),
            "backward_plain_ms": lambda: pillar_scatter.pillar_gather_plain(
@@ -1345,6 +1505,9 @@ def k1_backward(gather_call, card: str, what: str) -> tuple:
     fields = {"backward_kernel": "pillar_gather_kernel",
               "backward_shape": f"B={gB} V={gV} C={gC} hw={ghw} "
                                 f"{dcanvas.dtype}",
+              "backward_grid": [
+                  pillar_scatter.gather_plan(gB, gV, gC * e // 16),
+                  pillar_scatter.GATHER_THREADS],
               "backward_max_abs_err": 0.0, "backward_bound_ms": gbound_ms,
               "backward_bound_by": "bytes", "backward_library_ms": None}
     return fields, fns, ev
@@ -2779,6 +2942,69 @@ def perfect_eval(val_info_path: Path, card: str) -> dict:
     return result
 
 
+def score_thresholds(heads64: dict, anchors: torch.Tensor, cfg) -> list:
+    """The config's score threshold and, as a checkpoint of a few dozen
+    steps scores few boxes above it, one that keeps DETECTION_RANKS[0] to
+    DETECTION_RANKS[1] boxes: the middle of the widest gap among the
+    scores of the boxes ``predict`` keeps from the float64 heads
+    ``heads64`` at a threshold of 0, ranked in that window (greedy NMS
+    keeps the same boxes above any threshold, so that many stay, and no
+    kept box lies nearer the threshold than half the gap)."""
+    dets = decode(heads64, anchors, cfg, 0.0, "cuda")
+    scores = np.sort(dets["scores"][dets["valid"]].astype(np.float64))[::-1]
+    lo, hi = DETECTION_RANKS
+    window = scores[lo - 1:hi] if len(scores) > lo else scores
+    if len(window) < 2:
+        return [cfg.nms_score_threshold,
+                float(window[0]) / 2 if len(window) else 0.5]
+    i = int((window[:-1] - window[1:]).argmax())
+    return [cfg.nms_score_threshold, float(window[i] + window[i + 1]) / 2]
+
+
+def decode(heads: dict, anchors: torch.Tensor, cfg, threshold: float,
+           device) -> dict:
+    """``predict`` on ``heads`` (any float type: it decodes in float32)
+    at the score ``threshold``, on ``device``.  -> host numpy dict."""
+    out = predict({k: v.to(device) for k, v in heads.items()},
+                  anchors.to(device),
+                  dataclasses.replace(cfg, nms_score_threshold=threshold))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def detection_distance(got: dict, ref: dict, num_class: int) -> dict:
+    """How far two padded detection dicts lie apart, matched as sets per
+    (scan, class), each detection of ``got`` to the unused one of ``ref``
+    that needs the least allowance: {"counts_equal", "box_abs": the largest
+    |difference| of a box value, "box_rel": the largest (|difference| -
+    BOX_ATOL) / |the reference's value| (the share of the value a match
+    needs beyond BOX_ATOL), "score_abs"}."""
+    worst = {"counts_equal": True, "box_abs": 0.0, "box_rel": 0.0,
+             "score_abs": 0.0}
+    for b in range(ref["valid"].shape[0]):
+        for c in range(num_class):
+            sel_g = got["valid"][b] & (got["label_preds"][b] == c)
+            sel_r = ref["valid"][b] & (ref["label_preds"][b] == c)
+            if sel_g.sum() != sel_r.sum():
+                worst["counts_equal"] = False
+                continue
+            boxes_r = ref["box3d_lidar"][b][sel_r].astype(np.float64)
+            scores_r = ref["scores"][b][sel_r].astype(np.float64)
+            used = np.zeros(len(boxes_r), bool)
+            for box, score in zip(got["box3d_lidar"][b][sel_g],
+                                  got["scores"][b][sel_g]):
+                diff = np.abs(boxes_r - box)
+                need = (np.maximum(diff - BOX_ATOL, 0.0)
+                        / np.maximum(np.abs(boxes_r), 1e-30)).max(-1)
+                need[used] = np.inf
+                j = int(np.argmin(need))
+                used[j] = True
+                worst["box_abs"] = max(worst["box_abs"], float(diff[j].max()))
+                worst["box_rel"] = max(worst["box_rel"], float(need[j]))
+                worst["score_abs"] = max(worst["score_abs"],
+                                         abs(float(score) - scores_r[j]))
+    return worst
+
+
 def train_second(card: str) -> dict:
     """The SECOND training path: a synthetic KITTI clone (the port's
     generator and offline prep) in a temporary directory; ``train()`` on
@@ -2936,13 +3162,15 @@ def train_second(card: str) -> dict:
         report["evaluate_ap"] = {k: v for k, v in result.items()
                                  if k != "result_str"}
         # validation frames 0 and 1 through the checkpoint on the CPU and
-        # on the card: the heads, and the detections at the config's score
-        # threshold and, as 40 steps score few boxes above it, at the
-        # middle of the widest gap among the CPU's 64 highest scores
+        # on the card: the heads, held to a float64 forward of the same
+        # checkpoint on the card (the plain key-match join), as a share of
+        # each head's max |x| (F32_HEAD_SHARE), with the card's heads under
+        # TF32 as the control that must fall outside it; HEAD_TOL's
+        # distances are printed beside
         eb = train_mod.Bundle(config)
         vds, _ = eb.input_reader(training=False)
         val = batching.merge_batch([vds.example(i, i) for i in range(2)])
-        heads, dets, thresholds = {}, {}, [cfg.nms_score_threshold]
+        heads = {}
         for dev in ("cpu", "cuda"):
             eb.model.to(dev)
             ckpt_mod.CheckpointManager(model_dir).restore_model(eb.model)
@@ -2950,22 +3178,7 @@ def train_second(card: str) -> dict:
             with torch.no_grad(), fp32_math():
                 preds = eb.model.eval()(ex["voxels"], ex["num_points"],
                                         ex["coordinates"])
-                if dev == "cpu":
-                    top = torch.sigmoid(preds["cls_preds"]).flatten().topk(
-                        64).values.double()
-                    i = int((top[:-1] - top[1:]).argmax())
-                    thresholds.append(float(top[i] + top[i + 1]) / 2)
-                for thr in thresholds:
-                    out = predict(preds, ex["anchors"], dataclasses.replace(
-                        cfg, nms_score_threshold=thr))
-                    dets[dev, thr] = {k: v.cpu().numpy()
-                                      for k, v in out.items()}
             heads[dev] = {k: v.float().cpu() for k, v in preds.items()}
-        # the heads on the card against a float64 forward of the same
-        # checkpoint on the card (the plain key-match join), as a share of
-        # each head's max |x| (F32_HEAD_SHARE), with the card's heads under
-        # TF32 as the control that must fall outside it; HEAD_TOL's
-        # distances are printed beside
         f64 = copy.deepcopy(eb.model).double()
         ex = {k: v.double() if v.is_floating_point() else v
               for k, v in train_mod.to_device(val, "cuda").items()}
@@ -2980,6 +3193,7 @@ def train_second(card: str) -> dict:
             preds = eb.model.eval()(ex["voxels"], ex["num_points"],
                                     ex["coordinates"])
         control = {k: v.double().cpu() for k, v in preds.items()}
+        anchors = ex["anchors"]
         del preds, ex
         card64 = {k: v.double() for k, v in heads["cuda"].items()}
         cpu64 = {k: v.double() for k, v in heads["cpu"].items()}
@@ -3004,21 +3218,64 @@ def train_second(card: str) -> dict:
                 raise AssertionError(f"second evaluate: the TF32 control "
                                      f"of head {k} is within the limit: "
                                      f"{detail}")
-        counts = {}
+        # the detections ``predict`` decodes from each side's heads, at the
+        # config's score threshold and at one that keeps 8 to 32 of the
+        # float64 forward's boxes (score_thresholds): the card's held to
+        # the float64 forward's as sets (BOX_ATOL + F32_BOX_RTOL of each
+        # value, SCORE_ATOL), the TF32 control's outside that check or
+        # DETECTION_CONTROL_RATIO times farther from them than the card's;
+        # the CPU's distance printed beside
+        sides = {"card": (heads["cuda"], "cuda"), "f64": (truth, "cuda"),
+                 "cpu": (heads["cpu"], "cpu"),
+                 "tf32_control": (control, "cuda")}
+        thresholds = score_thresholds(truth, anchors, cfg)
+        distance, counts, control_out = {}, {}, []
         for thr in thresholds:
-            diff = detections_mismatch(dets["cuda", thr], dets["cpu", thr],
-                                       cfg.num_class)
+            dets = {side: decode(h, anchors, cfg, thr, dev)
+                    for side, (h, dev) in sides.items()}
+            distance[thr] = {f"{a}_vs_{b}": detection_distance(
+                dets[a], dets[b], cfg.num_class)
+                for a, b in (("card", "f64"), ("cpu", "f64"),
+                             ("card", "cpu"), ("tf32_control", "f64"))}
+            counts[thr] = int(dets["f64"]["valid"].sum())
+            diff = detections_mismatch(dets["card"], dets["f64"],
+                                       cfg.num_class, BOX_ATOL, SCORE_ATOL,
+                                       box_rtol=F32_BOX_RTOL)
             if diff is not None:
-                raise AssertionError(f"second evaluate: card vs CPU "
+                raise AssertionError(f"second evaluate: card vs float64 "
                                      f"detections (score >= {thr}) on two "
-                                     f"validation frames: {diff}")
-            counts[thr] = int(dets["cpu", thr]["valid"].sum())
+                                     f"validation frames: {diff}; distances "
+                                     f"{distance[thr]}")
+            control_out.append(detections_mismatch(
+                dets["tf32_control"], dets["f64"], cfg.num_class, BOX_ATOL,
+                SCORE_ATOL, box_rtol=F32_BOX_RTOL))
+        card_abs = max(d["card_vs_f64"]["box_abs"]
+                       for d in distance.values())
+        control_abs = max(d["tf32_control_vs_f64"]["box_abs"]
+                          for d in distance.values())
+        outside = any(c is not None for c in control_out)
+        if not (outside or control_abs > max(
+                DETECTION_CONTROL_RATIO * card_abs, 0.0)):
+            raise AssertionError(
+                f"second evaluate: the TF32 control's detections pass the "
+                f"check and lie {control_abs} from float64 against the "
+                f"card's {card_abs} (less than {DETECTION_CONTROL_RATIO}x): "
+                f"{distance}")
         log(f"second training [{card}]: validation frames 0 and 1: heads "
             f"on the card within F32_HEAD_SHARE of float64, the TF32 "
-            f"control outside: {detail}; detections equal the CPU run's as "
-            f"sets ({counts} boxes by score threshold)")
+            f"control outside: {detail}; detections equal the float64 "
+            f"forward's as sets within BOX_ATOL {BOX_ATOL} + F32_BOX_RTOL "
+            f"{F32_BOX_RTOL} of each value ({counts} boxes by score "
+            f"threshold); the TF32 control's "
+            f"{'outside the check' if outside else 'inside the check'} "
+            f"({control_out}), its largest box difference {control_abs} "
+            f"against the card's {card_abs} "
+            f"({control_abs / card_abs if card_abs else float('inf'):.1f}x); "
+            f"distances (box_rel: the share of a value a match needs "
+            f"beyond BOX_ATOL) {json.dumps(distance)}")
         report["heads_vs_f64"] = {"share_of_max": shares,
                                   "head_tol_used": used}
+        report["detections_vs_f64"] = distance
         report["perfect_ap"] = {k: v for k, v in perfect_eval(
             root / "kitti_infos_val.pkl", card).items() if k != "result_str"}
 
@@ -4410,6 +4667,7 @@ def main() -> int:
                          card,
                          second_training["report"]["device_step_ms"][0])
         profile_call("serving", lambda: pod(*requests[2]), card, latency_ms)
+        k1_in_request(pod, requests[2], card)
         profile_call("bf16 pillar serving",
                      functools.partial(mixed_pp["pod"],
                                        *mixed_pp["requests"][2]), card,

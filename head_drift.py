@@ -13,8 +13,14 @@ is kept; for each one the script prints the largest difference of each
 float32 side from float64, and of the two sides from each other, as shares
 of the float64 output's max |x|, and for each BatchNorm its largest gain
 |gamma| / sqrt(var + eps).  The heads are also given as shares of
-chip_smoke's HEAD_TOL at their worst element.  ``--json`` writes the
-whole table to PATH.  Needs one GPU; exits non-zero without one.
+chip_smoke's HEAD_TOL at their worst element.  Then each side's heads, and
+those of a control (float32 on the GPU with TF32 on), are decoded by
+``predict`` at chip_smoke's two score thresholds, and the script prints
+how far the detections lie from the float64 forward's
+(``chip_smoke.detection_distance``: counts, the largest box difference,
+the share of the value a match needs beyond BOX_ATOL, the largest score
+difference), and the GPU's from the CPU's.  ``--json`` writes the whole
+table to PATH.  Needs one GPU; exits non-zero without one.
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
 import torch
 
 
@@ -113,6 +120,35 @@ def main() -> int:
                             bn_gain[name] = float(
                                 (g / (var + mod.eps).sqrt()).max())
                 del model
+            # the control, and every side's detections
+            model = copy.deepcopy(eb.model).to("cuda")
+            ckpt_mod.CheckpointManager(model_dir).restore_model(model)
+            ex = train_mod.to_device(val, "cuda")
+            with torch.no_grad(), cs.tf32_on():
+                control = {k: v.double().cpu() for k, v in model.eval()(
+                    ex["voxels"], ex["num_points"],
+                    ex["coordinates"]).items()}
+            del model
+            cfg = eb.model_cfg
+            heads_by = {"cuda": out["cuda"][1], "f64": out["f64"][1],
+                        "cpu": out["cpu"][1], "tf32_control": control}
+            dets = {}
+            for thr in cs.score_thresholds(out["f64"][1], ex["anchors"],
+                                           cfg):
+                d = {side: cs.decode(
+                    {k: v.float() if side == "cpu" else v
+                     for k, v in h.items()}, ex["anchors"], cfg, thr,
+                    "cpu" if side == "cpu" else "cuda")
+                    for side, h in heads_by.items()}
+                dets[thr] = {
+                    "boxes": int(d["f64"]["valid"].sum()),
+                    "box_max_abs": float(np.abs(d["f64"]["box3d_lidar"][
+                        d["f64"]["valid"]]).max(initial=0.0)),
+                    **{f"{a}_vs_{b}": cs.detection_distance(
+                        d[a], d[b], cfg.num_class)
+                       for a, b in (("cuda", "f64"), ("cpu", "f64"),
+                                    ("cuda", "cpu"),
+                                    ("tf32_control", "f64"))}}
             torch.cuda.empty_cache()
         layers = []
         for name, calls in out["f64"][0].items():
@@ -150,11 +186,14 @@ def main() -> int:
                    + (f" bn gain {row['bn_gain']:.4g}"
                       if row["bn_gain"] is not None else ""))
         cs.log(f"head_drift [{card}] run {run}: heads {json.dumps(heads)}")
-        runs.append({"layers": layers, "heads": heads})
+        cs.log(f"head_drift [{card}] run {run}: detections by score "
+               f"threshold {json.dumps(dets)}")
+        runs.append({"layers": layers, "heads": heads, "detections": dets})
     if args.json:
         args.json.parent.mkdir(parents=True, exist_ok=True)
         args.json.write_text(json.dumps({"card": card, "runs": runs}))
-    print(json.dumps({"card": card, "heads": [r["heads"] for r in runs]}))
+    print(json.dumps({"card": card, "heads": [r["heads"] for r in runs],
+                      "detections": [r["detections"] for r in runs]}))
     return 0
 
 

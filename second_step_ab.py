@@ -1,7 +1,8 @@
 """The device step of the SECOND training configs whose middle joins on the
-sparse-join kernels, for comparing two checkouts on one GPU in one call.
+sparse-join kernels, or with ``--pillars`` the pillar path's request and
+step, for comparing two checkouts on one GPU in one call.
 
-    python3 second_step_ab.py [--tree DIR]
+    python3 second_step_ab.py [--tree DIR] [--pillars]
 
 ``--tree`` (default: this checkout) names the checkout whose package and
 ``chip_smoke.py`` are imported, so that the same measurement runs on a
@@ -13,6 +14,12 @@ all.fhd (key-match or host rulebooks, B = 6): a synthetic KITTI clone
 state, then the step on the first six examples of the training stream
 (seed 1) timed with CUDA events (``chip_smoke.cuda_ms``: L2 flushed,
 synchronised, median of ITERS calls), with the plan's own site caps.
+``--pillars`` instead takes ``asbuilt_pillars.config`` in float32 and in
+bfloat16 (``enable_mixed_precision``): the device time of chip_smoke's
+first served request (the trained checkpoint; torch.profiler, the sum of
+its kernels, ``chip_smoke.device_ms``) and of a training step from the
+trainer's seed-0 state on its first batch (seed 1; CUDA events as above,
+and the profiler's sum), each with K1's share (``pillar_*`` kernels).
 Prints one JSON line.  Needs one GPU; exits non-zero without one.
 """
 from __future__ import annotations
@@ -26,10 +33,62 @@ from pathlib import Path
 ITERS = 10      # timed steps a config
 
 
+def pillar_cells(cs, card: str, tree: str) -> dict:
+    """{cell: {"request_device_ms", "request_k1_ms", "step_ms",
+    "step_device_ms", "step_k1_ms"}} of the pillar path, float32 and
+    bfloat16."""
+    import torch
+
+    from automatic_as_built_reconstruction_tpu_torch.data.building import (
+        generate_building_scene, pad_batch)
+    from automatic_as_built_reconstruction_tpu_torch.parallel import (
+        pod_inference_from_checkpoint)
+    from automatic_as_built_reconstruction_tpu_torch.train import (
+        train as train_mod)
+
+    def k1(per_kernel: dict) -> float:
+        return sum(v for k, v in per_kernel.items() if "pillar_" in k)
+
+    cells = {}
+    request = pad_batch([generate_building_scene(s)
+                         for s in cs.REQUESTS[0]])
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, config in (("pillars", cs.CONFIG),
+                             ("bf16 pillars", cs.with_mixed_precision(
+                                 cs.CONFIG, Path(tmp)))):
+            pod = pod_inference_from_checkpoint(
+                config, cs.CHECKPOINT, device="cuda",
+                max_voxels=cs.MAX_VOXELS,
+                max_points_per_voxel=cs.MAX_POINTS)
+            with torch.no_grad():
+                req_ms, req_per = cs.device_ms(lambda: pod(*request))
+            bundle = train_mod.Bundle(config)
+            state = train_mod.init_state(bundle, rng_seed=0, total_steps=100,
+                                         device="cuda")
+            _, loader = bundle.input_reader(training=True, seed=1)
+            example = train_mod.to_device(next(iter(loader)), "cuda")
+            step_fn = train_mod.make_train_step(bundle)
+            with torch.enable_grad():
+                ev = cs.cuda_ms(lambda: step_fn(state, example), iters=ITERS,
+                                warmup=2)
+                step_ms, step_per = cs.device_ms(
+                    lambda: step_fn(state, example))
+            cells[name] = {"request_device_ms": req_ms,
+                           "request_k1_ms": k1(req_per), "step_ms": ev,
+                           "step_device_ms": step_ms,
+                           "step_k1_ms": k1(step_per)}
+            cs.log(f"second_step_ab [{card}] {tree}: {name}: "
+                   f"{json.dumps(cells[name])}")
+            del pod, state, example, step_fn
+            torch.cuda.empty_cache()
+    return cells
+
+
 def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--tree", type=Path,
                         default=Path(__file__).resolve().parent)
+    parser.add_argument("--pillars", action="store_true")
     args = parser.parse_args()
     sys.path.insert(0, str(args.tree.resolve()))
     import torch
@@ -45,6 +104,12 @@ def main() -> int:
 
     card = cs.toolchain()
     _build.build_all()
+    if args.pillars:
+        torch.set_grad_enabled(False)
+        print(json.dumps({"tree": str(args.tree), "card": card,
+                          "pillars": pillar_cells(cs, card,
+                                                  args.tree.name)}))
+        return 0
     steps = {}
     with torch.enable_grad(), tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)

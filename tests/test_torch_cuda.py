@@ -60,6 +60,126 @@ def test_pillar_scatter_kernel_takes_ids_in_any_order(cuda):
     assert int((got != 0).any(-1).sum()) == 3000 + 1234
 
 
+def _k1_ids(case, B, V, hw, g):
+    """[B, V] int32 cell ids of one K1 edge case (unique per scan)."""
+    lin = torch.full((B, V), hw, dtype=torch.int32)
+    n = min(V, hw) * 3 // 4
+    for b in range(B):
+        lin[b, :n] = torch.randperm(hw, generator=g)[:n].sort().values
+    if case == "tile edges":        # both sides of every granule's edge
+        step = pillar_scatter.SCATTER_GRANULE
+        edges = sorted({c for k in range(1, hw // step + 1)
+                        for c in (k * step - 1, k * step) if c < hw}
+                       | {0, hw - 1})
+        lin[:, :len(edges)] = torch.tensor(edges, dtype=torch.int32)
+        lin[:, len(edges):] = hw
+    elif case == "every id dropped":
+        lin[:, ::2] = -1
+        lin[:, 1::2] = hw + torch.arange(V)[1::2].int()
+    elif case == "negative ids":
+        lin[:, ::5] = -1 - torch.arange(V)[::5].int() % 7
+    elif case == "shuffled":
+        lin = lin[:, torch.randperm(V, generator=g)]
+    return lin.contiguous()
+
+
+# (case, B, V, hw): the granules' edges (each of a tile that the next
+# one is not); hw not a multiple of the granule; V above hw; V below a
+# tile; B = 3
+K1_CASES = [("tile edges", 2, 3000, 80 * 80), ("tile edges", 2, 700, 601),
+            ("hw off the tile", 2, 3000, 80 * 80 + 37),
+            ("V above hw", 2, 2000, 1500), ("V below a tile", 2, 100, 4100),
+            ("every id dropped", 2, 1000, 3000),
+            ("negative ids", 2, 3000, 80 * 80), ("B = 3", 3, 700, 601),
+            ("shuffled", 2, 3000, 80 * 80)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C", [64, 32, 48])    # 48: the untemplated width
+@pytest.mark.parametrize("case,B,V,hw", K1_CASES, ids=lambda x: str(x))
+def test_pillar_scatter_kernels_on_edge_cases(cuda, case, B, V, hw, C,
+                                              dtype):
+    """K1's forward and backward equal their plain versions bit for bit,
+    one launch each, on ids at tile edges, hw off the tiles, V above hw
+    and below a tile, every id dropped, negative ids, B = 3 and shuffled
+    ids, in float32 and bfloat16."""
+    g = torch.Generator().manual_seed(hw + V + C)
+    lin = _k1_ids(case, B, V, hw, g).to(cuda)
+    feats = torch.randn(B, V, C, generator=g).to(cuda, dtype)
+    dcanvas = torch.randn(B, hw, C, generator=g).to(cuda, dtype)
+    before = (pillar_scatter.scatter_sorted_to_canvas.launches,
+              pillar_scatter.pillar_gather.launches)
+    got = pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw)
+    back = pillar_scatter.pillar_gather(dcanvas, lin)
+    torch.cuda.synchronize()
+    assert (pillar_scatter.scatter_sorted_to_canvas.launches,
+            pillar_scatter.pillar_gather.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert torch.equal(got, pillar_scatter.scatter_sorted_to_canvas_plain(
+        feats, lin, hw))
+    assert torch.equal(back, pillar_scatter.pillar_gather_plain(dcanvas,
+                                                                lin))
+    occupied = int(((lin >= 0) & (lin < hw)).sum())
+    assert int((got != 0).any(-1).sum()) == occupied
+    if case == "every id dropped":
+        assert occupied == 0 and not bool(back.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["sorted", "shuffled", "negative ids"])
+def test_pillar_scatter_rows_route_equals_plain(cuda, case, dtype):
+    """A canvas above SCATTER_TILES_MAX_BYTES (a KITTI training batch:
+    B = 2, 496 x 432 cells, 64 channels) takes the zero fill and the rows
+    kernel: equal to the plain version bit for bit, one counted launch."""
+    B, V, hw, C = 2, 12000, 496 * 432, 64
+    cw = C * torch.tensor([], dtype=dtype).element_size() // 16
+    assert pillar_scatter.scatter_plan(
+        B, V, hw, cw, pillar_scatter.sm_count(cuda)).route == "rows"
+    g = torch.Generator().manual_seed(11)
+    lin = _k1_ids("shuffled" if case == "shuffled" else "sorted", B, V, hw,
+                  g)
+    if case == "negative ids":
+        lin[:, ::3] = -1 - torch.arange(V)[::3].int() % 5
+    lin = lin.contiguous().to(cuda)
+    feats = torch.randn(B, V, C, generator=g).to(cuda, dtype)
+    before = pillar_scatter.scatter_sorted_to_canvas.launches
+    got = pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw)
+    torch.cuda.synchronize()
+    assert pillar_scatter.scatter_sorted_to_canvas.launches == before + 1
+    assert torch.equal(got, pillar_scatter.scatter_sorted_to_canvas_plain(
+        feats, lin, hw))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pillar_scatter_writes_every_cell_of_a_dirty_canvas(cuda, dtype):
+    """The canvas comes from torch.empty: a same-sized tensor of NaN freed
+    just before the call hands the kernel its memory (the caching
+    allocator), and every empty cell must still be exactly 0; the same
+    for the backward's rows."""
+    lin, hw = _served_pillar_ids(cuda, (0, 1))
+    B, V = lin.shape
+    g = torch.Generator(device=cuda).manual_seed(3)
+    feats = torch.randn(B, V, 64, device=cuda, generator=g).to(dtype)
+    dcanvas = torch.randn(B, hw, 64, device=cuda, generator=g).to(dtype)
+    for call, ref, shape in (
+            (lambda: pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw),
+             pillar_scatter.scatter_sorted_to_canvas_plain(feats, lin, hw),
+             (B, hw, 64)),
+            (lambda: pillar_scatter.pillar_gather(dcanvas, lin),
+             pillar_scatter.pillar_gather_plain(dcanvas, lin), (B, V, 64))):
+        dirty = torch.full(shape, float("nan"), dtype=dtype, device=cuda)
+        ptr = dirty.data_ptr()
+        del dirty
+        got = call()
+        torch.cuda.synchronize()
+        assert got.data_ptr() == ptr          # the NaN block, reused
+        assert torch.equal(got, ref)
+    empty = (lin < 0) | (lin >= hw)
+    assert bool(empty.any())
+    canvas = pillar_scatter.scatter_sorted_to_canvas(feats, lin, hw)
+    assert int((canvas == 0).all(-1).sum()) == B * hw - int((~empty).sum())
+
+
 def _iou_sets(name):
     """(A boxes, B boxes) [R, N, 5] / [R, K, 5] on the CPU."""
     if name == "random":

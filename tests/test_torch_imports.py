@@ -63,6 +63,7 @@ import automatic_as_built_reconstruction_tpu_torch.ops.rulebook_host
 import chip_smoke
 import head_drift
 import join_grad_ablation
+import pillar_scatter_ablation
 import rotated_iou_ablation
 import second_step_ab
 import sparse_gemm_ablation
