@@ -8,7 +8,10 @@
         kitti_data_prep --root_path=...
 
 Every verb that runs a network takes ``--device`` (``cuda`` by default;
-``cpu`` only when asked for).  The reference's other verbs
+``cpu`` only when asked for).  ``train`` and ``evaluate`` take
+``--num_devices N``: data parallel over N ranks, which the command starts
+itself, or, under ``torchrun --nproc_per_node N``, the ranks torchrun
+started.  The reference's other verbs
 (``building_data_prep``, ``import_torch_weights``, ``export_serving``,
 ``export_asbuilt``, ``viewer``) and ``train --profile_steps`` are not
 ported.
@@ -30,7 +33,8 @@ def main(argv=None):
     p_train.add_argument("--seed", type=int, default=0)
     p_train.add_argument("--no-resume", dest="resume", action="store_false")
     p_train.add_argument("--num_devices", type=int, default=None,
-                         help="more than one is not ported")
+                         help="data-parallel ranks (the first N cards, or "
+                              "N CPU ranks with --device cpu)")
     p_train.add_argument("--device", default="cuda")
 
     p_eval = sub.add_parser("evaluate", help="evaluate latest checkpoint")
@@ -40,7 +44,8 @@ def main(argv=None):
     p_eval.add_argument("--output_dir", default=None)
     p_eval.add_argument("--measure_time", action="store_true")
     p_eval.add_argument("--num_devices", type=int, default=None,
-                        help="more than one is not ported")
+                        help="data-parallel ranks (the first N cards, or "
+                             "N CPU ranks with --device cpu)")
     p_eval.add_argument("--device", default="cuda")
 
     p_kprep = sub.add_parser("kitti_data_prep",
@@ -63,6 +68,9 @@ def main(argv=None):
                           output_dir=args.output_dir,
                           measure_time=args.measure_time,
                           num_devices=args.num_devices, device=args.device)
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return      # under torchrun rank 0 prints the result
         if "result_str" in result:
             print(result["result_str"])
         else:

@@ -34,7 +34,7 @@ from torch.nn import functional as F
 
 from ..ops import sparse_conv as sc
 from ..ops.sparse_gather_gemm import gather_gemm, group_perm, keymatch_gemm
-from .pointpillars import BN_EPS, BN_MOMENTUM
+from .pointpillars import BN_EPS, BN_MOMENTUM, all_reduce_sum
 
 
 def scatter_to_dense(voxel_features: torch.Tensor, coords: torch.Tensor,
@@ -51,7 +51,13 @@ class MaskedBatchNorm(nn.Module):
     0.99); the running variance is the biased masked one, as in the JAX
     package.  In eval the running statistics normalise.  Rows outside the
     mask come out exactly 0.  A bfloat16 input is normalised in float32
-    and cast back; the statistics stay float32."""
+    and cast back; the statistics stay float32.  With ``stats_group`` set
+    (data-parallel training) the masked sums and the valid-row count,
+    then the masked sums of the centred squares, are summed over the
+    group's ranks by a differentiable all-reduce: the statistics of the
+    global batch."""
+
+    stats_group = None
 
     def __init__(self, num_features: int, momentum: float = BN_MOMENTUM,
                  eps: float = BN_EPS):
@@ -68,9 +74,19 @@ class MaskedBatchNorm(nn.Module):
         x = x.to(torch.promote_types(in_dtype, torch.float32))
         if self.training:
             m = mask[..., None].to(x.dtype)
-            cnt = m.sum().clamp_min(1.0)
-            mean = (x * m).sum(dim=(0, 1)) / cnt
-            var = (torch.square(x - mean) * m).sum(dim=(0, 1)) / cnt
+            if self.stats_group is None:
+                cnt = m.sum().clamp_min(1.0)
+                mean = (x * m).sum(dim=(0, 1)) / cnt
+                var = (torch.square(x - mean) * m).sum(dim=(0, 1)) / cnt
+            else:
+                s = all_reduce_sum(torch.cat([(x * m).sum(dim=(0, 1)),
+                                              m.sum().reshape(1)]),
+                                   self.stats_group)
+                cnt = s[-1].clamp_min(1.0)
+                mean = s[:-1] / cnt
+                var = all_reduce_sum(
+                    (torch.square(x - mean) * m).sum(dim=(0, 1)),
+                    self.stats_group) / cnt
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)

@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
 
@@ -30,6 +31,30 @@ from .voxel_encoder import points_mask
 # flax BatchNorm(momentum=0.99, epsilon=1e-3) in torch terms
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The sum of a tensor over the ranks of a process group; its gradient
+    is the sum of the ranks' gradients, so that each rank's backward of
+    its own share of the loss reaches every rank's inputs."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        x = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(x, group=group)
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        grad = grad.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(grad, group=ctx.group)
+        return grad, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the ranks of ``group``."""
+    return _AllReduceSum.apply(x, group)
 
 
 class _FlaxBatchNorm:
@@ -49,7 +74,15 @@ class _FlaxBatchNorm:
 
     A bfloat16 input (the RPN of ``compute_dtype="bfloat16"``) is
     normalised in float32 and the output cast back to bfloat16, as flax's
-    ``BatchNorm(dtype=bfloat16)`` computes it."""
+    ``BatchNorm(dtype=bfloat16)`` computes it.
+
+    With ``stats_group`` set (data-parallel training), the statistics are
+    those of the global batch: the per-channel sums and the row count,
+    then the sums of the centred squares, each summed over the group's
+    ranks by a differentiable all-reduce.  The running statistics then
+    move by the same values on every rank."""
+
+    stats_group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if x.dtype == torch.bfloat16:
@@ -58,9 +91,18 @@ class _FlaxBatchNorm:
             return super().forward(x)
         dims = [0, *range(2, x.dim())]
         shape = [1, -1] + [1] * (x.dim() - 2)
-        mean = x.mean(dims, keepdim=True)
-        xc = x - mean
-        var = (xc * xc).mean(dims, keepdim=True)
+        if self.stats_group is None:
+            mean = x.mean(dims, keepdim=True)
+            xc = x - mean
+            var = (xc * xc).mean(dims, keepdim=True)
+        else:
+            rows = x.new_full((1,), x.numel() // x.shape[1])
+            s = all_reduce_sum(torch.cat([x.sum(dims), rows]),
+                               self.stats_group)
+            mean = (s[:-1] / s[-1]).view(shape)
+            xc = x - mean
+            var = (all_reduce_sum((xc * xc).sum(dims), self.stats_group)
+                   / s[-1]).view(shape)
         with torch.no_grad():
             self.running_mean.mul_(1 - BN_MOMENTUM).add_(
                 mean.reshape(-1), alpha=BN_MOMENTUM)

@@ -31,8 +31,9 @@ from torch import nn
 from ..ops import box_ops, nms
 from ..ops import sparse_conv as sc
 from . import losses as losses_mod
-from .middle import SparseMiddle
-from .pointpillars import PillarFeatureNet, PointPillarsScatter
+from .middle import MaskedBatchNorm, SparseMiddle
+from .pointpillars import (PillarFeatureNet, PointPillarsScatter,
+                           _FlaxBatchNorm)
 from .rpn import RPN
 from .voxel_encoder import SimpleVoxel
 
@@ -287,6 +288,16 @@ class VoxelNet(nn.Module):
                 for k, v in preds.items()}
 
 
+def set_batch_norm_group(model: nn.Module, group) -> None:
+    """Every training BatchNorm of ``model`` (the PFN's and the RPN's
+    ``_FlaxBatchNorm``, the sparse middle's ``MaskedBatchNorm``) takes
+    its statistics over the ranks of ``group``; None: over this
+    process's rows alone."""
+    for m in model.modules():
+        if isinstance(m, (_FlaxBatchNorm, MaskedBatchNorm)):
+            m.stats_group = group
+
+
 def _refuse_unported_heads(cfg: VoxelNetConfig) -> None:
     if not cfg.encode_background_as_zeros:
         raise NotImplementedError("softmax class scores (background as a "
@@ -310,12 +321,16 @@ def flatten_preds(preds: Dict[str, torch.Tensor], cfg: VoxelNetConfig):
 
 
 def compute_loss(preds: Dict[str, torch.Tensor],
-                 example: Dict[str, torch.Tensor], cfg: VoxelNetConfig
+                 example: Dict[str, torch.Tensor], cfg: VoxelNetConfig,
+                 batch_size: Optional[int] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Total loss + per-term metrics (``loss_cls``, ``loss_loc``,
     ``loss_dir``, ``loss``), as the JAX package's ``compute_loss``.
 
     example: labels [B,A] int, reg_targets [B,A,code], anchors [B,A,7].
+    ``batch_size``: the normaliser (the examples' count if None); a rank
+    of a data-parallel step passes the global batch's, so that the ranks'
+    losses sum to the loss of the whole batch.
     """
     if cfg.use_yaw_quality_head:
         raise NotImplementedError("the yaw-quality loss is not ported")
@@ -323,7 +338,7 @@ def compute_loss(preds: Dict[str, torch.Tensor],
     p = flatten_preds(preds, cfg)
     labels = example["labels"]
     reg_targets = example["reg_targets"]
-    B = labels.shape[0]
+    B = batch_size or labels.shape[0]
 
     cls_weights, reg_weights, cared = losses_mod.prepare_loss_weights(
         labels, cfg.pos_cls_weight, cfg.neg_cls_weight, cfg.loss_norm_type)

@@ -7,7 +7,10 @@ kernel as the input stage.  A request is a padded point buffer
 ``[B, P, C]`` plus ``num_valid [B]``; the answer is a numpy dict with the
 keys and shapes of the JAX ``PodInference.__call__``.  The network runs
 in fp32 with TF32 off whatever the process's global flags
-(``device.fp32_math``).  Multi-device meshes wait for a later slice.
+(``device.fp32_math``).  With a ``mesh`` (``parallel/mesh.py``) every
+rank is called with the whole request, serves its own rows of it and
+answers with the whole batch's detections, as the reference's
+batch-sharded program does.
 """
 from __future__ import annotations
 
@@ -26,6 +29,8 @@ from ..ops.voxel_mean import fused_voxelize_mean
 from ..ops.voxelize import dynamic_voxelize, voxelize
 from ..utils.seeded_init import load_seeded
 from ..utils.weight_import import load_variables
+from . import mesh as mesh_mod
+from .mesh import Mesh
 
 
 VOXELIZATIONS = ("hard", "dynamic", "fused_mean")
@@ -33,11 +38,12 @@ VOXELIZATIONS = ("hard", "dynamic", "fused_mean")
 
 class PodInference:
     """Serve a built VoxelNet (pillar or SECOND sparse middle) on one
-    device, batch by batch."""
+    device, or batch-sharded over the ranks of a mesh, batch by batch."""
 
     def __init__(self, model: voxelnet_mod.VoxelNet,
                  model_cfg: voxelnet_mod.VoxelNetConfig,
                  anchors: np.ndarray, *, device="cuda",
+                 mesh: Optional[Mesh] = None,
                  max_voxels: int = 20000, max_points_per_voxel: int = 32,
                  voxelization: str = "hard"):
         """voxelization: ``"hard"`` (FCFS caps, any VFE), ``"dynamic"``
@@ -45,7 +51,8 @@ class PodInference:
         voxelization's capped means from the fused kernel: the answers of
         ``"hard"``).  The last two feed the model one mean point per voxel
         and so pair with the ``SimpleVoxel`` VFE only, which is the
-        identity at T = 1."""
+        identity at T = 1.  ``mesh``: serve on its ranks (each on its own
+        device, ``device`` unused), the weights copied from rank 0."""
         if voxelization not in VOXELIZATIONS:
             raise ValueError(f"voxelization {voxelization!r}: want one of "
                              f"{VOXELIZATIONS}")
@@ -55,8 +62,12 @@ class PodInference:
                 f"means: it needs the SimpleVoxel VFE, not "
                 f"{model_cfg.vfe_name}")
         self.voxelization = voxelization
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device))
         self.model = model.to(self.device).eval()
+        if mesh is not None:
+            mesh_mod.replicate(self.model, mesh)
         self.cfg = model_cfg
         self.anchors = torch.as_tensor(np.asarray(anchors, np.float32),
                                        device=self.device)      # [A, 7]
@@ -67,7 +78,18 @@ class PodInference:
     def __call__(self, points: np.ndarray,
                  num_valid: np.ndarray) -> Dict[str, np.ndarray]:
         """points [B, P, C] padded, num_valid [B] -> detection dict
-        (host numpy, padded, with a validity mask)."""
+        (host numpy, padded, with a validity mask).  On a mesh every rank
+        passes the whole request and gets the whole answer."""
+        if self.mesh is None:
+            return self._serve(points, num_valid)
+        rows = mesh_mod.rank_rows(len(num_valid), self.mesh.rank,
+                                  self.mesh.size)
+        out = (self._serve(points[rows], num_valid[rows])
+               if rows.stop > rows.start else None)
+        return mesh_mod.concat_rows(mesh_mod.all_gather_objects(out,
+                                                                self.mesh))
+
+    def _serve(self, points, num_valid) -> Dict[str, np.ndarray]:
         pts, nv = self._device_inputs(points, num_valid)
         with fp32_math():
             preds = self.model(*self.voxelize(pts, nv))
@@ -79,7 +101,8 @@ class PodInference:
     @torch.no_grad()
     def heads(self, points, num_valid) -> Dict[str, torch.Tensor]:
         """The network's raw prediction maps (device tensors) for one
-        request, computed as :meth:`__call__` computes them."""
+        request, computed as :meth:`__call__` computes them, on this
+        process's device alone."""
         pts, nv = self._device_inputs(points, num_valid)
         with fp32_math():
             return self.model(*self.voxelize(pts, nv))
@@ -188,7 +211,8 @@ def load_checkpoint_variables(path) -> dict:
 
 
 def pod_inference_from_checkpoint(config_path, checkpoint_pkl, *,
-                                  device="cuda", max_voxels: int = 20000,
+                                  device="cuda", mesh: Optional[Mesh] = None,
+                                  max_voxels: int = 20000,
                                   max_points_per_voxel: int = 32,
                                   seed: int = 0,
                                   voxelization: str = "hard"
@@ -197,8 +221,9 @@ def pod_inference_from_checkpoint(config_path, checkpoint_pkl, *,
     checkpoint pickle — the one-call serving entry point.  With
     ``checkpoint_pkl=None`` it warns and serves random weights and
     BatchNorm statistics drawn from ``seed`` (as the JAX entry point
-    serves fresh weights when it finds no checkpoint)."""
-    dev = resolve_device(device)
+    serves fresh weights when it finds no checkpoint).  ``mesh``: serve
+    batch-sharded over its ranks (:class:`PodInference`)."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model, cfg, anchors = build_from_config(config_path)
     if checkpoint_pkl is None:
         print(f"WARNING: no checkpoint; serving random weights from seed "
@@ -206,7 +231,7 @@ def pod_inference_from_checkpoint(config_path, checkpoint_pkl, *,
         load_seeded(model, seed)
     else:
         load_variables(model, load_checkpoint_variables(checkpoint_pkl))
-    return PodInference(model, cfg, anchors, device=dev,
+    return PodInference(model, cfg, anchors, device=dev, mesh=mesh,
                         max_voxels=max_voxels,
                         max_points_per_voxel=max_points_per_voxel,
                         voxelization=voxelization)

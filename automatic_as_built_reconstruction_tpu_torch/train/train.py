@@ -24,8 +24,14 @@ the reference does when its site caps keep truncating.
 ``enable_mixed_precision`` runs the sparse middle and the RPN in bfloat16
 (``car.fhd.mixed``), as the reference's ``Bundle`` does.  The float32
 arithmetic runs with TF32 off whatever the process's global flags
-(``device.fp32_math``).  Multi-device training and the reference's
-``profile_steps`` trace are not ported.
+(``device.fp32_math``).  ``num_devices > 1`` trains and evaluates data
+parallel over ranks of ``torch.distributed`` (``parallel/mesh.py``):
+each rank takes its rows of every global batch, which rank 0 reads;
+the BatchNorms take the global batch's statistics, the loss is
+normalised by the global batch and the gradients are summed over the
+ranks before the clip, so that a step equals the one-process step on
+the joined batch.  The reference's ``profile_steps`` trace is not
+ported.
 """
 from __future__ import annotations
 
@@ -47,7 +53,10 @@ from ..data import batching
 from ..device import fp32_math, resolve_device
 from ..models import voxelnet as voxelnet_mod
 from ..ops import rulebook_host
+from ..parallel import launch
+from ..parallel import mesh as mesh_mod
 from ..parallel.inference import load_checkpoint_variables
+from ..parallel.mesh import Mesh
 from ..utils.progress import StageTimers
 from ..utils.seeded_init import load_flax_init, load_seeded
 from ..utils.weight_import import load_variables
@@ -182,7 +191,34 @@ def forward(model: voxelnet_mod.VoxelNet, example: Dict[str, torch.Tensor],
                  middle_rulebooks=middle_rulebooks(example, cfg))
 
 
-def make_train_step(bundle: Bundle):
+def loss_and_grads(model: voxelnet_mod.VoxelNet,
+                   example: Dict[str, torch.Tensor],
+                   cfg: voxelnet_mod.VoxelNetConfig,
+                   mesh: Optional[Mesh] = None) -> tuple:
+    """Forward in train mode, ``compute_loss`` and backward, in fp32 with
+    TF32 off.  With ``mesh`` the example is this rank's rows of the global
+    batch: the loss is normalised by the global batch size, the model's
+    BatchNorms must take global statistics
+    (``voxelnet.set_batch_norm_group``), and the gradients are summed over
+    the ranks in one flattened all-reduce, so that every rank holds the
+    gradients of the joined batch.  -> (preds, loss terms of this rank's
+    rows, gradients in ``model.parameters()`` order)."""
+    params = list(model.parameters())
+    batch = (None if mesh is None
+             else example["labels"].shape[0] * mesh.size)
+    with fp32_math(), torch.enable_grad():
+        preds = forward(model, example, cfg)
+        loss, metrics = voxelnet_mod.compute_loss(preds, example, cfg,
+                                                  batch_size=batch)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads)]
+    if mesh is not None:
+        grads = mesh_mod.all_reduce_sum(grads, mesh)
+    return preds, metrics, grads
+
+
+def make_train_step(bundle: Bundle, mesh: Optional[Mesh] = None):
     """-> ``train_step(state, example) -> metrics``: one update of
     ``state`` in place (forward in train mode, ``compute_loss``,
     backward, the global-norm clip, AdamW at learning rate
@@ -190,24 +226,28 @@ def make_train_step(bundle: Bundle):
     device tensors (no host sync): the loss terms, ``grad_norm`` (of the
     clipped gradients), ``num_pos``, for the sparse middle
     ``mid_capacity_saturated``, and the precision / recall counts under
-    ``pr``."""
+    ``pr``.
+
+    With ``mesh`` the step is data parallel:
+    ``example`` is this rank's rows of the global batch, the BatchNorms of
+    ``bundle.model`` take their statistics over the ranks, the gradients
+    are summed over them before the clip (:func:`loss_and_grads`) and the
+    metrics are summed too, so that every rank makes the same update and
+    reads the metrics of the whole batch."""
     cfg = bundle.model_cfg
+    voxelnet_mod.set_batch_norm_group(
+        bundle.model, None if mesh is None else mesh.group)
 
     def train_step(state: TrainState, example: Dict[str, torch.Tensor]):
         model = state.model.train()
         params = list(model.parameters())
-        with fp32_math(), torch.enable_grad():
-            preds = forward(model, example, cfg)
-            loss, metrics = voxelnet_mod.compute_loss(preds, example, cfg)
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+        preds, metrics, grads = loss_and_grads(model, example, cfg, mesh)
         # sparse-middle capacity telemetry: per strided block, the scans
         # whose active sites filled its static capacity
         sat = getattr(model.middle_feature_extractor, "capacity_saturated",
                       None)
         if sat:
             metrics["mid_capacity_saturated"] = sum(sat.values())
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
         grads = clip_by_global_norm(grads, CLIP_NORM)
         for p, g in zip(params, grads):
             p.grad = g
@@ -222,9 +262,24 @@ def make_train_step(bundle: Bundle):
         metrics["num_pos"] = (example["labels"] > 0).sum()
         metrics["pr"] = metrics_mod.precision_recall_counts(
             flat["cls_preds"].detach(), example["labels"])
+        if mesh is not None:
+            metrics = _sum_metrics(metrics, mesh)
         return metrics
 
     return train_step
+
+
+def _sum_metrics(metrics: dict, mesh: Mesh) -> dict:
+    """The loss terms, counts and precision / recall counts of every rank's
+    rows summed over the ranks (``grad_norm`` is already global), in one
+    float64 all-reduce."""
+    grad_norm, pr = metrics.pop("grad_norm"), metrics.pop("pr")
+    parts = [*metrics.values(), *pr.values()]
+    sums = [s.to(p.dtype) for s, p in zip(
+        mesh_mod.all_reduce_sum([p.double() for p in parts], mesh), parts)]
+    out = dict(zip(metrics, sums[:len(metrics)]))
+    out.update(grad_norm=grad_norm, pr=dict(zip(pr, sums[len(metrics):])))
+    return out
 
 
 def make_predict_fn(bundle: Bundle):
@@ -329,10 +384,43 @@ class CapacitySaturationError(RuntimeError):
     training would converge to garbage without saying so."""
 
 
+class _Silent:
+    """The logger of a rank other than 0: it writes nothing."""
+
+    def log(self, *args, **kwargs):
+        pass
+
+    def text(self, s: str):
+        pass
+
+    def close(self):
+        pass
+
+
+def dp_mesh(num_devices: Optional[int], devices, device) -> Optional[Mesh]:
+    """This rank's mesh for ``num_devices > 1`` inside a process group
+    (spawned, or started by torchrun), else None."""
+    if not num_devices or num_devices <= 1:
+        return None
+    return mesh_mod.data_parallel_mesh(num_devices, devices, device=device)
+
+
+def check_batch_divides(config_path, num_devices: Optional[int],
+                        reader: str = "train_input_reader") -> None:
+    """The reference's refusal of a batch the ranks cannot share evenly."""
+    if num_devices and num_devices > 1:
+        config = config_io.load_config(config_path)
+        bs = int(config[reader].get("batch_size", 0)) or 1
+        if bs % num_devices:
+            raise ValueError(f"batch_size {bs} not divisible by "
+                             f"num_devices {num_devices}")
+
+
 def train(config_path, model_dir, *, resume: bool = True,
           max_steps: Optional[int] = None, display_step: int = 50,
           seed: int = 0, num_devices: Optional[int] = None,
-          saturation_abort_windows: int = 3, device="cuda") -> TrainState:
+          saturation_abort_windows: int = 3, device="cuda",
+          devices=None) -> TrainState:
     """Train ``config_path`` into ``model_dir`` with checkpoint / resume and
     in-loop evaluation, as the JAX package's ``train`` does.
 
@@ -350,32 +438,91 @@ def train(config_path, model_dir, *, resume: bool = True,
     raise :class:`CapacitySaturationError` when ``mid_capacity_saturated``
     stays above 0 that many display windows in a row (0 disables; no
     pillar model reports it).  -> the final :class:`TrainState`.
-    """
-    if num_devices and num_devices > 1:
-        raise NotImplementedError("multi-device training is not ported")
-    dev = resolve_device(device)
-    model_dir = pathlib.Path(model_dir)
-    model_dir.mkdir(parents=True, exist_ok=True)
-    bundle = Bundle(config_path)
-    # the config as given (the port's config reader has no writer); a run
-    # may be resumed from that copy itself
-    saved = model_dir / "pipeline.config"
-    if not (saved.exists() and saved.samefile(config_path)):
-        shutil.copyfile(config_path, saved)
-    logger = MetricsLogger(model_dir)
-    train_cfg = bundle.config.get("train_config", {})
 
-    _, loader = bundle.input_reader(training=True, seed=seed)
-    total_steps = max_steps or int(train_cfg.get("steps", 0)) or 1000
+    ``num_devices > 1`` trains data parallel over that many ranks, rank
+    ``r`` on ``devices[r]`` (default: the first cards for ``device="cuda"``,
+    the CPU for ``device="cpu"``; ranks may share a device).  The global
+    batch (``train_input_reader.batch_size``) must divide by
+    ``num_devices``; rank 0 reads every batch and sends each rank its
+    rows, writes the logs and the checkpoints, and every rank restores.
+    Inside a process group (torchrun) each rank runs this in place and
+    returns its state; from one process it starts the ranks itself and
+    returns rank 0's final state, restored from the forced last
+    checkpoint onto ``devices[0]``.
+    """
+    check_batch_divides(config_path, num_devices)
+    if num_devices and num_devices > 1 and not launch.in_process_group():
+        devs = mesh_mod.rank_devices(num_devices, devices, device)
+        launch.spawn(_train_rank, num_devices, devs, args=(
+            config_path, model_dir, dict(
+                resume=resume, max_steps=max_steps,
+                display_step=display_step, seed=seed,
+                saturation_abort_windows=saturation_abort_windows)))
+        bundle = Bundle(config_path)
+        state = init_state(bundle, rng_seed=seed,
+                           total_steps=_total_steps(bundle, max_steps),
+                           device=devs[0])
+        ckpt_mod.CheckpointManager(model_dir).restore(state)
+        return state
+    mesh = dp_mesh(num_devices, devices, device)
+    return _train(config_path, model_dir, mesh=mesh, resume=resume,
+                  max_steps=max_steps, display_step=display_step, seed=seed,
+                  saturation_abort_windows=saturation_abort_windows,
+                  device=device)
+
+
+def _total_steps(bundle: Bundle, max_steps: Optional[int]) -> int:
+    return (max_steps or int(bundle.config.get("train_config", {}).get(
+        "steps", 0)) or 1000)
+
+
+def _train_rank(mesh: Mesh, config_path, model_dir, kwargs: dict):
+    """One spawned rank of :func:`train`."""
+    _train(config_path, model_dir, mesh=mesh, device=mesh.device, **kwargs)
+
+
+def _train(config_path, model_dir, *, mesh: Optional[Mesh], resume: bool,
+           max_steps: Optional[int], display_step: int, seed: int,
+           saturation_abort_windows: int, device) -> TrainState:
+    """The training loop of :func:`train`, on one rank of ``mesh`` or
+    alone."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    main = mesh is None or mesh.is_main
+    model_dir = pathlib.Path(model_dir)
+    bundle = Bundle(config_path)
+    train_cfg = bundle.config.get("train_config", {})
+    if main:
+        model_dir.mkdir(parents=True, exist_ok=True)
+        # the config as given (the port's config reader has no writer); a
+        # run may be resumed from that copy itself
+        saved = model_dir / "pipeline.config"
+        if not (saved.exists() and saved.samefile(config_path)):
+            shutil.copyfile(config_path, saved)
+        logger = MetricsLogger(model_dir)
+        _, loader = bundle.input_reader(training=True, seed=seed)
+        batches = iter(loader)
+        if mesh is not None:
+            logger.text(f"data-parallel training over {mesh.size} ranks "
+                        f"({mesh.backend})")
+        if not resume:
+            shutil.rmtree(model_dir / "checkpoints", ignore_errors=True)
+    else:
+        logger, batches = _Silent(), None
+
+    total_steps = _total_steps(bundle, max_steps)
     state = init_state(bundle, rng_seed=seed, total_steps=total_steps,
                        device=dev)
-    if not resume:
-        shutil.rmtree(model_dir / "checkpoints", ignore_errors=True)
     mgr = ckpt_mod.CheckpointManager(model_dir)
-    if resume and mgr.restore(state) is not None:
+    start = mgr.latest_step() if resume else None
+    if mesh is not None:     # every rank restores the step rank 0 found
+        start = mesh_mod.broadcast_object(start, mesh)
+    if start is not None:
+        mgr.restore(state, start)
         logger.text(f"resumed from checkpoint at step {state.step}")
+    if mesh is not None:
+        mesh_mod.replicate(state.model, mesh)
 
-    train_step = make_train_step(bundle)
+    train_step = make_train_step(bundle, mesh=mesh)
     save_secs = int(train_cfg.get("save_checkpoints_secs", 0)) or 1800
     steps_per_eval = int(train_cfg.get("steps_per_eval", 0))
 
@@ -387,11 +534,14 @@ def train(config_path, model_dir, *, resume: bool = True,
     sat_windows = 0
     # batches by voxel capacity: one entry without static_shape_buckets
     capacities: Dict[int, int] = {}
-    batches = iter(loader)
     try:
         while state.step < total_steps:
             with timers.time("host_prep"):
-                batch = next(batches)
+                batch = next(batches) if main else None
+                if mesh is not None:    # each rank's rows of rank 0's batch
+                    batch = mesh_mod.scatter_batch(
+                        batching.device_example(batch) if main else None,
+                        mesh)
             with timers.time("feed"):
                 example = to_device(batch, dev)
             v = int(example["voxels"].shape[1])
@@ -407,6 +557,8 @@ def train(config_path, model_dir, *, resume: bool = True,
             if step % display_step == 0:
                 for counts in window.pop("pr"):
                     pr.update({k: v.cpu().numpy() for k, v in counts.items()})
+                # summed over the ranks: the same on every rank, so that
+                # all of them take the abort below together
                 avg = {k: float(torch.stack(v).double().mean())
                        for k, v in window.items()}
                 avg["steps_per_sec"] = (
@@ -429,7 +581,8 @@ def train(config_path, model_dir, *, resume: bool = True,
                         f"consecutive windows before abort)")
                     if (saturation_abort_windows
                             and sat_windows >= saturation_abort_windows):
-                        mgr.save(step, state, force=True)
+                        if main:
+                            mgr.save(step, state, force=True)
                         raise CapacitySaturationError(
                             f"mid_capacity_saturated > 0 for {sat_windows} "
                             f"consecutive display windows: the sparse "
@@ -437,27 +590,31 @@ def train(config_path, model_dir, *, resume: bool = True,
                             f"and active sites are being dropped")
                 else:
                     sat_windows = 0
-            if time.time() - last_save > save_secs:
+            # rank 0 alone writes: its clock decides nothing the others
+            # wait for
+            if main and time.time() - last_save > save_secs:
                 mgr.save(step, state)
                 last_save = time.time()
             if steps_per_eval and step % steps_per_eval == 0:
-                mgr.save(step, state)
+                if main:
+                    mgr.save(step, state)
                 result = evaluate(config_path, bundle=bundle, state=state,
-                                  device=dev)
+                                  device=dev, mesh=mesh)
                 logger.log(step, {k: v for k, v in result.items()
                                   if isinstance(v, (int, float))},
                            prefix="eval")
     finally:
-        batches.close()         # stops the loader's producer and its pool
-        try:
-            mgr.save(state.step, state, force=True)
-        except ckpt_mod.StepAlreadyExistsError as e:   # a no-op run
-            logger.text(f"final checkpoint save skipped: {e}")
-        logger.log(state.step, {str(v): n for v, n in
-                                sorted(capacities.items())},
-                   prefix="batches_by_voxel_capacity")
-        logger.text(f"training finished at step {state.step}")
-        logger.close()
+        if main:
+            batches.close()     # stops the loader's producer and its pool
+            try:
+                mgr.save(state.step, state, force=True)
+            except ckpt_mod.StepAlreadyExistsError as e:   # a no-op run
+                logger.text(f"final checkpoint save skipped: {e}")
+            logger.log(state.step, {str(v): n for v, n in
+                                    sorted(capacities.items())},
+                       prefix="batches_by_voxel_capacity")
+            logger.text(f"training finished at step {state.step}")
+            logger.close()
     return state
 
 
@@ -466,7 +623,8 @@ def evaluate(config_path, checkpoint=None, *, ckpt_step: Optional[int] = None,
              state: Optional[TrainState] = None,
              variables: Optional[dict] = None, output_dir=None,
              measure_time: bool = False, device="cuda",
-             num_devices: Optional[int] = None, seed: int = 0) -> dict:
+             num_devices: Optional[int] = None, seed: int = 0,
+             devices=None, mesh: Optional[Mesh] = None) -> dict:
     """Run the eval split through predict + the dataset's own evaluation.
 
     ``checkpoint``: a model directory of :func:`train` (its checkpoint at
@@ -480,12 +638,53 @@ def evaluate(config_path, checkpoint=None, *, ckpt_step: Optional[int] = None,
     ``measure_time`` prints per-batch wall time of host prep + feed,
     device network + predict, and host convert, and the four-stage split
     of one batch.
+
+    ``num_devices > 1`` (or the ``mesh`` of a data-parallel training)
+    predicts each eval batch over the ranks, as :func:`train` trains (the
+    eval batch size must divide; a short last batch leaves the first ranks
+    fewer rows): rank 0 reads the batch and sends each rank its rows,
+    gathers the detections, refines them and computes the AP, which every
+    rank returns.  From one process it starts the ranks itself (``bundle``
+    and ``state`` then cannot be given).
     """
-    if num_devices and num_devices > 1:
-        raise NotImplementedError("multi-device evaluation is not ported")
+    if mesh is None:
+        check_batch_divides(config_path, num_devices, "eval_input_reader")
+    if (mesh is None and num_devices and num_devices > 1
+            and not launch.in_process_group()):
+        if bundle is not None or state is not None:
+            raise ValueError("bundle / state live in this process: evaluate "
+                             "them with the mesh of their own ranks")
+        devs = mesh_mod.rank_devices(num_devices, devices, device)
+        return launch.spawn(_evaluate_rank, num_devices, devs, args=(
+            config_path, checkpoint, dict(
+                ckpt_step=ckpt_step, variables=variables,
+                output_dir=output_dir, measure_time=measure_time,
+                seed=seed)))
+    if mesh is None:
+        mesh = dp_mesh(num_devices, devices, device)
+    return _evaluate(config_path, checkpoint, ckpt_step=ckpt_step,
+                     bundle=bundle, state=state, variables=variables,
+                     output_dir=output_dir, measure_time=measure_time,
+                     device=mesh.device if mesh is not None else device,
+                     seed=seed, mesh=mesh)
+
+
+def _evaluate_rank(mesh: Mesh, config_path, checkpoint, kwargs: dict):
+    """One spawned rank of :func:`evaluate`."""
+    return _evaluate(config_path, checkpoint, device=mesh.device, mesh=mesh,
+                     **kwargs)
+
+
+def _evaluate(config_path, checkpoint=None, *, ckpt_step=None, bundle=None,
+              state=None, variables=None, output_dir=None,
+              measure_time=False, device="cuda", seed=0,
+              mesh: Optional[Mesh] = None) -> dict:
+    """:func:`evaluate` on one rank of ``mesh``, or alone."""
     dev = resolve_device(device)
+    main = mesh is None or mesh.is_main
     bundle = bundle or Bundle(config_path)
-    prep_ds, loader = bundle.input_reader(training=False)
+    prep_ds, loader = (bundle.input_reader(training=False) if main
+                       else (None, None))
     model = bundle.model
     if state is not None:
         if state.model is not model:
@@ -509,6 +708,8 @@ def evaluate(config_path, checkpoint=None, *, ckpt_step: Optional[int] = None,
               f"{seed}")
         load_seeded(model, seed)
     model.to(dev).eval()
+    if mesh is not None and state is None:
+        mesh_mod.replicate(model, mesh)
     predict_fn = make_predict_fn(bundle)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
 
@@ -516,34 +717,61 @@ def evaluate(config_path, checkpoint=None, *, ckpt_step: Optional[int] = None,
     detections = []
     nb = 0
     example = None
+    batches = iter(loader) if main else None
     t0 = time.perf_counter()
-    for batch in loader:
-        example = to_device(batch, dev)
-        sync()
-        t1 = time.perf_counter()
-        out = {k: v.cpu().numpy() for k, v in predict_fn(example).items()}
+    while True:
+        batch = next(batches, None) if main else None
+        rows = batch
+        if mesh is not None:    # each rank's rows of rank 0's batch
+            rows = mesh_mod.scatter_batch(
+                None if batch is None else batching.device_example(batch),
+                mesh)
+        if rows is None:
+            break
+        out = None
+        if len(rows["voxels"]):
+            example = to_device(rows, dev)
+            sync()
+            t1 = time.perf_counter()
+            out = {k: v.cpu().numpy()
+                   for k, v in predict_fn(example).items()}
+        else:                   # a short last batch left this rank none
+            t1 = time.perf_counter()
+        if mesh is not None:
+            out = mesh_mod.gather_objects(out, mesh)
+            out = mesh_mod.concat_rows(out) if main else None
         t2 = time.perf_counter()
-        for b in range(out["box3d_lidar"].shape[0]):
-            valid = out["valid"][b]
-            detections.append({
-                "box3d_lidar": out["box3d_lidar"][b][valid],
-                "scores": out["scores"][b][valid],
-                "label_preds": out["label_preds"][b][valid],
-                "metadata": batch["metadata"][b],
-            })
+        if main:
+            for b in range(out["box3d_lidar"].shape[0]):
+                valid = out["valid"][b]
+                detections.append({
+                    "box3d_lidar": out["box3d_lidar"][b][valid],
+                    "scores": out["scores"][b][valid],
+                    "label_preds": out["label_preds"][b][valid],
+                    "metadata": batch["metadata"][b],
+                })
         t3 = time.perf_counter()
         timers["host_feed"] += t1 - t0
         timers["device"] += t2 - t1
         timers["convert"] += t3 - t2
         nb += 1
         t0 = time.perf_counter()
-    if measure_time and nb:
+    if measure_time and nb and main:
         for k, v in timers.items():
             print(f"[measure_time] {k}: {v / nb * 1e3:.1f} ms/batch (the "
                   f"first batch includes warm-up)")
         for name, ms in stage_times_ms(bundle, example).items():
             print(f"[measure_time] stage {name}: {ms:.1f} ms/batch")
-    dataset = prep_ds.dataset
+    result = None
+    if main:
+        result = _score(bundle, prep_ds.dataset, detections, output_dir)
+    if mesh is not None:
+        result = mesh_mod.broadcast_object(result, mesh)
+    return result
+
+
+def _score(bundle: Bundle, dataset, detections: list, output_dir) -> dict:
+    """Point refinement of the configured classes, then the dataset's AP."""
     n = min(len(detections), len(dataset))
     refine_cls = bundle.model_cfg.yaw_point_refine_classes
     if refine_cls:

@@ -51,7 +51,8 @@
    on the card matches the port's CPU step from the same weights and
    batch (loss terms, every gradient, the parameters after the update and
    the BatchNorm statistics; every PFN gradient nonzero); runs
-   ``evaluate`` on the port's own checkpoint (AP printed, not held); and
+   ``evaluate`` on the port's own checkpoint over the first
+   TRAIN_EVAL_SCENES val scenes (AP printed, not held); and
    restarts with a larger ``max_steps``, which must resume at the saved
    step;
 6b. trains SECOND (``car.fhd.config`` at full width: B = 6, 17 000
@@ -139,6 +140,25 @@
    recorded) and evaluates, and car.fhd.serving.config with the flag
    serves four B = 2 requests, heads held against the plain joins with
    the taps-reversed control;
+6f. multi_device: data parallelism over two ranks that share the card
+   (``devices=["cuda:0", "cuda:0"]``, gloo; the ranks are child
+   processes, and a rank's exception or a collective's timeout fails the
+   phase): one spawn of ranks (``parallel/launch.py``) for (b) one
+   car.fhd step at B = 6 (three scans a rank) against the one-process
+   step (the loss, the middle's running statistics, the gradients within
+   CONTROL_MARGIN x the distance of the same step on the batch's rows
+   reordered), (c) ``evaluate(num_devices=2)`` over the 32 val scenes
+   (detections equal one device's as sets, each AP within DP_AP_ATOL),
+   (d) sharded serving of the pillar and car.fhd.serving requests (equal
+   to the unsharded pods), (e) ``make_sharded_mean_canvas`` of a 2 M-point
+   building floor (counts equal the one-device oracle's, means within
+   rtol 1e-5), each rank's kernel counts read per sub-phase and no plain
+   version called; then (a) ``train(num_devices=2)``, which starts its own
+   ranks, against ``train()`` (one step: the loss within 1e-5, the
+   parameters within rtol 2e-4 / atol 2e-5 but where the float32
+   gradients disagree; three steps: within CONTROL_MARGIN x two
+   controls' distance), each rank's counts from an exit hook; the
+   training steps' device ms per rank beside one process's;
 7. holds each kernel against its plain PyTorch version on the card, on
    the inputs the main paths gave it (for the pillar scatter also with
    the rows shuffled and on a canvas whose memory held NaN, one call's
@@ -202,6 +222,7 @@ import contextlib
 import copy
 import ctypes
 import dataclasses
+import datetime
 import functools
 import json
 import math
@@ -216,8 +237,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from automatic_as_built_reconstruction_tpu_torch.builder import (
+    input_reader_builder)
 from automatic_as_built_reconstruction_tpu_torch.data import (
-    batching, kitti_dataset, synth_kitti)
+    batching, building, kitti_dataset, synth_kitti)
 from automatic_as_built_reconstruction_tpu_torch.data.building import (
     generate_building_scene, pad_batch)
 from automatic_as_built_reconstruction_tpu_torch.data.kitti_like import (
@@ -233,7 +256,10 @@ from automatic_as_built_reconstruction_tpu_torch.ops import (
 from automatic_as_built_reconstruction_tpu_torch.ops.voxelize import (
     slot_table, voxelize, voxelize_flat)
 from automatic_as_built_reconstruction_tpu_torch.parallel import (
-    PodInference, inference, pod_inference_from_checkpoint)
+    PodInference, inference, launch, pod_inference_from_checkpoint,
+    sharded_voxelize)
+from automatic_as_built_reconstruction_tpu_torch.parallel import (
+    mesh as mesh_mod)
 from automatic_as_built_reconstruction_tpu_torch.parallel.inference import (
     build_from_config, detections_mismatch)
 from automatic_as_built_reconstruction_tpu_torch.utils import (
@@ -337,6 +363,10 @@ L2_FLUSH_BYTES = 64 << 20        # > the H100's 50 MB L2
 # display window (the loss check compares the first and last windows),
 # and the steps the restart adds
 TRAIN_STEPS, TRAIN_DISPLAY, TRAIN_RESUME_STEPS = 60, 10, 5
+# the val scenes that evaluate the 60-step checkpoint (its AP is printed,
+# not held; the untrained head's huge boxes make the point refinement take
+# 3-9 s a scene: 105-279 s for all 32 on an H100 80GB HBM3 at 700 W)
+TRAIN_EVAL_SCENES = 8
 # one training step on the card against the port's CPU step from the same
 # weights and batch (train_step_mismatch says how each is held): loss
 # terms; gradients against a float64 step (the floor of the card's worst
@@ -441,6 +471,51 @@ HOST_RB_STEPS, HOST_RB_DISPLAY = 20, 5
 MIXED_PILLAR_STEPS = 30
 BF16_GEMM_RTOL = 1e-4
 CONTROL_MARGIN = 1.5
+# data parallelism (the multi_device phase): DP_RANKS ranks time-share the
+# one card over gloo (NCCL refuses two ranks on one device).  Pillar
+# training: one step of train(num_devices=2) against train(), parameters
+# and BatchNorm statistics within DP_PARAM_TOL (the JAX package's own DP
+# test, tests/test_parallel.py:55) where the element's two float32
+# gradients agree to TRAIN_G_AGREE and |g| >= TRAIN_G_NOISE * max|g| (as
+# train_step_mismatch holds them; elsewhere Adam may step the other way,
+# at most 2 * lr), the loss within DP_LOSS_RTOL;
+# then DP_TRAIN_STEPS steps, the parameters held within CONTROL_MARGIN x
+# two controls' distance from train() (on an H100 80GB HBM3 at 700 W two
+# train() runs of 3 steps already differ in 2.6 M of 4.8 M elements
+# beyond DP_PARAM_TOL and by 1.7e-4 in the third step's loss, PERF.md).
+# SECOND: one car.fhd step at B = 6 (three scans a rank) against the
+# one-process step: the loss within DP_LOSS_RTOL, the middle's running
+# statistics within DP_STATS_SHARE of each tensor's max |x|, the
+# gradients within CONTROL_MARGIN x two controls' distance (the same
+# step with the batch's rows reordered moves the median tensor by 3e-3
+# of its max |g|, above SECOND_GRAD_MEDIAN_SHARE).  evaluate:
+# every AP within DP_AP_ATOL of one device's.  The sharded mean canvas of
+# a DP_CANVAS_POINTS-point building floor (synthetic scans side by
+# side) against the one-device oracle at
+# tests/test_parallel.py:137's tolerances
+DP_RANKS = 2
+DP_DEVICES = ["cuda:0"] * DP_RANKS
+DP_TRAIN_STEPS = 3
+DP_PARAM_TOL = dict(rtol=2e-4, atol=2e-5)
+DP_LOSS_RTOL = 1e-5
+DP_STATS_SHARE = 1e-4
+DP_AP_ATOL = 1e-4
+DP_CANVAS_POINTS, DP_CANVAS_COLUMNS = 2_000_000, 8
+DP_CANVAS_TOL = dict(rtol=1e-5, atol=1e-6)
+DP_TIMEOUT = datetime.timedelta(minutes=5)
+# the plain versions a kernel wrapper falls back to on a CPU tensor: a
+# rank on the card must call none of them
+PLAIN_VERSIONS = [
+    (pillar_scatter, "scatter_sorted_to_canvas_plain"),
+    (pillar_scatter, "pillar_gather_plain"),
+    (rotated_iou, "rotate_iou_matrix_plain"),
+    (sparse_gather_gemm, "gather_gemm_plain"),
+    (sparse_gather_gemm, "keymatch_gemm_plain"),
+    (sparse_gather_gemm, "keymatch_rulebook_plain"),
+    (sparse_gather_gemm, "rulebook_hits_plain"),
+    (sparse_gather_gemm, "rulebook_inverse_plain"),
+    (sparse_gather_gemm, "grad_features_plain"),
+    (sparse_gather_gemm, "grad_weights_plain")]
 
 
 def log(msg: str) -> None:
@@ -2285,13 +2360,16 @@ def check_flat_pfn(pod, request, card: str) -> None:
                                  f"{errs[name]} (tolerance {FLAT_TOL})")
 
 
-def run_evaluate(card: str) -> dict:
+def run_evaluate(card: str) -> tuple:
     """``evaluate`` on the 32 val scenes with the trained checkpoint.
-    -> launches of each kernel during it."""
+    -> (launches of each kernel during it, {"result", "detections"}: the
+    AP and the detections it was computed on)."""
     for fn in KERNELS.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    with flags_in_modules() as seen:
+    calls = []
+    with flags_in_modules() as seen, recording(
+            building.BuildingDataset, "evaluation", calls):
         result = evaluate(CONFIG, CHECKPOINT, device="cuda",
                           measure_time=True)
     wall = time.perf_counter() - t0
@@ -2324,7 +2402,9 @@ def run_evaluate(card: str) -> dict:
     if launches != want:
         raise AssertionError(f"evaluate launched {launches}, expected "
                              f"{want}")
-    return launches
+    # the detections the AP was computed on: the multi_device phase's
+    # reference
+    return launches, {"result": result, "detections": calls[0][0][1]}
 
 
 # --------------------------------------------------------------------------
@@ -2539,9 +2619,15 @@ def train_pillars(card: str, config=CONFIG, steps: int = TRAIN_STEPS,
         for fn in KERNELS.values():
             fn.launches = 0
         t0 = time.perf_counter()
-        result = evaluate(config, model_dir, device="cuda")
+        with substituted(input_reader_builder, "_build_dataset",
+                         lambda ds, names, training: building.BuildingDataset(
+                             class_names=names,
+                             num_synthetic=TRAIN_EVAL_SCENES,
+                             synthetic_seed=7)):
+            result = evaluate(config, model_dir, device="cuda")
         log(f"pillar training [{card}]: evaluate on the port's checkpoint "
-            f"(step {steps}) in {time.perf_counter() - t0:.1f} s, launches "
+            f"(step {steps}, the first {TRAIN_EVAL_SCENES} val scenes) in "
+            f"{time.perf_counter() - t0:.1f} s, launches "
             f"{ {n: fn.launches for n, fn in KERNELS.items()} }; AP (not "
             f"held: {steps} steps from seeded weights): "
             + json.dumps(result))
@@ -3441,7 +3527,9 @@ def serve_pp_kitti(card: str, root: Path) -> dict:
 # ``sitecustomize`` (from a directory put first on its PYTHONPATH) records
 # the flags at the start of every module's forward, as flags_in_modules
 # does, and at exit writes each wrapper's count and the flags seen as
-# JSON.  Any other sitecustomize on the path runs first.
+# JSON (to a file of its own where the path holds ``{pid}``: the ranks of
+# a data-parallel run, and nothing from their helper processes, which load
+# none of the port).  Any other sitecustomize on the path runs first.
 COUNTS_HOOK = r"""
 import atexit, json, os, sys
 
@@ -3465,11 +3553,15 @@ torch.nn.modules.module.register_module_forward_pre_hook(
 def _dump_launch_counts():
     counts = {}
     wrappers = json.loads(os.environ["ABR_KERNEL_WRAPPERS"])
+    path = os.environ["ABR_LAUNCH_COUNTS"]
+    if "{pid}" in path and not any(m in sys.modules
+                                   for m, _ in wrappers.values()):
+        return          # a helper process of the ranks: none of the port
     for name, (module, attr) in wrappers.items():
         mod = sys.modules.get(module)
         counts[name] = int(getattr(getattr(mod, attr), "launches", 0)
                            if mod is not None else 0)
-    with open(os.environ["ABR_LAUNCH_COUNTS"], "w") as f:
+    with open(path.replace("{pid}", str(os.getpid())), "w") as f:
         json.dump({"launches": counts, "tf32_seen": sorted(_seen)}, f)
 
 
@@ -3523,6 +3615,13 @@ def expect_launches(what: str, launches: dict, want: dict) -> None:
     want = dict.fromkeys(KERNELS, 0) | want
     if launches != want:
         raise AssertionError(f"{what} launched {launches}, expected {want}")
+
+
+def expect_some_launches(what: str, launches: dict, names) -> None:
+    zero = [n for n in names if not launches[n] > 0]
+    if zero:
+        raise AssertionError(f"{what}: kernels {zero} launched no time "
+                             f"({launches})")
 
 
 def step_on_device(config, batch, steps: int, card: str, what: str) -> tuple:
@@ -4573,6 +4672,592 @@ def profile_kitti(kitti: dict, card: str) -> None:
                  km["report"]["latency_ms"])
 
 
+# --------------------------------------------------------------------------
+# multi-device: data parallelism over two ranks on one card
+# --------------------------------------------------------------------------
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def zero_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def canvas_scan() -> tuple:
+    """A building floor of DP_CANVAS_POINTS points: synthetic scans (16 m
+    rooms) side by side, DP_CANVAS_COLUMNS to a row, cut to the count,
+    shard-major over DP_RANKS shards with the last one's tail padding.
+    -> (points [P, 4], num_valid_per_shard, canvas kwargs)."""
+    nx = DP_CANVAS_COLUMNS
+    parts, n = [], 0
+    while n < DP_CANVAS_POINTS:
+        i = len(parts)
+        p = generate_building_scene(5000 + i)["points"].copy()
+        p[:, 0] += 16.0 * (i % nx)
+        p[:, 1] += 16.0 * (i // nx)
+        parts.append(p)
+        n += len(p)
+    ny = -(-len(parts) // nx)
+    pts = np.concatenate(parts)[:DP_CANVAS_POINTS].astype(np.float32)
+    per = DP_CANVAS_POINTS // DP_RANKS
+    nv = np.full(DP_RANKS, per, np.int32)
+    nv[-1] = per * 7 // 10
+    kw = dict(voxel_size=(0.1, 0.1, 3.6),
+              pc_range=(0.0, 0.0, -0.2, 16.0 * nx, 16.0 * ny, 3.4),
+              grid_hw=(160 * ny, 160 * nx))
+    return pts, nv, kw
+
+
+def dp_rank(mesh, second_config: str, second_batch: dict,
+            pillar_batch: dict) -> dict:
+    """The body of each rank (sub-phases b-e, and the timed steps): every
+    kernel counter set to 0 before each sub-phase and read after it, the
+    plain versions' calls counted throughout.  -> rank 0's results, with
+    every rank's counts."""
+    plain = {f"{m.__name__.rsplit('.', 1)[-1]}.{a}": [] for m, a in
+             PLAIN_VERSIONS}
+    out, mine = {}, {}
+    with contextlib.ExitStack() as stack:
+        for (module, attr), calls in zip(PLAIN_VERSIONS, plain.values()):
+            stack.enter_context(recording(module, attr, calls))
+        with torch.enable_grad():
+            out["second"], mine["second step"] = dp_second_step(
+                mesh, second_config, second_batch)
+            out["pillar_grads"], out["pillar_step_ms"] = dp_pillar_step(
+                mesh, pillar_batch)
+        out["evaluate"], mine["evaluate"] = dp_evaluate(mesh)
+        out["serve"], mine["serving"] = dp_serve(mesh)
+        out["canvas"] = dp_canvas(mesh)
+    report = {"launches": mine,
+              "plain": {k: len(v) for k, v in plain.items()},
+              "device": str(mesh.device),
+              "pillar_step_ms": out["pillar_step_ms"],
+              "second_step_ms": out["second"].pop("step_ms")}
+    out["ranks"] = mesh_mod.gather_objects(report, mesh)
+    return out if mesh.is_main else None
+
+
+def dp_second_step(mesh, config: str, batch: dict) -> tuple:
+    """(b) One car.fhd step over the ranks from the seeded weights of
+    ``train()``: the gradients of the joined batch (summed over the
+    ranks), the state after ``make_train_step``, the loss; then the step
+    timed on each rank.  -> (results on rank 0, this rank's counts)."""
+    bundle = train_mod.Bundle(config)
+    state = train_mod.init_state(bundle, rng_seed=0,
+                                 total_steps=SECOND_TRAIN_STEPS,
+                                 device=mesh.device)
+    example = train_mod.to_device(mesh_mod.shard_batch(batch, mesh),
+                                  mesh.device)
+    model = state.model.train()
+    voxelnet_mod.set_batch_norm_group(model, mesh.group)
+    saved = copy.deepcopy(model.state_dict())
+    zero_counts()
+    _, _, grads = train_mod.loss_and_grads(model, example, bundle.model_cfg,
+                                           mesh)
+    model.load_state_dict(saved)
+    step = train_mod.make_train_step(bundle, mesh)
+    metrics = step(state, example)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    res = {"grads": {n: g.cpu().clone() for (n, _), g in
+                     zip(model.named_parameters(), grads)},
+           "state": {k: v.cpu().clone()
+                     for k, v in model.state_dict().items()},
+           "loss": float(metrics["loss"]), "num_pos": int(metrics["num_pos"])}
+    res["step_ms"] = cuda_ms(lambda: step(state, example), iters=5, warmup=1)
+    return res, counts
+
+
+def dp_pillar_step(mesh, batch: dict) -> tuple:
+    """The first pillar training step of ``train()`` over the ranks: its
+    gradients (of the joined batch, for (a)'s check), then the step timed
+    on each rank (events).  -> (gradients on the host, event ms)."""
+    bundle = train_mod.Bundle(CONFIG)
+    state = train_mod.init_state(bundle, rng_seed=0, total_steps=1,
+                                 device=mesh.device)
+    example = train_mod.to_device(mesh_mod.shard_batch(batch, mesh),
+                                  mesh.device)
+    step = train_mod.make_train_step(bundle, mesh)
+    _, _, grads = train_mod.loss_and_grads(state.model.train(), example,
+                                           bundle.model_cfg, mesh)
+    grads = {n: g.cpu().clone() for (n, _), g in
+             zip(state.model.named_parameters(), grads)}
+    return grads, cuda_ms(lambda: step(state, example), iters=10, warmup=2)
+
+
+def dp_evaluate(mesh) -> tuple:
+    """(c) ``evaluate(num_devices=2)`` in place on each rank (as under
+    torchrun) with the trained checkpoint over the 32 val scenes; the
+    detections handed to the dataset's AP recorded on rank 0."""
+    calls = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with recording(building.BuildingDataset, "evaluation", calls):
+        result = evaluate(CONFIG, CHECKPOINT, device=mesh.device,
+                          num_devices=DP_RANKS, devices=DP_DEVICES)
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    dets = calls[0][0][1] if mesh.is_main else None
+    return {"result": result, "detections": dets, "wall_s": wall}, counts
+
+
+def dp_serve(mesh) -> tuple:
+    """(d) Sharded serving: the pillar pod (trained checkpoint) and the
+    car.fhd.serving pod (seeded weights) with ``mesh``, each rank called
+    with the whole request."""
+    zero_counts()
+    pod = pod_inference_from_checkpoint(
+        CONFIG, CHECKPOINT, mesh=mesh, max_voxels=MAX_VOXELS,
+        max_points_per_voxel=MAX_POINTS)
+    pillar = [pod(*pad_batch([generate_building_scene(s) for s in seeds]))
+              for seeds in REQUESTS]
+    spod = pod_inference_from_checkpoint(
+        SECOND_CONFIG, None, mesh=mesh, seed=SECOND_SEED,
+        max_voxels=SECOND_MAX_VOXELS, max_points_per_voxel=SECOND_MAX_POINTS)
+    second = [spod(*pad_batch([make_scene(s) for s in seeds]))
+              for seeds in SECOND_REQUESTS]
+    torch.cuda.synchronize()
+    return {"pillar": pillar, "second": second}, launch_counts()
+
+
+def dp_canvas(mesh) -> dict:
+    """(e) The sharded mean canvas of the building floor."""
+    pts, nv, kw = canvas_scan()
+    fn = sharded_voxelize.make_sharded_mean_canvas(mesh, **kw)
+    fn(pts, nv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, counts = fn(pts, nv)
+    torch.cuda.synchronize()
+    return {"mean": mean.cpu(), "counts": counts.cpu(),
+            "wall_ms": (time.perf_counter() - t0) * 1e3}
+
+
+@contextlib.contextmanager
+def counts_hook(tmp: Path):
+    """Child processes started inside the block (the ranks of
+    ``train(num_devices=2)``) load COUNTS_HOOK, which writes each one's
+    launch counts and the TF32 flags its modules saw into
+    ``tmp/counts.<pid>.json`` at exit.  -> a function that reads the
+    files of the processes that ran the port."""
+    hook = tmp / "counts_hook"
+    hook.mkdir(parents=True, exist_ok=True)
+    (hook / "sitecustomize.py").write_text(COUNTS_HOOK)
+    env = {"PYTHONPATH": os.pathsep.join(
+               [str(hook), str(ROOT)] + ([os.environ["PYTHONPATH"]]
+                                         if os.environ.get("PYTHONPATH")
+                                         else [])),
+           "ABR_LAUNCH_COUNTS": str(tmp / "counts.{pid}.json"),
+           "ABR_KERNEL_WRAPPERS": json.dumps(
+               {n: (fn.__module__, fn.__name__)
+                for n, fn in KERNELS.items()})}
+    before = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+
+    def read():
+        return [json.loads(p.read_text())
+                for p in sorted(tmp.glob("counts.*.json"))]
+
+    try:
+        yield read
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def train_losses(model_dir: Path) -> list:
+    """The loss of each step of a ``display_step=1`` run."""
+    return [w["loss"] for w in
+            (json.loads(x) for x in
+             (model_dir / "metrics.jsonl").read_text().splitlines())
+            if w["prefix"] == "train"]
+
+
+def beyond(got: dict, want: dict, tol: dict) -> tuple:
+    """Floating entries of two state dicts: (elements outside ``tol``,
+    the L2 norm of the difference)."""
+    n, sq = 0, 0.0
+    for k, w in want.items():
+        if w.is_floating_point():
+            n += int((~torch.isclose(got[k], w, **tol)).sum())
+            sq += float(((got[k] - w).double() ** 2).sum())
+    return n, sq ** 0.5
+
+
+def dp_train(tmp: Path, name: str, steps: int, read_counts=None) -> tuple:
+    """``train(num_devices=2)`` of CONFIG for ``steps`` steps into
+    ``tmp/name``, its ranks' launch counts read through the counts hook.
+    -> (state, losses, rank counts, wall s)."""
+    t0 = time.perf_counter()
+    with counts_hook(tmp / f"{name}_counts") as read:
+        state = train_mod.train(CONFIG, tmp / name, max_steps=steps,
+                                display_step=1, num_devices=DP_RANKS,
+                                devices=DP_DEVICES)
+        ranks = read()
+    return (state, train_losses(tmp / name), ranks,
+            time.perf_counter() - t0)
+
+
+def one_train(tmp: Path, name: str, steps: int, flip: bool = False):
+    """``train()`` of CONFIG in one process; ``flip``: every batch's rows
+    reversed (the control: the same examples, every sum over them in
+    another order).  -> (state, losses)."""
+    with contextlib.ExitStack() as stack:
+        if flip:
+            to_dev = train_mod.to_device
+            stack.enter_context(substituted(
+                train_mod, "to_device", lambda b, d: {
+                    k: v.flip(0) for k, v in to_dev(b, d).items()}))
+        state = train_mod.train(CONFIG, tmp / name, max_steps=steps,
+                                display_step=1, device="cuda")
+    return state, train_losses(tmp / name)
+
+
+def dp_train_pillars(card: str, tmp: Path, g_dp: dict) -> dict:
+    """(a) ``train(num_devices=2)`` (it starts its ranks itself) against
+    ``train()`` from the same seed and batches.  One step: the loss
+    within DP_LOSS_RTOL, the parameters and BatchNorm statistics within
+    DP_PARAM_TOL where the element's gradient is not near zero and the
+    two float32 gradients of the first batch (``g_dp``: the ranks', from
+    :func:`dp_pillar_step`) agree, as train_step_mismatch holds the
+    card's step against the CPU's; elsewhere within 2 * lr.  After
+    DP_TRAIN_STEPS steps the float32 runs have parted: Adam's first steps
+    move every near-zero-gradient element by about lr either way, and
+    ``train()`` itself gives other values run to run on the card.  There
+    the parameters are held within CONTROL_MARGIN x the larger distance
+    of two controls from ``train()``: ``train()`` on the same batches
+    with their rows reversed, and ``train()`` once more."""
+    with torch.enable_grad():
+        dp1, dl1, ranks1, wall1 = dp_train(tmp, "dp1", 1)
+        one1, ol1 = one_train(tmp, "one1", 1)
+        dp, dl, ranks, wall = dp_train(tmp, "dp", DP_TRAIN_STEPS)
+        one, ol = one_train(tmp, "one", DP_TRAIN_STEPS)
+        controls = [one_train(tmp, "flip", DP_TRAIN_STEPS, flip=True),
+                    one_train(tmp, "again", DP_TRAIN_STEPS)]
+    for steps, rs in ((1, ranks1), (DP_TRAIN_STEPS, ranks)):
+        if len(rs) != DP_RANKS:
+            raise AssertionError(f"dp training: {len(rs)} rank processes "
+                                 f"reported launch counts")
+        for r in rs:
+            expect_launches("dp training: a rank", r["launches"],
+                            {"pillar_scatter": steps,
+                             "pillar_gather": steps})
+            if {tuple(f) for f in r["tf32_seen"]} != {(False, False)}:
+                raise AssertionError(f"dp training: a rank's modules saw "
+                                     f"TF32 flags {r['tf32_seen']}")
+    for d in ("dp1", "dp"):
+        text = (tmp / d / "log.txt").read_text()
+        if text.count("training finished at step") != 1:
+            raise AssertionError(f"dp training: {d}/log.txt not written once")
+
+    # one step: the DP limits, where the float32 gradients disagree 2 * lr
+    rel1 = abs(dl1[0] - ol1[0]) / abs(ol1[0])
+    if not (len(dl1) == 1 and rel1 <= DP_LOSS_RTOL):
+        raise AssertionError(f"dp training, one step: loss {dl1} vs {ol1}")
+    bundle = train_mod.Bundle(CONFIG)
+    _, loader = bundle.input_reader(training=True, seed=0)
+    batch = next(iter(loader))
+    state0 = train_mod.init_state(bundle, rng_seed=0, total_steps=1,
+                                  device="cuda")
+    _, g0 = step_grads(bundle, state0, train_mod.to_device(batch, "cuda"))
+    lr = state0.schedule(0)
+    got, ref = dp1.model.state_dict(), one1.model.state_dict()
+    excused, worst = 0, 0.0
+    for n, w in ref.items():
+        g = got[n]
+        if not w.is_floating_point():
+            if not torch.equal(g, w):
+                raise AssertionError(f"dp training: {n} {g} vs {w}")
+            continue
+        share = ((g - w).abs()
+                 / (DP_PARAM_TOL["atol"] + DP_PARAM_TOL["rtol"] * w.abs()))
+        noise = torch.zeros_like(share, dtype=torch.bool)
+        if n in g0:
+            go = g0[n]
+            noise = (((g_dp[n] - go).abs() > TRAIN_G_AGREE * go.abs())
+                     | (go.abs() < TRAIN_G_NOISE * go.abs().max())).to(
+                         g.device)
+            excused += int((noise & (share > 1)).sum())
+        held = share[~noise]
+        worst = max(worst, float(held.max()) if held.numel() else 0.0)
+        if not (bool((held <= 1).all())
+                and bool(((g - w).abs()[noise] <= 2 * lr * 1.01).all())):
+            raise AssertionError(
+                f"dp training: {n} after one step, max abs diff "
+                f"{float((g - w).abs().max())}")
+    log(f"multi_device (a) [{card}]: train(num_devices={DP_RANKS}, devices="
+        f"{DP_DEVICES}), one step, in {wall1:.1f} s wall (ranks started, "
+        f"the final state restored): each rank launched "
+        f"{ {k: v for k, v in ranks1[0]['launches'].items() if v} } with "
+        f"TF32 off; loss {dl1[0]} vs train()'s {ol1[0]} (rel {rel1:.3g}); "
+        f"parameters and BatchNorm statistics within {DP_PARAM_TOL} "
+        f"(worst {worst:.3g} of it) but {excused} elements whose float32 "
+        f"gradients (ranks', one process's) differ by more than "
+        f"{TRAIN_G_AGREE} of |g| or lie below {TRAIN_G_NOISE} * max|g|, "
+        f"each within 2 * lr")
+
+    # DP_TRAIN_STEPS steps: the parameters within CONTROL_MARGIN x the
+    # larger control's distance (elements outside DP_PARAM_TOL, L2 norm);
+    # the losses printed beside the controls'
+    ref = one.model.state_dict()
+    n_dp, l2_dp = beyond(dp.model.state_dict(), ref, DP_PARAM_TOL)
+    ctrl = [beyond(c.model.state_dict(), ref, DP_PARAM_TOL)
+            for c, _ in controls]
+    rel = [abs(a - b) / abs(b) for a, b in zip(dl, ol)]
+    crel = [[abs(a - b) / abs(b) for a, b in zip(cl, ol)]
+            for _, cl in controls]
+    log(f"multi_device (a) [{card}]: {DP_TRAIN_STEPS} steps in {wall:.1f} s "
+        f"wall: losses {dl} vs train()'s {ol} (rel {rel}); the controls "
+        f"(rows reversed; train() again) rel {crel}; elements outside "
+        f"{DP_PARAM_TOL}: {n_dp} (L2 {l2_dp:.4g}), the controls' "
+        + ", ".join(f"{n} ({l2:.4g})" for n, l2 in ctrl))
+    if not (len(dl) == DP_TRAIN_STEPS
+            and n_dp <= CONTROL_MARGIN * max(c[0] for c in ctrl)
+            and l2_dp <= CONTROL_MARGIN * max(c[1] for c in ctrl)):
+        raise AssertionError(f"dp training: {DP_TRAIN_STEPS} steps lie "
+                             f"farther from train() than the controls")
+    return {"launches": {n: sum(r["launches"][n] for r in ranks1 + ranks)
+                         for n in KERNELS},
+            "wall_s": wall, "excused": excused,
+            "losses": [dl, ol] + [cl for _, cl in controls],
+            "beyond": [n_dp] + [c[0] for c in ctrl]}
+
+
+def second_reference(config: Path, batch: dict) -> dict:
+    """(b)'s one-process car.fhd step on the joined batch, and the
+    gradients of two controls: the same batch with its rows reversed and
+    rolled by one (the same examples, every sum over them in another
+    order)."""
+    bundle = train_mod.Bundle(config)
+    state = train_mod.init_state(bundle, rng_seed=0,
+                                 total_steps=SECOND_TRAIN_STEPS,
+                                 device="cuda")
+    example = train_mod.to_device(batch, "cuda")
+    model = state.model.train()
+    saved = copy.deepcopy(model.state_dict())
+    names = [n for n, _ in model.named_parameters()]
+    out = {"controls": []}
+    with torch.enable_grad():
+        for order in (lambda v: v.flip(0), lambda v: v.roll(1, 0)):
+            _, _, grads = train_mod.loss_and_grads(
+                model, {k: order(v) for k, v in example.items()},
+                bundle.model_cfg)
+            out["controls"].append({n: g.cpu() for n, g in zip(names,
+                                                               grads)})
+            model.load_state_dict(saved)
+        _, _, grads = train_mod.loss_and_grads(model, example,
+                                               bundle.model_cfg)
+        model.load_state_dict(saved)
+        metrics = train_mod.make_train_step(bundle)(state, example)
+    out.update(grads={n: g.cpu() for n, g in zip(names, grads)},
+               state={k: v.cpu() for k, v in model.state_dict().items()},
+               loss=float(metrics["loss"]), num_pos=int(metrics["num_pos"]))
+    return out
+
+
+def grad_distance(got: dict, ref: dict) -> tuple:
+    """Over the tensors of two gradient dicts: (the median of each one's
+    max |diff| / max |g|, the worst relative L2 distance)."""
+    share, l2 = [], []
+    for n, w in ref.items():
+        d = got[n].double() - w.double()
+        if not float(w.abs().max()) > 0:
+            raise AssertionError(f"gradient of {n} is zero")
+        share.append(float(d.abs().max() / w.abs().max()))
+        l2.append(float(d.norm() / w.double().norm()))
+    return float(np.median(share)), max(l2), max(share)
+
+
+def check_dp_second(got: dict, ref: dict, card: str) -> None:
+    """The DP step's loss within DP_LOSS_RTOL and the middle's running
+    statistics within DP_STATS_SHARE of their max |x|.  Its gradients lie
+    as far from the one-process step's as float32 allows: at B = 6 the
+    one-process step moves by 3e-3 of max |g| (median tensor) when only
+    the order of the rows changes (an H100 80GB HBM3 at 700 W, PERF.md),
+    so the median tensor's max-share and the worst tensor's relative L2
+    distance are held within CONTROL_MARGIN x the larger of the two
+    controls' (:func:`second_reference`)."""
+    median, l2, worst = grad_distance(got["grads"], ref["grads"])
+    ctrl = [grad_distance(c, ref["grads"]) for c in ref["controls"]]
+    c_median, c_l2 = max(c[0] for c in ctrl), max(c[1] for c in ctrl)
+    stats = {}
+    for n, w in ref["state"].items():
+        if n.startswith("middle_feature_extractor") and "running" in n:
+            stats[n] = (float((got["state"][n] - w).abs().max())
+                        / float(w.abs().max()))
+    rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    log(f"multi_device (b) [{card}]: car.fhd step at B = 6 over "
+        f"{DP_RANKS} ranks vs one process: loss {got['loss']} vs "
+        f"{ref['loss']} (rel {rel:.3g}), num_pos {got['num_pos']} vs "
+        f"{ref['num_pos']}; gradients: median tensor {median:.3g} of its "
+        f"max |g|, worst {worst:.3g}, worst relative L2 {l2:.3g}; the "
+        f"controls (rows reversed, rolled) "
+        + ", ".join(f"{c[0]:.3g} / {c[2]:.3g} / {c[1]:.3g}" for c in ctrl)
+        + f" (limits {CONTROL_MARGIN} x the larger; the float32-vs-float64 "
+        f"limits of the B = 2 step, {SECOND_GRAD_MEDIAN_SHARE} / "
+        f"{SECOND_GRAD_SHARE}, are below the controls'); the middle's "
+        f"{len(stats)} running statistics worst {max(stats.values()):.3g} "
+        f"of max |x| (limit {DP_STATS_SHARE})")
+    if not (median <= CONTROL_MARGIN * c_median
+            and l2 <= CONTROL_MARGIN * c_l2
+            and max(stats.values()) <= DP_STATS_SHARE
+            and rel <= DP_LOSS_RTOL and got["num_pos"] == ref["num_pos"]
+            and len(stats) > 0):
+        raise AssertionError("dp second: the step differs from the "
+                             "one-process step")
+
+
+def check_dp_evaluate(got: dict, ref: dict, num_class: int,
+                      card: str) -> None:
+    res, want = got["result"], ref["result"]
+    if sorted(res) != sorted(want):
+        raise AssertionError(f"dp evaluate: keys {sorted(res)}")
+    worst = 0.0
+    for k, w in want.items():
+        if k.endswith("num_gt"):
+            if res[k] != w:
+                raise AssertionError(f"dp evaluate: {k} {res[k]} != {w}")
+            continue
+        worst = max(worst, abs(res[k] - w))
+    if not worst <= DP_AP_ATOL:
+        raise AssertionError(f"dp evaluate: AP {res} vs one device {want}")
+    dets, wdets = got["detections"], ref["detections"]
+    if len(dets) != len(wdets):
+        raise AssertionError(f"dp evaluate: {len(dets)} scenes vs "
+                             f"{len(wdets)}")
+
+    def padded(d):
+        return {"box3d_lidar": d["box3d_lidar"][None],
+                "scores": d["scores"][None],
+                "label_preds": d["label_preds"][None],
+                "valid": np.ones((1, len(d["scores"])), bool)}
+
+    for i, (d, w) in enumerate(zip(dets, wdets)):
+        diff = detections_mismatch(padded(d), padded(w), num_class,
+                                   BOX_ATOL, SCORE_ATOL)
+        if diff is not None:
+            raise AssertionError(f"dp evaluate, scene {i}: {diff}")
+    log(f"multi_device (c) [{card}]: evaluate(num_devices={DP_RANKS}) over "
+        f"the 32 val scenes in {got['wall_s']:.1f} s: the detections of "
+        f"every scene equal one device's as sets (boxes atol {BOX_ATOL}, "
+        f"scores atol {SCORE_ATOL}), every AP within {DP_AP_ATOL} (largest "
+        f"difference {worst:.3g})")
+
+
+def multi_device(card: str, pod, requests, second: dict, ev_ref: dict,
+                 training: dict, second_training: dict) -> dict:
+    """The multi_device phase: data parallelism over DP_RANKS ranks that
+    share the card (gloo).  One spawn of ranks for (b) a car.fhd step at
+    B = 6, (c) ``evaluate(num_devices=2)``, (d) sharded serving and (e)
+    the sharded mean canvas (and the first pillar step's gradients and
+    step times); then (a) pillar training through
+    ``train(num_devices=2)``; each held to its one-process run here.  Every rank must launch the path's kernels and no plain
+    version.  -> {"launches": {path: summed counts}}."""
+    torch.cuda.empty_cache()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        root = tmp / "kitti"
+        write_clone(root, False, "multi_device", card)
+        config = kitti_config(SECOND_TRAIN_CONFIG, tmp, root)
+        bundle = train_mod.Bundle(config)
+        _, loader = bundle.input_reader(training=True, seed=0)
+        second_batch = batching.device_example(next(iter(loader)))
+        # the first batch of train() (seed 0)
+        pbundle = train_mod.Bundle(CONFIG)
+        _, ploader = pbundle.input_reader(training=True, seed=0)
+        pillar_batch = batching.device_example(next(iter(ploader)))
+        B = len(second_batch["voxels"])
+        if B != 6:
+            raise AssertionError(f"car.fhd batch of {B}")
+        t0 = time.perf_counter()
+        got = launch.spawn(dp_rank, DP_RANKS, DP_DEVICES,
+                           args=(str(config), second_batch, pillar_batch),
+                           timeout=DP_TIMEOUT)
+        log(f"multi_device [{card}]: one spawn of {DP_RANKS} ranks on "
+            f"{DP_DEVICES} ran (b)-(e) in {time.perf_counter() - t0:.1f} s")
+        check_dp_second(got["second"], second_reference(config,
+                                                        second_batch), card)
+        a = dp_train_pillars(card, tmp, got["pillar_grads"])
+    check_dp_evaluate(got["evaluate"], ev_ref, pod.cfg.num_class, card)
+    for what, ref_pod, reqs, outs in (
+            ("pillar", pod, requests, got["serve"]["pillar"]),
+            ("second", second["pod"], second["requests"],
+             got["serve"]["second"])):
+        for i, (req, o) in enumerate(zip(reqs, outs)):
+            diff = detections_mismatch(o, ref_pod(*req), ref_pod.cfg.num_class,
+                                       BOX_ATOL, SCORE_ATOL)
+            if diff is not None:
+                raise AssertionError(f"dp {what} serving, request {i}: "
+                                     f"{diff}")
+    log(f"multi_device (d) [{card}]: sharded serving equals the unsharded "
+        f"pods on {len(requests)} pillar and {len(second['requests'])} "
+        f"car.fhd.serving requests (B = 2, one scan a rank)")
+    pts, nv, kw = canvas_scan()
+    mask = np.zeros(len(pts), bool)
+    per = len(pts) // DP_RANKS
+    for d in range(DP_RANKS):
+        mask[d * per:d * per + nv[d]] = True
+    omean, ocnt = sharded_voxelize.single_device_mean_canvas(
+        torch.as_tensor(pts[mask], device=pod.device), int(mask.sum()),
+        **kw)
+    cv = got["canvas"]
+    if not (torch.equal(cv["counts"], ocnt.cpu())
+            and torch.allclose(cv["mean"], omean.cpu(), **DP_CANVAS_TOL)
+            and float(ocnt.sum()) > 0):
+        raise AssertionError("dp canvas: differs from the one-device oracle")
+    log(f"multi_device (e) [{card}]: sharded mean canvas of "
+        f"{DP_CANVAS_POINTS} points ({int(mask.sum())} valid, grid "
+        f"{kw['grid_hw']}, {int((ocnt > 0).sum())} occupied cells) over "
+        f"{DP_RANKS} ranks in {cv['wall_ms']:.1f} ms wall (rank 0): counts "
+        f"equal the oracle's, means within {DP_CANVAS_TOL}")
+
+    # every rank: the path's kernels launched, no plain version called
+    expect = {"second step": ("keymatch_gemm", "keymatch_rulebook",
+                              "rulebook_hits", "join_grad_weights",
+                              "rulebook_inverse", "join_grad_features"),
+              "evaluate": ("pillar_scatter", "rotated_iou"),
+              "serving": ("pillar_scatter", "keymatch_gemm", "rotated_iou")}
+    for r, rank in enumerate(got["ranks"]):
+        if rank["device"] != DP_DEVICES[r] or any(rank["plain"].values()):
+            raise AssertionError(f"rank {r} on {rank['device']} called plain "
+                                 f"versions {rank['plain']}")
+        for path, names in expect.items():
+            expect_some_launches(f"rank {r}, {path}",
+                                 rank["launches"][path], names)
+        log(f"multi_device [{card}]: rank {r} launched "
+            + json.dumps({p: {n: c for n, c in v.items() if c}
+                          for p, v in rank["launches"].items()})
+            + f"; plain versions called {sum(rank['plain'].values())} times")
+    one_p = training["report"]["device_step_ms"]
+    one_s = second_training["report"]["device_step_ms"]
+    log(f"multi_device [{card}]: device ms of a training step (events; "
+        f"{DP_RANKS} ranks time-share one card over gloo, which stages every "
+        f"collective through the host, so these numbers say nothing about "
+        f"scaling): pillar B = 2 one process {fmt_range(one_p)}, per rank "
+        + ", ".join(fmt_range(r["pillar_step_ms"]) for r in got["ranks"])
+        + f"; car.fhd B = 6 one process {fmt_range(one_s)}, per rank "
+        + ", ".join(fmt_range(r["second_step_ms"]) for r in got["ranks"]))
+    out["launches"] = {
+        "dp pillar training": a["launches"],
+        **{f"dp {p}": {n: sum(r["launches"][p][n] for r in got["ranks"])
+                       for n in KERNELS} for p in expect}}
+    out["report"] = {
+        "pillar_step_ms": [r["pillar_step_ms"] for r in got["ranks"]],
+        "second_step_ms": [r["second_step_ms"] for r in got["ranks"]],
+        "one_process_pillar_step_ms": one_p,
+        "one_process_second_step_ms": one_s,
+        "dp_train_wall_s": a["wall_s"], "excused": a["excused"],
+        "evaluate_wall_s": got["evaluate"]["wall_s"],
+        "canvas_wall_ms": cv["wall_ms"]}
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4584,10 +5269,12 @@ def main() -> int:
         empty_kernel = build_kernels()
         pod, requests, latency_ms, launches, k1_call, k2_call = serve(card)
         second = serve_second(card)
-        ev_launches = run_evaluate(card)
+        ev_launches, ev_ref = run_evaluate(card)
         training = train_pillars(card)
         mixed_pp = mixed_pillars(card, pod, latency_ms)
         second_training = train_second(card)
+        multi = multi_device(card, pod, requests, second, ev_ref, training,
+                             second_training)
         kitti = kitti_phases(card, second["pod"])
         km, gg = second["km_launches"], second["gg_launches"]
         fm, dyn = second["fm_launches"], second["dyn_launches"]
@@ -4596,7 +5283,8 @@ def main() -> int:
                     "second fused_mean": fm, "second dynamic": dyn,
                     "pillar training": training["launches"],
                     "second training": second_training["launches"],
-                    **mixed_pp["launches"], **kitti_launches(kitti)}
+                    **mixed_pp["launches"], **kitti_launches(kitti),
+                    **multi["launches"]}
         total = {name: sum(p[name] for p in per_path.values())
                  for name in KERNELS}
         log(f"launches by path: {json.dumps(per_path)}; summed {total}")

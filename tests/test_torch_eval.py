@@ -703,7 +703,8 @@ def test_evaluate_refuses_what_is_not_ported(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="is_available"):
         train.evaluate(PORT_CFG / "asbuilt_pillars_tiny.config")   # cuda
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # an eval batch of 2 cannot be shared by 4 ranks
+    with pytest.raises(ValueError, match="not divisible"):
         train.evaluate(PORT_CFG / "asbuilt_pillars_tiny.config",
                        device="cpu", num_devices=4)
     # enable_mixed_precision: SECOND's bfloat16 network (car.fhd.mixed) and

@@ -60,6 +60,10 @@ import automatic_as_built_reconstruction_tpu_torch.data.kitti_dataset
 import automatic_as_built_reconstruction_tpu_torch.data.synth_kitti
 import automatic_as_built_reconstruction_tpu_torch.cli
 import automatic_as_built_reconstruction_tpu_torch.ops.rulebook_host
+import automatic_as_built_reconstruction_tpu_torch.parallel.distributed
+import automatic_as_built_reconstruction_tpu_torch.parallel.mesh
+import automatic_as_built_reconstruction_tpu_torch.parallel.sharded_voxelize
+from automatic_as_built_reconstruction_tpu_torch.parallel.launch import run_rank
 import chip_smoke
 import head_drift
 import join_grad_ablation

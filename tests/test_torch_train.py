@@ -291,8 +291,8 @@ def test_capacity_saturation_aborts(micro_cfg, tmp_path, monkeypatch):
     the pillar model reports none, so the step is wrapped)."""
     real = train.make_train_step
 
-    def saturating(bundle):
-        step = real(bundle)
+    def saturating(bundle, **kw):
+        step = real(bundle, **kw)
 
         def wrapped(state, example):
             metrics = step(state, example)
