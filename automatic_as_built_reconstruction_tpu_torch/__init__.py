@@ -14,6 +14,10 @@ and are bound through ``ops/_build.py``:
 - ``ops.sparse_gather_gemm.keymatch_gemm`` and ``.gather_gemm``
   (``csrc/sparse_gather_gemm.cu``)
 
+Each kernel launch a served request makes is also a registered operator
+(``ops/library.py``, namespace ``abr``), so that ``utils/serving_export.py``
+can export the whole serving program with ``torch.export``.
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; a
 CUDA request on a machine without a GPU raises.  The package imports
 torch, numpy and the standard library only.

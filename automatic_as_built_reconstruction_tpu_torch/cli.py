@@ -6,13 +6,19 @@
         --config_path=... --model_dir=... [--output_dir D]
     python -m automatic_as_built_reconstruction_tpu_torch.cli \
         kitti_data_prep --root_path=...
+    python -m automatic_as_built_reconstruction_tpu_torch.cli \
+        import_torch_weights --config_path=... --model_dir=... \
+        --torch_ckpt=voxelnet.tckpt [--no-strict]
+    python -m automatic_as_built_reconstruction_tpu_torch.cli \
+        export_serving --config_path=... --model_dir=... \
+        --output=model.abr [--platforms cuda|cpu] [--batch 8] ...
 
 Every verb that runs a network takes ``--device`` (``cuda`` by default;
-``cpu`` only when asked for).  ``train`` and ``evaluate`` take
-``--num_devices N``: data parallel over N ranks, which the command starts
-itself, or, under ``torchrun --nproc_per_node N``, the ranks torchrun
-started.  The reference's other verbs
-(``building_data_prep``, ``import_torch_weights``, ``export_serving``,
+``cpu`` only when asked for); ``export_serving`` exports on the device
+``--platforms`` names (``cuda`` by default).  ``train`` and ``evaluate``
+take ``--num_devices N``: data parallel over N ranks, which the command
+starts itself, or, under ``torchrun --nproc_per_node N``, the ranks
+torchrun started.  The reference's other verbs (``building_data_prep``,
 ``export_asbuilt``, ``viewer``) and ``train --profile_steps`` are not
 ported.
 """
@@ -53,6 +59,32 @@ def main(argv=None):
                                   "gt database")
     p_kprep.add_argument("--root_path", required=True)
 
+    p_imp = sub.add_parser(
+        "import_torch_weights",
+        help="convert a lineage torch checkpoint (.tckpt/.pt) into this "
+             "trainer's checkpoint at step 0 under --model_dir")
+    p_imp.add_argument("--config_path", required=True)
+    p_imp.add_argument("--model_dir", required=True)
+    p_imp.add_argument("--torch_ckpt", required=True)
+    p_imp.add_argument("--no-strict", dest="strict", action="store_false",
+                       help="skip missing keys instead of raising")
+
+    p_exp = sub.add_parser(
+        "export_serving",
+        help="export the full serving program (voxelize -> model -> "
+             "decode+NMS, weights inside) as a torch.export artifact")
+    p_exp.add_argument("--config_path", required=True)
+    p_exp.add_argument("--model_dir", required=True)
+    p_exp.add_argument("--output", required=True)
+    p_exp.add_argument("--batch", type=int, default=8)
+    p_exp.add_argument("--max_points", type=int, default=60000)
+    p_exp.add_argument("--platforms", default="cuda", choices=("cuda", "cpu"),
+                       help="the device the program is exported on")
+    p_exp.add_argument("--max_voxels", type=int, default=20000)
+    p_exp.add_argument("--max_points_per_voxel", type=int, default=32)
+    p_exp.add_argument("--voxelization", default="hard",
+                       choices=("hard", "dynamic", "fused_mean"))
+
     args = parser.parse_args(argv)
 
     if args.command == "train":
@@ -80,6 +112,20 @@ def main(argv=None):
     elif args.command == "kitti_data_prep":
         from .data.create_data import kitti_data_prep
         kitti_data_prep(args.root_path)
+    elif args.command == "import_torch_weights":
+        from .train.train import import_torch_weights
+        import_torch_weights(args.config_path, args.model_dir,
+                             args.torch_ckpt, strict=args.strict)
+        print(f"imported {args.torch_ckpt} -> {args.model_dir} (step 0)")
+    elif args.command == "export_serving":
+        from .utils.serving_export import export_serving_from_checkpoint
+        size, meta = export_serving_from_checkpoint(
+            args.config_path, args.model_dir, args.output,
+            batch=args.batch, max_points=args.max_points,
+            platforms=(args.platforms,), max_voxels=args.max_voxels,
+            max_points_per_voxel=args.max_points_per_voxel,
+            voxelization=args.voxelization)
+        print(f"wrote {args.output} ({size} bytes): {meta}")
 
 
 if __name__ == "__main__":

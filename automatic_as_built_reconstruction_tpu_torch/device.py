@@ -24,17 +24,24 @@ def resolve_device(device="cuda") -> torch.device:
 
 
 @contextlib.contextmanager
-def fp32_math():
+def fp32_math(deterministic: bool = False):
     """Full fp32 inside the block: TF32 off for cuDNN convolutions (on by
     PyTorch's default) and cuBLAS matmuls, whatever the caller's global
-    flags; the caller's flags are restored on the way out.  The flags are
-    process-wide, so two threads must not run entry points at once."""
+    flags; with ``deterministic`` also cuDNN's deterministic algorithms
+    (the training step: without them two runs from one seed and one batch
+    stream part after a step, the RPN convolutions' backward summing in
+    another order; ``train_determinism.py``).  The caller's flags are
+    restored on the way out.  The flags are process-wide, so two threads
+    must not run entry points at once."""
     backends = torch.backends
     conv, matmul = backends.cudnn.allow_tf32, backends.cuda.matmul.allow_tf32
+    det = backends.cudnn.deterministic
     backends.cudnn.allow_tf32 = False
     backends.cuda.matmul.allow_tf32 = False
+    backends.cudnn.deterministic = det or deterministic
     try:
         yield
     finally:
         backends.cudnn.allow_tf32 = conv
         backends.cuda.matmul.allow_tf32 = matmul
+        backends.cudnn.deterministic = det

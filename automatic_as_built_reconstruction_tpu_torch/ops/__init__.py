@@ -1,2 +1,2 @@
-"""Device ops: voxelization, box decode, NMS and the two CUDA kernels
-(pillar scatter, rotated IoU) with their plain PyTorch versions."""
+"""Device ops: voxelization, box decode, NMS and the CUDA kernels with
+their plain PyTorch versions, registered as operators in ``library.py``."""

@@ -8,8 +8,10 @@ takes one of two routes by the canvas's size (:func:`scatter_plan`): the
 tiles (``pillar_scatter_kernel``, one launch into an uninitialised canvas:
 each block streams its tile's zeros while its cluster reads the scan's
 ids into the blocks' maps, then copies its rows over them) or, for a large
-canvas, a zero fill and ``pillar_rows_kernel``.  On a CUDA tensor the call
-is a ``torch.autograd.Function`` whose backward is
+canvas, a zero fill and ``pillar_rows_kernel``; both are the
+``abr::pillar_scatter`` op of ``ops/library.py`` (its CUDA body is
+:func:`_scatter_cuda`).  With grad recorded the call is a
+``torch.autograd.Function`` whose backward is
 ``pillar_gather_kernel`` (the transpose: each row reads the canvas
 gradient at its cell, :func:`gather_plan`); the JAX package has no Pallas
 backward here, XLA transposes its training scatter.  The kernels copy
@@ -25,7 +27,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import _build
+from . import _build, library
 
 # the C launch functions: (in, in, out pointers, ints, stream); the rows
 # kernel's takes the gather's
@@ -167,8 +169,11 @@ def _launch(symbol: str, argtypes, src: torch.Tensor, lin: torch.Tensor,
     _build.check(err, symbol)
 
 
-def _scatter_kernel(feats: torch.Tensor, lin: torch.Tensor,
-                    hw: int) -> torch.Tensor:
+def _scatter_cuda(feats: torch.Tensor, lin: torch.Tensor,
+                  hw: int) -> torch.Tensor:
+    """The CUDA body of the ``abr::pillar_scatter`` op
+    (``ops/library.py``): checks, a launch of :func:`scatter_plan`'s
+    route, its count."""
     feats = feats.contiguous()
     lin = lin.contiguous()
     B, V, C = feats.shape
@@ -196,13 +201,13 @@ def _scatter_kernel(feats: torch.Tensor, lin: torch.Tensor,
 
 
 class _ScatterToCanvas(torch.autograd.Function):
-    """K1 with its gradient: forward the scatter kernel, backward the
-    gather kernel."""
+    """K1 with its gradient: forward the scatter op, backward
+    :func:`pillar_gather` (the gather kernel on the card)."""
 
     @staticmethod
     def forward(ctx, feats, lin, hw):
         ctx.save_for_backward(lin)
-        return _scatter_kernel(feats, lin, hw)
+        return library.pillar_scatter(feats, lin, int(hw))
 
     @staticmethod
     def backward(ctx, dcanvas):
@@ -224,18 +229,19 @@ def scatter_sorted_to_canvas(feats: torch.Tensor, lin: torch.Tensor,
     ids within a scan are not an accepted input: no voxelizer makes
     them, and the kernel would keep an arbitrary one.
 
-    CPU tensors take the plain version; CUDA tensors launch a kernel of
-    :func:`scatter_plan`'s route (float32 with C a multiple of 4, or
-    bfloat16 with C a multiple of 8; int32 ids) or raise, and the gradient
-    to ``feats`` launches :func:`pillar_gather`'s kernel.  The canvas has
-    the features' type.
+    Runs the ``abr::pillar_scatter`` op: on CPU tensors the plain
+    version, on CUDA tensors a kernel of :func:`scatter_plan`'s route
+    (float32 with C a multiple of 4, or bfloat16 with C a multiple of 8;
+    int32 ids) or it raises.  With grad recorded the gradient to
+    ``feats`` is :func:`pillar_gather` (its kernel on the card).  The
+    canvas has the features' type.
     """
     if feats.dim() != 3 or lin.shape != feats.shape[:2]:
         raise ValueError(f"feats {tuple(feats.shape)} / lin "
                          f"{tuple(lin.shape)}: want [B,V,C] / [B,V]")
-    if not feats.is_cuda:
-        return scatter_sorted_to_canvas_plain(feats, lin, hw)
-    return _ScatterToCanvas.apply(feats, lin, hw)
+    if torch.is_grad_enabled() and feats.requires_grad:
+        return _ScatterToCanvas.apply(feats, lin, hw)
+    return library.pillar_scatter(feats, lin, int(hw))
 
 
 def pillar_gather(dcanvas: torch.Tensor, lin: torch.Tensor) -> torch.Tensor:

@@ -4,7 +4,9 @@ Replaces the TPU kernel ``automatic_as_built_reconstruction_tpu/ops/
 pallas/rotated_iou_pallas.py::rotate_iou_matrix_pallas`` (Sutherland–
 Hodgman clip in 8-slot vertex buffers, shoelace area, IoU by criterion
 -1/0/1), which also computes the XLA ``ops/rotated_iou.py`` function that
-``ops/nms_jax.py`` calls.  The CUDA kernel (``csrc/rotated_iou.cu``) first
+``ops/nms_jax.py`` calls.  The kernel and the plain version are the
+two implementations of the ``abr::rotated_iou`` op of
+``ops/library.py``.  The CUDA kernel (``csrc/rotated_iou.cu``) first
 rejects the pairs that are disjoint by a margin (bounding circles, then
 separating axes: :func:`disjoint_pairs` is its plain mirror), and clips
 only the others, one pair a thread, with the plain version's arithmetic.
@@ -17,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, library
 
 # (in, in, out pointers, four ints, stream) of the C launch function
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -197,25 +199,10 @@ def rotate_iou_matrix_plain(boxes: torch.Tensor, qboxes: torch.Tensor,
     return _iou_from_inter(inter, boxes, qboxes, criterion)
 
 
-def rotate_iou_matrix(boxes: torch.Tensor, qboxes: torch.Tensor,
-                      criterion: int = -1) -> torch.Tensor:
-    """Rotated IoU of (x, y, w, l, yaw) BEV boxes, fp32.
-
-    ``[R, N, 5] x [R, K, 5] -> [R, N, K]``: one IoU matrix per row r.
-    ``criterion``: -1 = IoU over the union, 0 = over area A, 1 = over
-    area B.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel or
-    raise.
-    """
-    if criterion not in (-1, 0, 1):
-        raise ValueError(f"criterion must be -1, 0 or 1, got {criterion}")
-    if (boxes.dim() != 3 or qboxes.dim() != 3 or boxes.shape[-1] != 5
-            or qboxes.shape[-1] != 5 or boxes.shape[0] != qboxes.shape[0]):
-        raise ValueError(f"boxes {tuple(boxes.shape)} / qboxes "
-                         f"{tuple(qboxes.shape)}: want [R,N,5] / [R,K,5]")
-    if not boxes.is_cuda:
-        return rotate_iou_matrix_plain(boxes, qboxes, criterion)
+def _rotated_iou_cuda(boxes: torch.Tensor, qboxes: torch.Tensor,
+                      criterion: int) -> torch.Tensor:
+    """The CUDA body of the ``abr::rotated_iou`` op (``ops/library.py``):
+    checks, the launch, its count."""
     if boxes.dtype != torch.float32 or qboxes.dtype != torch.float32:
         raise TypeError(f"kernel takes float32 boxes, got {boxes.dtype} / "
                         f"{qboxes.dtype}")
@@ -233,6 +220,26 @@ def rotate_iou_matrix(boxes: torch.Tensor, qboxes: torch.Tensor,
     _build.check(err, "rotated_iou_launch")
     rotate_iou_matrix.launches += 1
     return out
+
+
+def rotate_iou_matrix(boxes: torch.Tensor, qboxes: torch.Tensor,
+                      criterion: int = -1) -> torch.Tensor:
+    """Rotated IoU of (x, y, w, l, yaw) BEV boxes, fp32.
+
+    ``[R, N, 5] x [R, K, 5] -> [R, N, K]``: one IoU matrix per row r.
+    ``criterion``: -1 = IoU over the union, 0 = over area A, 1 = over
+    area B.
+
+    Runs the ``abr::rotated_iou`` op: on CPU tensors the plain version,
+    on CUDA tensors the kernel (float32 boxes) or it raises.
+    """
+    if criterion not in (-1, 0, 1):
+        raise ValueError(f"criterion must be -1, 0 or 1, got {criterion}")
+    if (boxes.dim() != 3 or qboxes.dim() != 3 or boxes.shape[-1] != 5
+            or qboxes.shape[-1] != 5 or boxes.shape[0] != qboxes.shape[0]):
+        raise ValueError(f"boxes {tuple(boxes.shape)} / qboxes "
+                         f"{tuple(qboxes.shape)}: want [R,N,5] / [R,K,5]")
+    return library.rotated_iou(boxes, qboxes, int(criterion))
 
 
 rotate_iou_matrix.launches = 0

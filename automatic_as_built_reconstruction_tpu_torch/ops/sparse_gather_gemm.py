@@ -26,6 +26,11 @@ not.  Bound: operations at the 3xTF32 rate (495 / 3 TFLOP/s on an H100)
 for the 27-tap joins at 32 and 64 channels; :func:`tile_occupancy` says
 what share of the tensor-core work the data needs.
 
+Each forward is an operator of ``ops/library.py`` (``abr::gather_gemm``,
+``abr::keymatch_gemm``), dispatched by device: the kernel on the card
+(:func:`_gather_cuda`, :func:`_keymatch_cuda`), the plain version on the
+CPU.
+
 Both take an optional leading batch dimension on everything but the
 weights (the JAX package maps the kernel over the batch; here the batch
 is the launch grid's second axis).
@@ -75,7 +80,7 @@ import ctypes
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, library
 from .sparse_conv import _merge_lookup, gathered_matmul
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -241,9 +246,9 @@ def _launch_gather(features, gather_idx, found, weights) -> torch.Tensor:
     return out
 
 
-def _gather_forward(features, gather_idx, found, weights) -> torch.Tensor:
-    if not features.is_cuda:
-        return gather_gemm_plain(features, gather_idx, found, weights)
+def _gather_cuda(features, gather_idx, found, weights) -> torch.Tensor:
+    """The CUDA body of the ``abr::gather_gemm`` op (``ops/library.py``):
+    checks, the launch, its count on the float32 or bfloat16 counter."""
     _check_cuda(features, weights, {"gather_idx": (gather_idx, torch.int32),
                                     "found": (found, torch.bool)},
                 (torch.float32, torch.bfloat16))
@@ -255,9 +260,10 @@ def _gather_forward(features, gather_idx, found, weights) -> torch.Tensor:
     return out
 
 
-def _keymatch_forward(features, in_keys, q_keys, weights) -> torch.Tensor:
-    if not features.is_cuda:
-        return keymatch_gemm_plain(features, in_keys, q_keys, weights)
+def _keymatch_cuda(features, in_keys, q_keys, weights) -> torch.Tensor:
+    """The CUDA body of the ``abr::keymatch_gemm`` op
+    (``ops/library.py``): checks, the launch, its count on the float32 or
+    bfloat16 counter."""
     _check_cuda(features, weights, {"in_keys": (in_keys, torch.int32),
                                     "q_keys": (q_keys, torch.int32)},
                 (torch.float32, torch.bfloat16))
@@ -370,7 +376,7 @@ class _GatherGemm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features, gather_idx, found, weights):
         ctx.save_for_backward(features, gather_idx, found, weights)
-        return _gather_forward(features, gather_idx, found, weights)
+        return library.gather_gemm(features, gather_idx, found, weights)
 
     @staticmethod
     def backward(ctx, dout):
@@ -383,7 +389,7 @@ class _KeymatchGemm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, features, in_keys, q_keys, weights):
         ctx.save_for_backward(features, in_keys, q_keys, weights)
-        return _keymatch_forward(features, in_keys, q_keys, weights)
+        return library.keymatch_gemm(features, in_keys, q_keys, weights)
 
     @staticmethod
     def backward(ctx, dout):
@@ -404,9 +410,10 @@ def gather_gemm(features: torch.Tensor, gather_idx: torch.Tensor,
     outside ``[0, N)`` counts as not found.  With one leading batch
     dimension on features, idx and found: [B, R, Cout].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (features and weights both float32, or both bfloat16 with an even
-    Cin, which the tile's bfloat16 form takes; int32 idx, bool found,
+    Runs the ``abr::gather_gemm`` op: on CPU tensors the plain version,
+    on CUDA tensors the kernel (features and weights both float32, or
+    both bfloat16 with an even Cin, which the tile's bfloat16 form
+    takes; int32 idx, bool found,
     Cout in ``KERNEL_COUTS``) or raise.  The output is float32 either
     way.  Differentiable in features and weights (the module docstring).
     ``interpret``, ``tile``, ``window`` and ``shared`` select among the
@@ -418,7 +425,7 @@ def gather_gemm(features: torch.Tensor, gather_idx: torch.Tensor,
                          f"{tuple(gather_idx.shape)}")
     if _records_grad(features, weights):
         return _GatherGemm.apply(features, gather_idx, found, weights)
-    return _gather_forward(features, gather_idx, found, weights)
+    return library.gather_gemm(features, gather_idx, found, weights)
 
 
 gather_gemm.launches = 0
@@ -454,9 +461,10 @@ def keymatch_gemm(features: torch.Tensor, in_keys: torch.Tensor,
     matches.  With one leading batch dimension on features, in_keys and
     q_keys: [B, M, Cout].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (features and weights both float32, or both bfloat16 with an even Cin,
-    which the tile's bfloat16 form takes; int32 keys, Cout in
+    Runs the ``abr::keymatch_gemm`` op: on CPU tensors the plain
+    version, on CUDA tensors the kernel (features and weights both
+    float32, or both bfloat16 with an even Cin, which the tile's bfloat16
+    form takes; int32 keys, Cout in
     ``KERNEL_COUTS``) or raise.  The output is float32 either way.  The
     kernel searches ascending ``in_keys`` (what the
     key-order voxelizer and the sorted strided sites give) by bisection;
@@ -477,7 +485,7 @@ def keymatch_gemm(features: torch.Tensor, in_keys: torch.Tensor,
         raise ValueError(f"group={group} must divide K={K}")
     if _records_grad(features, weights):
         return _KeymatchGemm.apply(features, in_keys, q_keys, weights)
-    return _keymatch_forward(features, in_keys, q_keys, weights)
+    return library.keymatch_gemm(features, in_keys, q_keys, weights)
 
 
 keymatch_gemm.launches = 0

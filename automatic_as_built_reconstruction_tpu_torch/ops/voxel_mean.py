@@ -20,8 +20,11 @@ all three kernels):
 - first appearance (the host voxelizer's numbering): the slot table of
   ``ops/voxelize.py`` and the table kernel (:func:`mean_from_table`).
 
-CPU tensors take the plain versions; CUDA tensors launch the kernels or
-raise.  Bound: bytes, and so few that the kernels' chains of dependent
+Each kernel is an operator of ``ops/library.py`` (``abr::point_keys``
+and its filling form ``abr::point_keys_fill``, ``abr::segment_mean``,
+``abr::mean_from_table``): on CPU tensors its
+plain version, on CUDA tensors the kernel, which raises on what it does
+not take.  Bound: bytes, and so few that the kernels' chains of dependent
 reads set their time; see the source note.
 """
 from __future__ import annotations
@@ -31,7 +34,7 @@ from typing import NamedTuple, Optional, Sequence
 
 import torch
 
-from . import _build
+from . import _build, library
 from .voxelize import (INT32_MAX, SlotTable, _cell_coords, padded_from_table,
                        slot_table)
 
@@ -115,20 +118,22 @@ def _check_outputs(out: FusedVoxelMeanResult, tile_state: torch.Tensor,
                              f"on {points.device}")
 
 
-def point_keys(points: torch.Tensor, num_valid: torch.Tensor, *,
-               voxel_size: Sequence[float], pc_range: Sequence[float],
-               grid_size: Sequence[int],
-               fill: Optional[FusedVoxelMeanResult] = None,
-               tile_state: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The key kernel's wrapper: points [B, P, C] + num_valid [B] ->
-    packed int64 keys [B, P] (see :func:`point_keys_plain`).  ``fill``
-    and ``tile_state``: the buffers :func:`segment_mean` will write, which
-    the same launch sets to the empty value (features 0, coords -1,
-    counts 0) and zeroes.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if not points.is_cuda:
-        return point_keys_plain(points, num_valid, voxel_size=voxel_size,
-                                pc_range=pc_range, grid_size=grid_size)
+def _set_empty(fill: FusedVoxelMeanResult,
+               tile_state: torch.Tensor) -> None:
+    """The segment kernel's buffers at their empty value (features 0,
+    coords -1, counts and scan words 0), as the key kernel leaves them."""
+    fill.features.zero_()
+    fill.coords.fill_(-1)
+    fill.num_points.zero_()
+    fill.num_voxels.zero_()
+    tile_state.zero_()
+
+
+def _point_keys_cuda(points, num_valid, voxel_size, pc_range, grid_size,
+                     fill: Optional[FusedVoxelMeanResult],
+                     tile_state: Optional[torch.Tensor]) -> torch.Tensor:
+    """The CUDA body of the ``abr::point_keys`` op (``ops/library.py``):
+    checks, the launch, its count."""
     _check_points(points)
     if num_valid.device != points.device:
         raise ValueError("points and num_valid on different devices")
@@ -157,6 +162,26 @@ def point_keys(points: torch.Tensor, num_valid: torch.Tensor, *,
     _build.check(err, "point_keys_launch")
     point_keys.launches += 1
     return packed
+
+
+def point_keys(points: torch.Tensor, num_valid: torch.Tensor, *,
+               voxel_size: Sequence[float], pc_range: Sequence[float],
+               grid_size: Sequence[int],
+               fill: Optional[FusedVoxelMeanResult] = None,
+               tile_state: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The key kernel's wrapper: points [B, P, C] + num_valid [B] ->
+    packed int64 keys [B, P] (see :func:`point_keys_plain`).  ``fill``
+    and ``tile_state``: the buffers :func:`segment_mean` will write, which
+    the same launch sets to the empty value (features 0, coords -1,
+    counts 0) and zeroes.  Runs the ``abr::point_keys`` op (with ``fill``,
+    ``abr::point_keys_fill``): on CPU tensors the plain version, on CUDA
+    tensors the kernel or it raises."""
+    geo = ([float(v) for v in voxel_size], [float(v) for v in pc_range],
+           [int(g) for g in grid_size])
+    if fill is None:
+        return library.point_keys(points, num_valid, *geo)
+    return library.point_keys_fill(points, num_valid, *geo, *fill,
+                                   tile_state)
 
 
 point_keys.launches = 0
@@ -220,21 +245,11 @@ def _empty_outputs(B, V, C, device) -> FusedVoxelMeanResult:
         torch.empty((B,), dtype=torch.int32, device=device))
 
 
-def segment_mean(points: torch.Tensor, packed: torch.Tensor, *,
-                 grid_size: Sequence[int], max_points: int, max_voxels: int,
-                 outputs: Optional[FusedVoxelMeanResult] = None,
-                 tile_state: Optional[torch.Tensor] = None
-                 ) -> FusedVoxelMeanResult:
-    """The segment-and-mean kernel's wrapper: points [B, P, C] + the
-    key-sorted packed values [B, P] -> :class:`FusedVoxelMeanResult` (see
-    :func:`segment_mean_plain`).  ``outputs`` and ``tile_state`` come
-    from :func:`point_keys`'s ``fill``; without them they are allocated
-    and filled here.  CPU tensors take the plain version; CUDA tensors
-    launch the kernel or raise."""
-    kw = dict(grid_size=grid_size, max_points=max_points,
-              max_voxels=max_voxels)
-    if not points.is_cuda:
-        return segment_mean_plain(points, packed, **kw)
+def _segment_mean_cuda(points, packed, grid_size, max_points,
+                       outputs: FusedVoxelMeanResult,
+                       tile_state: torch.Tensor) -> None:
+    """The CUDA body of the ``abr::segment_mean`` op (``ops/library.py``):
+    checks, the launch into ``outputs``, its count."""
     _check_points(points)
     B, P, C = points.shape
     if (packed.device != points.device or packed.dtype != torch.int64
@@ -242,24 +257,15 @@ def segment_mean(points: torch.Tensor, packed: torch.Tensor, *,
         raise ValueError(f"packed keys {packed.dtype} "
                          f"{tuple(packed.shape)}: want int64 {(B, P)} on "
                          f"the points' device")
-    V, T = int(max_voxels), int(max_points)
+    V, T = outputs.features.shape[1], int(max_points)
     gx, _, gz = _grid_dims(grid_size)
     if T < 1:
         raise ValueError(f"max_points = {T}")
     points, packed = points.contiguous(), packed.contiguous()
     n_tiles = -(-P // SEGMENT_TILE)
-    if outputs is None:
-        outputs = FusedVoxelMeanResult(
-            torch.zeros((B, V, C), dtype=torch.float32, device=points.device),
-            torch.full((B, V, 3), -1, dtype=torch.int32,
-                       device=points.device),
-            torch.zeros((B, V), dtype=torch.int32, device=points.device),
-            torch.zeros((B,), dtype=torch.int32, device=points.device))
-        tile_state = torch.zeros((B, scan_words(P)), dtype=torch.int32,
-                                 device=points.device)
     _check_outputs(outputs, tile_state, points, V)
     if B == 0 or P == 0:
-        return outputs
+        return
     fn = _build.function("voxel_mean", "segment_mean_launch",
                          _SEGMENT_ARGTYPES)
     with torch.cuda.device(points.device):
@@ -269,6 +275,31 @@ def segment_mean(points: torch.Tensor, packed: torch.Tensor, *,
                  n_tiles, B, P, C, V, T, gx, gz, stream)
     _build.check(err, "segment_mean_launch")
     segment_mean.launches += 1
+
+
+def segment_mean(points: torch.Tensor, packed: torch.Tensor, *,
+                 grid_size: Sequence[int], max_points: int, max_voxels: int,
+                 outputs: Optional[FusedVoxelMeanResult] = None,
+                 tile_state: Optional[torch.Tensor] = None
+                 ) -> FusedVoxelMeanResult:
+    """The segment-and-mean kernel's wrapper: points [B, P, C] + the
+    key-sorted packed values [B, P] -> :class:`FusedVoxelMeanResult` (see
+    :func:`segment_mean_plain`).  ``outputs`` and ``tile_state`` come
+    from :func:`point_keys`'s ``fill``; without them they are allocated
+    and emptied here.  Runs the ``abr::segment_mean`` op, which writes
+    into them: on CPU tensors the plain version, on CUDA tensors the
+    kernel or it raises."""
+    if outputs is None:
+        B, P, C = points.shape
+        outputs = _empty_outputs(B, int(max_voxels), C, points.device)
+        tile_state = torch.empty((B, scan_words(P)), dtype=torch.int32,
+                                 device=points.device)
+        _set_empty(outputs, tile_state)
+    elif outputs.features.shape[1] != int(max_voxels):
+        raise ValueError(f"outputs hold {outputs.features.shape[1]} voxels, "
+                         f"max_voxels = {max_voxels}")
+    library.segment_mean(points, packed, [int(g) for g in grid_size],
+                         int(max_points), *outputs, tile_state)
     return outputs
 
 
@@ -284,39 +315,50 @@ def mean_from_table_plain(points: torch.Tensor, cell: torch.Tensor,
                           ) -> FusedVoxelMeanResult:
     """Plain PyTorch version of :func:`mean_from_table`: the padded voxels
     of the table, then the mean as ``models.voxel_encoder.SimpleVoxel``
-    takes it."""
-    from ..models.voxel_encoder import SimpleVoxel
-
+    takes it (the sum of the first ``num_points`` rows over the clamped
+    count)."""
     vox = padded_from_table(points, cell, tab, max_points)
-    mean = SimpleVoxel(points.shape[-1])(vox.voxels, vox.num_points)
+    T = vox.voxels.shape[2]
+    ids = torch.arange(T, device=points.device)
+    mask = (ids[None, None, :] < vox.num_points[..., None]).to(
+        vox.voxels.dtype)[..., None]
+    denom = torch.clamp_min(vox.num_points[..., None], 1).to(
+        vox.voxels.dtype)
+    mean = (vox.voxels * mask).sum(dim=2) / denom
     return FusedVoxelMeanResult(mean, vox.coords, vox.num_points,
                                 vox.num_voxels)
 
 
-def mean_from_table(points: torch.Tensor, cell: torch.Tensor, tab: SlotTable,
-                    max_points: int) -> FusedVoxelMeanResult:
-    """The table kernel's wrapper: points [B, P, C], their cells [B, P, 3]
-    and the slot table -> capped means, coords and counts of every slot.
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (fp32 points) or raise."""
-    if not points.is_cuda:
-        return mean_from_table_plain(points, cell, tab, max_points)
+def _mean_from_table_plain(points, cell, order, start, count, max_points,
+                           max_voxels):
+    """The ``abr::mean_from_table`` op's CPU body: (features, coords,
+    num_points) of :func:`mean_from_table_plain`, contiguous."""
+    tab = SlotTable(order, start[:, :max_voxels], count[:, :max_voxels],
+                    *[None] * 4)
+    got = mean_from_table_plain(points, cell, tab, max_points)
+    return tuple(t.contiguous() for t in got[:3])
+
+
+def _mean_from_table_cuda(points, cell, order, start, count, max_points,
+                          V: int):
+    """The CUDA body of the ``abr::mean_from_table`` op
+    (``ops/library.py``): checks, the launch, its count."""
     if points.dtype != torch.float32:
         raise TypeError(f"kernel takes float32 points, got {points.dtype}")
-    if any(t.device != points.device for t in (cell, tab.order, tab.start,
-                                               tab.count)):
+    if any(t.device != points.device for t in (cell, order, start, count)):
         raise ValueError("points, cells and slot table on different devices")
     B, P, C = points.shape
-    V, T = tab.start.shape[1], int(max_points)
+    T = int(max_points)
     points, cell = points.contiguous(), cell.contiguous()
-    order = tab.order.contiguous()
+    order = order.contiguous()
     # the table's rows carry a dump column past V: hand the kernel the
     # row stride instead of copying the V columns out
-    start, count = tab.start, tab.count
     stride = start.stride(0)
     if (start.stride(1) != 1 or count.stride() != start.stride()
             or stride < V):
-        start, count, stride = start.contiguous(), count.contiguous(), V
+        start = start[:, :V].contiguous()
+        count = count[:, :V].contiguous()
+        stride = V
     dev = points.device
     features, coords, num_points, _ = _empty_outputs(B, V, C, dev)
     fn = _build.function("voxel_mean", "voxel_mean_launch", _ARGTYPES)
@@ -328,6 +370,18 @@ def mean_from_table(points: torch.Tensor, cell: torch.Tensor, tab: SlotTable,
                  stride, stream)
     _build.check(err, "voxel_mean_launch")
     mean_from_table.launches += 1
+    return features, coords, num_points
+
+
+def mean_from_table(points: torch.Tensor, cell: torch.Tensor, tab: SlotTable,
+                    max_points: int) -> FusedVoxelMeanResult:
+    """The table kernel's wrapper: points [B, P, C], their cells [B, P, 3]
+    and the slot table -> capped means, coords and counts of every slot.
+    Runs the ``abr::mean_from_table`` op: on CPU tensors the plain
+    version, on CUDA tensors the kernel (fp32 points) or it raises."""
+    features, coords, num_points = library.mean_from_table(
+        points, cell, tab.order, tab.start, tab.count, int(max_points),
+        int(tab.start.shape[1]))
     return FusedVoxelMeanResult(features, coords, num_points, tab.num_voxels)
 
 
@@ -375,18 +429,13 @@ def fused_voxelize_mean(points: torch.Tensor, num_valid: torch.Tensor, *,
     [B, V, C], coords, counts and voxel count.
 
     ``tile`` and ``window`` are the TPU kernel's window tuning: accepted
-    and without effect here.  CPU tensors take the plain version.  CUDA
-    tensors run the key route (``first_appearance=False``: key kernel,
-    ``torch.sort``, segment-and-mean kernel) or the table route (slot
-    table, table kernel), and raise on what the kernels do not take.
+    and without effect here.  Runs the key route
+    (``first_appearance=False``: the key op, ``torch.sort``, the
+    segment-and-mean op) or the table route (slot table, the table op):
+    on CPU tensors the ops' plain versions, on CUDA tensors the kernels,
+    which raise on what they do not take.
     """
     _check(points, num_valid)
-    if not points.is_cuda:
-        return fused_voxelize_mean_plain(
-            points, num_valid, voxel_size=voxel_size, pc_range=pc_range,
-            grid_size=grid_size, max_points=max_points,
-            max_voxels=max_voxels, first_appearance=first_appearance)
-    _check_points(points)
     if first_appearance:
         cell, tab = slot_table(points, num_valid, voxel_size=voxel_size,
                                pc_range=pc_range, grid_size=grid_size,

@@ -28,6 +28,7 @@ from ..models import voxelnet as voxelnet_mod
 from ..ops.voxel_mean import fused_voxelize_mean
 from ..ops.voxelize import dynamic_voxelize, voxelize
 from ..utils.seeded_init import load_seeded
+from ..train.checkpoint import CheckpointManager
 from ..utils.weight_import import load_variables
 from . import mesh as mesh_mod
 from .mesh import Mesh
@@ -92,11 +93,18 @@ class PodInference:
     def _serve(self, points, num_valid) -> Dict[str, np.ndarray]:
         pts, nv = self._device_inputs(points, num_valid)
         with fp32_math():
-            preds = self.model(*self.voxelize(pts, nv))
-            anchors = self.anchors[None].expand(pts.shape[0],
-                                                *self.anchors.shape)
-            out = voxelnet_mod.predict(preds, anchors, self.cfg)
+            out = self.program(pts, nv)
         return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def program(self, pts: torch.Tensor,
+                nv: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The single-device serving program on device tensors: voxelize,
+        the network, ``predict`` (what ``utils/serving_export.py``
+        exports).  The caller sets the arithmetic (``fp32_math``)."""
+        preds = self.model(*self.voxelize(pts, nv))
+        anchors = self.anchors[None].expand(pts.shape[0],
+                                            *self.anchors.shape)
+        return voxelnet_mod.predict(preds, anchors, self.cfg)
 
     @torch.no_grad()
     def heads(self, points, num_valid) -> Dict[str, torch.Tensor]:
@@ -218,19 +226,29 @@ def pod_inference_from_checkpoint(config_path, checkpoint_pkl, *,
                                   voxelization: str = "hard"
                                   ) -> PodInference:
     """Build a :class:`PodInference` straight from a config file and a
-    checkpoint pickle — the one-call serving entry point.  With
-    ``checkpoint_pkl=None`` it warns and serves random weights and
-    BatchNorm statistics drawn from ``seed`` (as the JAX entry point
-    serves fresh weights when it finds no checkpoint).  ``mesh``: serve
-    batch-sharded over its ranks (:class:`PodInference`)."""
+    checkpoint — the one-call serving entry point.  ``checkpoint_pkl``: a
+    checkpoint pickle of the JAX package (a file, or a ``.pkl`` path), or
+    a model directory of ``train`` or ``import_torch_weights`` (its latest
+    checkpoint).  With ``checkpoint_pkl=None``, or a model directory that
+    holds no checkpoint (or does not exist, as the reference takes one),
+    it warns and serves random weights and BatchNorm statistics drawn
+    from ``seed`` (as the JAX entry point serves fresh weights when it
+    finds no checkpoint).  ``mesh``: serve batch-sharded over its ranks
+    (:class:`PodInference`)."""
     dev = mesh.device if mesh is not None else resolve_device(device)
     model, cfg, anchors = build_from_config(config_path)
-    if checkpoint_pkl is None:
+    path = None if checkpoint_pkl is None else Path(checkpoint_pkl)
+    if path is not None and (path.is_file() or path.suffix == ".pkl"):
+        load_variables(model, load_checkpoint_variables(path))
+        restored = True
+    else:       # a model directory; with no checkpoints there, none
+        restored = (path is not None and (path / "checkpoints").is_dir()
+                    and CheckpointManager(path).restore_model(model)
+                    is not None)
+    if not restored:
         print(f"WARNING: no checkpoint; serving random weights from seed "
               f"{seed}")
         load_seeded(model, seed)
-    else:
-        load_variables(model, load_checkpoint_variables(checkpoint_pkl))
     return PodInference(model, cfg, anchors, device=dev, mesh=mesh,
                         max_voxels=max_voxels,
                         max_points_per_voxel=max_points_per_voxel,

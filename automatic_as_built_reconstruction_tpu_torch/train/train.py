@@ -14,7 +14,8 @@ network and ``predict`` on the device, point-evidence refinement for the
 configured classes, then the dataset's AP: ``BuildingDataset``'s lidar
 AP, or ``KittiDataset``'s KITTI protocol table) from a model directory
 of the port's checkpoints, a checkpoint pickle of the JAX package, or
-seeded weights.  Pillar and SECOND configs train alike; SECOND's sparse
+seeded weights; ``import_torch_weights`` writes a lineage torch
+checkpoint into a model directory at step 0.  Pillar and SECOND configs train alike; SECOND's sparse
 middle trains in key-match mode through the joins' backward kernels, or,
 where the config does not set ``use_keymatch_sparse_gemm``, on rulebooks
 that the input pipeline builds on the host (``ops/rulebook_host.py``:
@@ -23,7 +24,9 @@ device with the batch; it reports ``mid_capacity_saturated`` and aborts as
 the reference does when its site caps keep truncating.
 ``enable_mixed_precision`` runs the sparse middle and the RPN in bfloat16
 (``car.fhd.mixed``), as the reference's ``Bundle`` does.  The float32
-arithmetic runs with TF32 off whatever the process's global flags
+arithmetic runs with TF32 off whatever the process's global flags, and
+the training step on cuDNN's deterministic algorithms, so that two runs
+from one seed and one batch stream give the same parameters
 (``device.fp32_math``).  ``num_devices > 1`` trains and evaluates data
 parallel over ranks of ``torch.distributed`` (``parallel/mesh.py``):
 each rank takes its rows of every global batch, which rank 0 reads;
@@ -59,7 +62,7 @@ from ..parallel.inference import load_checkpoint_variables
 from ..parallel.mesh import Mesh
 from ..utils.progress import StageTimers
 from ..utils.seeded_init import load_flax_init, load_seeded
-from ..utils.weight_import import load_variables
+from ..utils.weight_import import load_torch_checkpoint, load_variables
 from . import checkpoint as ckpt_mod
 from . import metrics as metrics_mod
 
@@ -202,11 +205,13 @@ def loss_and_grads(model: voxelnet_mod.VoxelNet,
     (``voxelnet.set_batch_norm_group``), and the gradients are summed over
     the ranks in one flattened all-reduce, so that every rank holds the
     gradients of the joined batch.  -> (preds, loss terms of this rank's
-    rows, gradients in ``model.parameters()`` order)."""
+    rows, gradients in ``model.parameters()`` order).  cuDNN runs its
+    deterministic algorithms, so that a step's gradients are the same
+    bits run after run."""
     params = list(model.parameters())
     batch = (None if mesh is None
              else example["labels"].shape[0] * mesh.size)
-    with fp32_math(), torch.enable_grad():
+    with fp32_math(deterministic=True), torch.enable_grad():
         preds = forward(model, example, cfg)
         loss, metrics = voxelnet_mod.compute_loss(preds, example, cfg,
                                                   batch_size=batch)
@@ -768,6 +773,28 @@ def _evaluate(config_path, checkpoint=None, *, ckpt_step=None, bundle=None,
     if mesh is not None:
         result = mesh_mod.broadcast_object(result, mesh)
     return result
+
+
+def import_torch_weights(config_path, model_dir, torch_ckpt, *,
+                         strict: bool = True) -> TrainState:
+    """Convert a lineage torch checkpoint (``voxelnet-*.tckpt`` / ``.pt``
+    state_dict) into this trainer's checkpoint at step 0 under
+    ``model_dir``, with ``pipeline.config`` beside it: the port of the JAX
+    package's ``train/train.py::import_torch_weights`` (:586).
+
+    Afterwards ``evaluate(config_path, model_dir)`` serves the imported
+    weights and ``train(..., resume=True)`` fine-tunes from them, with
+    step 0's optimizer state as :func:`init_state` makes it.  Nothing
+    runs a network: the state is built and written on the host."""
+    model_dir = pathlib.Path(model_dir)
+    model_dir.mkdir(parents=True, exist_ok=True)
+    saved = model_dir / "pipeline.config"
+    if not (saved.exists() and saved.samefile(config_path)):
+        shutil.copyfile(config_path, saved)
+    state = init_state(Bundle(config_path), device="cpu")
+    load_torch_checkpoint(torch_ckpt, state.model, strict=strict)
+    ckpt_mod.CheckpointManager(model_dir).save(0, state, force=True)
+    return state
 
 
 def _score(bundle: Bundle, dataset, detections: list, output_dir) -> dict:

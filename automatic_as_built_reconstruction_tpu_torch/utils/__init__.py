@@ -1,1 +1,2 @@
-"""Weight conversion from the JAX package's variables."""
+"""Weight conversion (the JAX package's variables, lineage torch
+checkpoints), seeded weights, evaluation and the serving export."""

@@ -1,4 +1,5 @@
-"""JAX-package variables -> the port's ``state_dict``.
+"""Weights in and out of the port: JAX-package variables and lineage
+torch checkpoints -> the port's ``state_dict``.
 
 The JAX package's variables (``{"params": ..., "batch_stats": ...}``:
 nested dicts of arrays, as ``model.init`` returns them and as the repo's
@@ -18,11 +19,21 @@ Dense ``(I, O)``                Linear ``(O, I)`` — ``.T``
 BatchNorm scale/bias + mean/var weight/bias + running_mean/running_var
 sparse conv ``(K, I, O)``       spconv 1.x ``(kz, ky, kx, I, O)`` — reshape
 ==============================  =======================================
+
+A lineage ``second.pytorch`` checkpoint needs less: the port's modules
+carry the lineage names and layouts (``rpn.blocks.{i}.{j}``,
+``middle_feature_extractor.middle_conv.{n}``,
+``voxel_feature_extractor.pfn_layers.{i}``, ...), so
+:func:`from_torch_state_dict` (the port's copy of the JAX package's
+``from_torch_state_dict``, :208) checks the keys and shapes against the
+model's own and converts only a spconv 2.x weight ``(O, kz, ky, kx, I)``
+to the 1.x layout the port holds (:func:`import_spconv`, the
+counterpart of ``_import_spconv`` :194).
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -125,3 +136,88 @@ def load_variables(model: nn.Module, variables: Dict[str, Any]) -> None:
             sd[f"{name}.num_batches_tracked"] = torch.zeros(
                 (), dtype=torch.long)
     model.load_state_dict(sd, strict=True)
+
+
+def import_spconv(w, kernel: Sequence[int], cin: int,
+                  cout: int) -> np.ndarray:
+    """A lineage sparse-conv weight -> spconv 1.x ``(kz, ky, kx, cin,
+    cout)``, the layout of ``models/middle.py::SparseConvWeight``: a 1.x
+    weight ``(k, k, k, cin, cout)`` as it is (its taps refactored to
+    ``kernel``), a 2.x weight ``(cout, k, k, k, cin)`` transposed.  Raises
+    ``ValueError`` on any other shape."""
+    w = _to_np(w)
+    kernel = tuple(int(k) for k in kernel)
+    K = int(np.prod(kernel))
+    if w.ndim != 5:
+        raise ValueError(f"spconv weight must be 5D, got {w.shape}")
+    if int(np.prod(w.shape[:3])) == K and w.shape[3:] == (cin, cout):
+        return w.reshape(*kernel, cin, cout)              # spconv 1.x
+    if (w.shape[0] == cout and int(np.prod(w.shape[1:4])) == K
+            and w.shape[4] == cin):                       # spconv 2.x
+        return w.transpose(1, 2, 3, 4, 0).reshape(*kernel, cin, cout)
+    raise ValueError(
+        f"spconv weight {w.shape} matches neither (k,k,k,{cin},{cout}) "
+        f"nor ({cout},k,k,k,{cin}) with prod(k)={K}")
+
+
+def _to_np(t) -> np.ndarray:
+    if isinstance(t, torch.Tensor):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        t = t.numpy()
+    return np.asarray(t)
+
+
+def from_torch_state_dict(state_dict: Dict[str, Any], model: nn.Module,
+                          strict: bool = True) -> nn.Module:
+    """Map a lineage torch ``state_dict`` (torch tensors or numpy arrays)
+    onto a built port ``VoxelNet`` and load it (``strict=True``); returns
+    the model.
+
+    The expected keys are the model's own (BatchNorm weight, bias,
+    running_mean and running_var, Conv2d, ConvTranspose2d, Linear, spconv,
+    the head biases), as the JAX package's ``_build_spec`` (:102) fixes
+    them; BatchNorm's ``num_batches_tracked`` counters keep the model's
+    values, and extra keys (lineage-only counters, keys of no slot) are
+    ignored.  Each converted shape is checked against the module's
+    tensor (``ValueError`` naming the key).  ``strict``: raise
+    ``KeyError`` on missing keys, naming the first four and the first four
+    unmatched torch keys; ``strict=False`` keeps the model's values for
+    them.
+    """
+    sd = {k: _to_np(v) for k, v in state_dict.items()}
+    new = model.state_dict()
+    used, missing = set(), []
+    for key, cur in new.items():
+        if key.endswith(".num_batches_tracked"):
+            continue
+        if key not in sd:
+            missing.append(key)
+            continue
+        used.add(key)
+        w = sd[key]
+        if cur.dim() == 5:                 # SparseConvWeight
+            w = import_spconv(w, cur.shape[:3], cur.shape[3], cur.shape[4])
+        if tuple(w.shape) != tuple(cur.shape):
+            raise ValueError(f"{key}: converted shape {tuple(w.shape)} != "
+                             f"expected {tuple(cur.shape)}")
+        new[key] = torch.from_numpy(np.array(w, order="C")).to(cur.dtype)
+    if strict and missing:
+        extra = sorted(set(sd) - used)
+        raise KeyError(
+            f"state_dict missing {len(missing)} expected keys "
+            f"(first: {missing[:4]}); unmatched torch keys: {extra[:4]}")
+    model.load_state_dict(new, strict=True)
+    return model
+
+
+def load_torch_checkpoint(path, model: nn.Module,
+                          strict: bool = True) -> nn.Module:
+    """``torch.load`` a lineage ``.tckpt`` / ``.pt`` file (a state_dict,
+    or ``{"state_dict": ...}``) and import it into ``model``
+    (:func:`from_torch_state_dict`)."""
+    obj = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(obj, dict) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    return from_torch_state_dict(obj, model, strict=strict)

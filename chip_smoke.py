@@ -35,6 +35,16 @@
    the port's own CPU run, the modes against each other, the launch
    counts against the plan, and prints each block's
    ``capacity_saturated``;
+4b. export: each of the pillar path (K1, K2), SECOND key-match (K4g,
+   K2), key-match with ``fused_mean`` (K5, K4g, K2) and the gather-GEMM
+   mode (K3s, K2) exported through ``utils/serving_export.py`` on the
+   card, saved to bytes, loaded in this process and called on the
+   path's requests (padded to one point count): its detections equal the
+   eager pod's, its launch counters (set to 0 just before, read just
+   after) equal the eager pod's with every kernel of the path launched,
+   the caller's TF32 flags unchanged; prints each artifact's size, the
+   export and load times and the request latency of artifact and eager
+   pod in turns;
 5. runs ``evaluate`` on the 32 synthetic val scenes of
    ``asbuilt_pillars.config`` with the trained checkpoint (host reader,
    network and ``predict`` on the card, point refinement, AP) and holds
@@ -147,7 +157,8 @@
    car.fhd step at B = 6 (three scans a rank) against the one-process
    step (the loss, the middle's running statistics, the gradients within
    CONTROL_MARGIN x the distance of the same step on the batch's rows
-   reordered), (c) ``evaluate(num_devices=2)`` over the 32 val scenes
+   reordered; the one-process step's gradients the same bits when
+   computed again), (c) ``evaluate(num_devices=2)`` over the 32 val scenes
    (detections equal one device's as sets, each AP within DP_AP_ATOL),
    (d) sharded serving of the pillar and car.fhd.serving requests (equal
    to the unsharded pods), (e) ``make_sharded_mean_canvas`` of a 2 M-point
@@ -156,8 +167,10 @@
    version called; then (a) ``train(num_devices=2)``, which starts its own
    ranks, against ``train()`` (one step: the loss within 1e-5, the
    parameters within rtol 2e-4 / atol 2e-5 but where the float32
-   gradients disagree; three steps: within CONTROL_MARGIN x two
-   controls' distance), each rank's counts from an exit hook; the
+   gradients disagree; three steps: ``train()`` again equal to
+   ``train()`` bit for bit, the DP run within CONTROL_MARGIN x the
+   distance of ``train()`` on the rows reversed, the part of it that the
+   reduction order explains), each rank's counts from an exit hook; the
    training steps' device ms per rank beside one process's;
 7. holds each kernel against its plain PyTorch version on the card, on
    the inputs the main paths gave it (for the pillar scatter also with
@@ -263,7 +276,7 @@ from automatic_as_built_reconstruction_tpu_torch.parallel import (
 from automatic_as_built_reconstruction_tpu_torch.parallel.inference import (
     build_from_config, detections_mismatch)
 from automatic_as_built_reconstruction_tpu_torch.utils import (
-    eval as eval_mod)
+    eval as eval_mod, serving_export)
 from automatic_as_built_reconstruction_tpu_torch.train import (
     checkpoint as ckpt_mod, train as train_mod)
 from automatic_as_built_reconstruction_tpu_torch.train.train import evaluate
@@ -365,8 +378,9 @@ L2_FLUSH_BYTES = 64 << 20        # > the H100's 50 MB L2
 TRAIN_STEPS, TRAIN_DISPLAY, TRAIN_RESUME_STEPS = 60, 10, 5
 # the val scenes that evaluate the 60-step checkpoint (its AP is printed,
 # not held; the untrained head's huge boxes make the point refinement take
-# 3-9 s a scene: 105-279 s for all 32 on an H100 80GB HBM3 at 700 W)
-TRAIN_EVAL_SCENES = 8
+# 3-9 s a scene: 105-279 s for all 32, 44.5 s for 8 on an H100 80GB HBM3
+# at 700 W)
+TRAIN_EVAL_SCENES = 4
 # one training step on the card against the port's CPU step from the same
 # weights and batch (train_step_mismatch says how each is held): loss
 # terms; gradients against a float64 step (the floor of the card's worst
@@ -1129,6 +1143,124 @@ def serve(card: str):
 
 
 # --------------------------------------------------------------------------
+# the serving export
+# --------------------------------------------------------------------------
+
+# artifact / eager rounds over a path's requests, in turns
+EXPORT_TURNS = 4
+# the kernels each exported path must launch (its K1, K2, K4g, K5, K3s)
+EXPORT_KERNELS = {
+    "pillar": ("pillar_scatter", "rotated_iou"),
+    "second key-match": ("keymatch_gemm", "rotated_iou"),
+    "second fused_mean": ("voxel_keys", "voxel_mean", "keymatch_gemm",
+                          "rotated_iou"),
+    "second gather-GEMM": ("gather_gemm", "rotated_iou")}
+
+
+def padded_requests(requests) -> list:
+    """The requests padded to one point count, the artifact's static
+    shape (zeros past ``num_valid``, which no voxelizer reads)."""
+    P = max(pts.shape[1] for pts, _ in requests)
+    out = []
+    for pts, nv in requests:
+        full = np.zeros((pts.shape[0], P, pts.shape[2]), np.float32)
+        full[:, :pts.shape[1]] = pts
+        out.append((full, nv))
+    return out
+
+
+def export_path(what: str, pod, requests, card: str) -> dict:
+    """One served path through ``utils/serving_export.py``: export the
+    pod's program on the card, save it to bytes, load it in this process
+    and call it on the path's requests (padded to one shape).  Holds: the
+    artifact's detections equal the eager pod's (``detections_mismatch``),
+    its launch counters (set to 0 just before, read just after) those of
+    the eager pod on the same requests with every kernel of
+    EXPORT_KERNELS[what] launched, the caller's TF32 flags unchanged.
+    Prints the artifact's size, the export and load times, and the
+    request latency of the artifact and the eager pod in turns.  -> its
+    numbers and launches."""
+    reqs = padded_requests(requests)
+    B, P, C = reqs[0][0].shape
+    flags = tf32_flags()
+    t0 = time.perf_counter()
+    blob = serving_export.export_serving(pod, B, P, num_features=C)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = serving_export.load_serving(blob)
+    load_s = time.perf_counter() - t0
+    art(*reqs[0])                         # warm-up of both
+    pod(*reqs[0])
+    zero_counts()
+    want = [pod(*r) for r in reqs]
+    eager = launch_counts()
+    zero_counts()
+    got = [art(*r) for r in reqs]
+    launches = launch_counts()
+    if tf32_flags() != flags:
+        raise AssertionError(f"export {what}: the caller's TF32 flags "
+                             f"{flags} became {tf32_flags()}")
+    expect_some_launches(f"export {what}", launches, EXPORT_KERNELS[what])
+    if launches != eager:
+        raise AssertionError(f"export {what}: the artifact launched "
+                             f"{launches}, the eager pod {eager}")
+    C_cls = pod.cfg.num_class
+    for i, (g, w) in enumerate(zip(got, want)):
+        diff = detections_mismatch(g, w, C_cls, BOX_ATOL, SCORE_ATOL)
+        if diff is not None:
+            raise AssertionError(f"export {what}, request {i}: {diff}")
+    bit_equal = all(np.array_equal(g[k], w[k])
+                    for g, w in zip(got, want) for k in w)
+    lat = {"artifact": [], "eager": []}
+    for turn in range(EXPORT_TURNS):
+        order = [("artifact", art), ("eager", pod)]
+        for name, fn in (order if turn % 2 == 0 else order[::-1]):
+            for r in reqs:
+                t = time.perf_counter()
+                fn(*r)                    # host numpy: synchronised
+                lat[name].append((time.perf_counter() - t) * 1e3)
+    ms = {k: [float(np.median(v)), min(v), max(v)] for k, v in lat.items()}
+    n_det = int(sum(o["valid"].sum() for o in got))
+    log(f"export {what} [{card}]: artifact of {len(blob)} bytes "
+        f"(B = {B}, {P} points x {C}), exported in {export_s:.2f} s, "
+        f"loaded in {load_s:.2f} s; on {len(reqs)} requests its {n_det} "
+        f"detections equal the eager pod's (boxes atol {BOX_ATOL}, scores "
+        f"atol {SCORE_ATOL}; bit for bit: {bit_equal}), its launches "
+        f"{ {k: v for k, v in launches.items() if v} } the eager pod's, "
+        f"TF32 flags left at {flags}; request latency ms in turns "
+        f"({EXPORT_TURNS} rounds of {len(reqs)}): artifact "
+        f"{fmt_range(ms['artifact'])}, eager {fmt_range(ms['eager'])}")
+    return {"bytes": len(blob), "export_s": export_s, "load_s": load_s,
+            "latency_ms": ms, "bit_equal": bit_equal, "launches": launches,
+            "calls": {"artifact": functools.partial(art, *reqs[-1]),
+                      "eager": functools.partial(pod, *reqs[-1])}}
+
+
+def export_phase(card: str, pod, requests, second: dict) -> dict:
+    """The ``export`` phase: :func:`export_path` on the pillar path
+    (K1, K2), SECOND key-match (K4g, K2), key-match with ``fused_mean``
+    (K5, K4g, K2) and the gather-GEMM mode (K3s, K2).  -> {"launches":
+    {path: counts}, "report": {path: numbers}, "calls": {path: the last
+    request's artifact and eager calls, for the profiles at the end}}."""
+    t0 = time.perf_counter()
+    report = {"pillar": export_path("pillar", pod, requests, card)}
+    for what, key in (("second key-match", "pod"),
+                      ("second fused_mean", "fused"),
+                      ("second gather-GEMM", "gg")):
+        report[what] = export_path(what, second[key], second["requests"],
+                                   card)
+    log(f"export [{card}]: {len(report)} paths in "
+        f"{time.perf_counter() - t0:.1f} s: " + json.dumps(
+            {k: {n: v[n] for n in ("bytes", "export_s", "load_s",
+                                   "latency_ms", "bit_equal")}
+             for k, v in report.items()}))
+    return {"launches": {f"export {k}": v.pop("launches")
+                         for k, v in report.items()},
+            "calls": {k: v.pop("calls") for k, v in report.items()},
+            "report": report}
+
+
+# --------------------------------------------------------------------------
 # SECOND serving
 # --------------------------------------------------------------------------
 
@@ -1334,19 +1466,19 @@ def serve_second(card: str):
     log(f"second: GPU detections match the port's CPU run on all "
         f"{len(outs)} requests (boxes atol {BOX_ATOL}, scores atol "
         f"{SCORE_ATOL}); CPU run {time.perf_counter() - t0:.1f} s")
-    # the dynamic mode against its own CPU run (two requests: a CPU
+    # the dynamic mode against its own CPU run (one request: a CPU
     # request takes about ten seconds)
     t0 = time.perf_counter()
     cpu_dyn = PodInference(cpu.model, cpu.cfg, cpu.anchors.numpy(),
                            device="cpu", voxelization="dynamic", **kw)
-    for i, req in enumerate(requests[:2]):
+    for i, req in enumerate(requests[:1]):
         diff = detections_mismatch(dyn_outs[i], cpu_dyn(*req), cfg.num_class,
                                    BOX_ATOL, SCORE_ATOL)
         if diff is not None:
             raise AssertionError(f"second dynamic request {i}, GPU vs CPU: "
                                  f"{diff}")
     log(f"second: dynamic-mode GPU detections match the port's CPU run on "
-        f"2 requests; detections per scan {dyn_outs[0]['valid'].sum(-1)} "
+        f"1 request; detections per scan {dyn_outs[0]['valid'].sum(-1)} "
         f"(hard: {outs[0]['valid'].sum(-1)}); CPU run "
         f"{time.perf_counter() - t0:.1f} s")
     return result
@@ -4926,12 +5058,13 @@ def dp_train_pillars(card: str, tmp: Path, g_dp: dict) -> dict:
     two float32 gradients of the first batch (``g_dp``: the ranks', from
     :func:`dp_pillar_step`) agree, as train_step_mismatch holds the
     card's step against the CPU's; elsewhere within 2 * lr.  After
-    DP_TRAIN_STEPS steps the float32 runs have parted: Adam's first steps
-    move every near-zero-gradient element by about lr either way, and
-    ``train()`` itself gives other values run to run on the card.  There
-    the parameters are held within CONTROL_MARGIN x the larger distance
-    of two controls from ``train()``: ``train()`` on the same batches
-    with their rows reversed, and ``train()`` once more."""
+    DP_TRAIN_STEPS steps: ``train()`` run again gives its parameters and
+    losses bit for bit (the training step runs cuDNN's deterministic
+    algorithms), and the DP run, whose sums go over the ranks in gloo's
+    order, is held within CONTROL_MARGIN x the distance of ``train()`` on
+    the same batches with their rows reversed (the part of its distance
+    that another reduction order explains: Adam's first steps move every
+    near-zero-gradient element by about lr either way)."""
     with torch.enable_grad():
         dp1, dl1, ranks1, wall1 = dp_train(tmp, "dp1", 1)
         one1, ol1 = one_train(tmp, "one1", 1)
@@ -5001,38 +5134,48 @@ def dp_train_pillars(card: str, tmp: Path, g_dp: dict) -> dict:
         f"{TRAIN_G_AGREE} of |g| or lie below {TRAIN_G_NOISE} * max|g|, "
         f"each within 2 * lr")
 
-    # DP_TRAIN_STEPS steps: the parameters within CONTROL_MARGIN x the
-    # larger control's distance (elements outside DP_PARAM_TOL, L2 norm);
-    # the losses printed beside the controls'
+    # DP_TRAIN_STEPS steps: train() again equal bit for bit; the DP run
+    # within CONTROL_MARGIN x the rows-reversed control's distance
+    # (elements outside DP_PARAM_TOL, L2 norm), the part of it that the
+    # reduction order explains; the losses printed beside the controls'
     ref = one.model.state_dict()
+    (flip, fl), (again, al) = controls
+    again_sd = again.model.state_dict()
+    unequal = [k for k, v in ref.items() if not torch.equal(again_sd[k], v)]
+    if unequal or al != ol:
+        raise AssertionError(f"train() twice from one seed and one batch "
+                             f"stream: {len(unequal)} tensors differ "
+                             f"(first {unequal[:3]}), losses {al} vs {ol}")
     n_dp, l2_dp = beyond(dp.model.state_dict(), ref, DP_PARAM_TOL)
-    ctrl = [beyond(c.model.state_dict(), ref, DP_PARAM_TOL)
-            for c, _ in controls]
+    n_fl, l2_fl = beyond(flip.model.state_dict(), ref, DP_PARAM_TOL)
     rel = [abs(a - b) / abs(b) for a, b in zip(dl, ol)]
-    crel = [[abs(a - b) / abs(b) for a, b in zip(cl, ol)]
-            for _, cl in controls]
+    frel = [abs(a - b) / abs(b) for a, b in zip(fl, ol)]
     log(f"multi_device (a) [{card}]: {DP_TRAIN_STEPS} steps in {wall:.1f} s "
-        f"wall: losses {dl} vs train()'s {ol} (rel {rel}); the controls "
-        f"(rows reversed; train() again) rel {crel}; elements outside "
-        f"{DP_PARAM_TOL}: {n_dp} (L2 {l2_dp:.4g}), the controls' "
-        + ", ".join(f"{n} ({l2:.4g})" for n, l2 in ctrl))
+        f"wall: train() again equals train() bit for bit (all "
+        f"{len(ref)} tensors, losses {ol}); the DP run's losses {dl} (rel "
+        f"{rel}), {n_dp} elements outside {DP_PARAM_TOL} (L2 {l2_dp:.4g}); "
+        f"the part the reduction order explains, train() on the rows "
+        f"reversed: losses rel {frel}, {n_fl} elements (L2 {l2_fl:.4g}); "
+        f"held within {CONTROL_MARGIN} x that")
     if not (len(dl) == DP_TRAIN_STEPS
-            and n_dp <= CONTROL_MARGIN * max(c[0] for c in ctrl)
-            and l2_dp <= CONTROL_MARGIN * max(c[1] for c in ctrl)):
+            and n_dp <= CONTROL_MARGIN * n_fl
+            and l2_dp <= CONTROL_MARGIN * l2_fl):
         raise AssertionError(f"dp training: {DP_TRAIN_STEPS} steps lie "
-                             f"farther from train() than the controls")
+                             f"farther from train() than the rows-reversed "
+                             f"control")
     return {"launches": {n: sum(r["launches"][n] for r in ranks1 + ranks)
                          for n in KERNELS},
             "wall_s": wall, "excused": excused,
             "losses": [dl, ol] + [cl for _, cl in controls],
-            "beyond": [n_dp] + [c[0] for c in ctrl]}
+            "beyond": [n_dp, n_fl, 0]}
 
 
 def second_reference(config: Path, batch: dict) -> dict:
-    """(b)'s one-process car.fhd step on the joined batch, and the
-    gradients of two controls: the same batch with its rows reversed and
-    rolled by one (the same examples, every sum over them in another
-    order)."""
+    """(b)'s one-process car.fhd step on the joined batch (its gradients
+    the same bits when computed again), and the gradients of two
+    controls: the same batch with its rows reversed and rolled by one
+    (the same examples, every sum over them in another order: the part
+    of the DP step's distance that gloo's reduction order explains)."""
     bundle = train_mod.Bundle(config)
     state = train_mod.init_state(bundle, rng_seed=0,
                                  total_steps=SECOND_TRAIN_STEPS,
@@ -5053,6 +5196,12 @@ def second_reference(config: Path, batch: dict) -> dict:
         _, _, grads = train_mod.loss_and_grads(model, example,
                                                bundle.model_cfg)
         model.load_state_dict(saved)
+        _, _, again = train_mod.loss_and_grads(model, example,
+                                               bundle.model_cfg)
+        model.load_state_dict(saved)
+        if not all(torch.equal(a, g) for a, g in zip(again, grads)):
+            raise AssertionError("dp second: the one-process step's "
+                                 "gradients differ run to run")
         metrics = train_mod.make_train_step(bundle)(state, example)
     out.update(grads={n: g.cpu() for n, g in zip(names, grads)},
                state={k: v.cpu() for k, v in model.state_dict().items()},
@@ -5269,6 +5418,7 @@ def main() -> int:
         empty_kernel = build_kernels()
         pod, requests, latency_ms, launches, k1_call, k2_call = serve(card)
         second = serve_second(card)
+        exported = export_phase(card, pod, requests, second)
         ev_launches, ev_ref = run_evaluate(card)
         training = train_pillars(card)
         mixed_pp = mixed_pillars(card, pod, latency_ms)
@@ -5284,7 +5434,7 @@ def main() -> int:
                     "pillar training": training["launches"],
                     "second training": second_training["launches"],
                     **mixed_pp["launches"], **kitti_launches(kitti),
-                    **multi["launches"]}
+                    **multi["launches"], **exported["launches"]}
         total = {name: sum(p[name] for p in per_path.values())
                  for name in KERNELS}
         log(f"launches by path: {json.dumps(per_path)}; summed {total}")
@@ -5372,6 +5522,13 @@ def main() -> int:
                                                  *second["requests"][2]),
                          card, second[lat])
         profile_kitti(kitti, card)
+        # where an artifact's request spends its time against the eager
+        # pod's: device busy and idle on the same request
+        for what in ("pillar", "second key-match"):
+            lat = exported["report"][what]["latency_ms"]
+            for side, call in exported["calls"][what].items():
+                profile_call(f"export {what}: {side}", call, card,
+                             lat[side][0])
     except Exception:  # noqa: BLE001 - any phase failing fails the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -1290,3 +1290,60 @@ def test_kitti_pillar_request_at_b8_matches_cpu(cuda, tmp_path):
     for name in want:
         assert torch.allclose(got[name].float().cpu(), want[name],
                               **chip_smoke.HEAD_TOL), name
+
+
+def test_exported_pillar_pod_launches_the_kernels(cuda):
+    """A served program exported on the card (``utils/serving_export.py``,
+    the tiny as-built config with seeded weights), saved to bytes and
+    reloaded, launches K1 and K2 on the wrappers' counters and gives the
+    eager pod's detections; the caller's TF32 flags stay as they were."""
+    from automatic_as_built_reconstruction_tpu_torch.data.building import (
+        generate_building_scene, pad_batch)
+    from automatic_as_built_reconstruction_tpu_torch.parallel import (
+        pod_inference_from_checkpoint)
+    from automatic_as_built_reconstruction_tpu_torch.parallel.inference \
+        import detections_mismatch
+    from automatic_as_built_reconstruction_tpu_torch.utils import (
+        serving_export)
+
+    config = chip_smoke.CONFIG.parent / "asbuilt_pillars_tiny.config"
+    pod = pod_inference_from_checkpoint(config, None, device="cuda",
+                                        max_voxels=2048,
+                                        max_points_per_voxel=16)
+    pts, nv = pad_batch([generate_building_scene(s)["points"][::4]
+                         for s in (5, 6)])
+    flags = chip_smoke.tf32_flags()
+    art = serving_export.load_serving(serving_export.export_serving(
+        pod, *pts.shape[:2]))
+    assert art.meta["platforms"] == ["cuda"]
+    want = pod(pts, nv)
+    chip_smoke.zero_counts()
+    got = art(pts, nv)
+    torch.cuda.synchronize()
+    counts = chip_smoke.launch_counts()
+    assert counts["pillar_scatter"] == 1 and counts["rotated_iou"] >= 1
+    assert chip_smoke.tf32_flags() == flags
+    assert detections_mismatch(got, want, pod.cfg.num_class,
+                               chip_smoke.BOX_ATOL,
+                               chip_smoke.SCORE_ATOL) is None
+    assert want["valid"].any()
+
+
+def test_two_train_runs_give_equal_parameters(cuda, tmp_path):
+    """Two 3-step ``train()`` runs of ``asbuilt_pillars.config`` from one
+    seed and one batch stream give the same parameters and losses, bit
+    for bit (the training step runs cuDNN's deterministic algorithms)."""
+    from automatic_as_built_reconstruction_tpu_torch.train import (
+        train as train_mod)
+
+    runs = []
+    for name in ("a", "b"):
+        state = train_mod.train(chip_smoke.CONFIG, tmp_path / name,
+                                max_steps=3, display_step=1, device="cuda")
+        runs.append(({k: v.cpu() for k, v in
+                      state.model.state_dict().items()},
+                     chip_smoke.train_losses(tmp_path / name)))
+    (a, la), (b, lb) = runs
+    assert la == lb and len(la) == 3
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    assert not torch.backends.cudnn.deterministic

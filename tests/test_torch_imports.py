@@ -64,6 +64,9 @@ import automatic_as_built_reconstruction_tpu_torch.parallel.distributed
 import automatic_as_built_reconstruction_tpu_torch.parallel.mesh
 import automatic_as_built_reconstruction_tpu_torch.parallel.sharded_voxelize
 from automatic_as_built_reconstruction_tpu_torch.parallel.launch import run_rank
+import automatic_as_built_reconstruction_tpu_torch.ops.library
+import automatic_as_built_reconstruction_tpu_torch.utils.serving_export
+import automatic_as_built_reconstruction_tpu_torch.utils.weight_import
 import chip_smoke
 import head_drift
 import join_grad_ablation
@@ -71,6 +74,7 @@ import pillar_scatter_ablation
 import rotated_iou_ablation
 import second_step_ab
 import sparse_gemm_ablation
+import train_determinism
 import train_precision
 import voxel_mean_ablation
 bad = sorted(m for m in sys.modules
@@ -87,6 +91,30 @@ sys.exit(1 if bad else 0)
 def test_port_and_chip_smoke_import_no_jax():
     # a subprocess: tests/conftest.py has already imported jax here
     proc = subprocess.run([sys.executable, "-c", _CHECK], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+_SERVING = """
+import sys
+import automatic_as_built_reconstruction_tpu_torch.ops.library
+import automatic_as_built_reconstruction_tpu_torch.utils.serving_export
+pkg = "automatic_as_built_reconstruction_tpu_torch."
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                    "automatic_as_built_reconstruction_tpu")
+             or m.startswith(tuple(pkg + d for d in (
+                 "models", "builder", "train", "parallel", "data"))))
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_serving_export_and_the_ops_load_no_model_code():
+    """What a loaded serving artifact needs (the registered kernel ops and
+    the loader) imports no JAX and nothing of the port's models, builder,
+    train, parallel or data packages."""
+    proc = subprocess.run([sys.executable, "-c", _SERVING], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
 

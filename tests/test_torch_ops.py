@@ -269,6 +269,78 @@ def test_center_suppress_matches_jax():
     assert 0 < keep.numpy().sum() < valid.sum()
 
 
+def _nms_cases(n_valid_rows):
+    """Score-sorted rows of 300 random boxes with the given valid counts,
+    and an IoU threshold clear of every pair's IoU by 1e-4."""
+    rng = np.random.default_rng(5)
+    R, K = len(n_valid_rows[0]), 300
+    boxes = np.concatenate([
+        rng.uniform(0, 12, (R, K, 2)), rng.uniform(0.2, 3.0, (R, K, 2)),
+        rng.uniform(-np.pi, np.pi, (R, K, 1))], -1).astype(np.float32)
+    ious = np.concatenate([np.asarray(jax_rotated_iou.rotate_iou_matrix(
+        jnp.asarray(b), jnp.asarray(b))).ravel() for b in boxes])
+    cases = []
+    for n_valid in n_valid_rows:
+        scores = -np.sort(-rng.random((R, K)), axis=1).astype(np.float32)
+        for r, n in enumerate(n_valid):
+            scores[r, n:] = -np.inf
+        cases.append(scores)
+    return boxes, cases, _threshold_clear_of(ious, 0.3, 1e-4)
+
+
+class _ExportedNms(torch.nn.Module):
+    def __init__(self, thr):
+        super().__init__()
+        self.thr = thr
+
+    def forward(self, boxes, scores):
+        idx, valid = nms.rotate_nms_presorted(boxes, scores, self.thr,
+                                              post_max_size=100)
+        keep = nms.center_suppress_presorted(boxes[..., :2],
+                                             scores > -float("inf"), 0.3)
+        return idx, valid, keep
+
+
+def test_exported_nms_decides_on_the_device():
+    """One ``torch.export`` of ``rotate_nms_presorted`` and
+    ``center_suppress_presorted``, saved and reloaded, takes both
+    ``compact_cap`` branches on the data it is given (a ``cond`` node, the
+    fixpoints ``while_loop`` nodes) and gives the JAX package's keep sets
+    in both; ``greedy_suppress`` row by row gives ``_greedy_suppress``'s."""
+    import io
+
+    boxes, cases, thr = _nms_cases([(100, 60, 0), (290, 120, 300)])
+    program = torch.export.export(
+        _ExportedNms(thr), (torch.from_numpy(boxes),
+                            torch.from_numpy(cases[0])))
+    buf = io.BytesIO()
+    torch.export.save(program, buf)
+    loaded = torch.export.load(io.BytesIO(buf.getvalue()))
+    nodes = {str(n.target) for m in loaded.graph_module.modules()
+             if isinstance(m, torch.fx.GraphModule) for n in m.graph.nodes}
+    assert {"cond", "while_loop"} <= nodes
+    run = loaded.module()
+    for scores in cases:
+        idx, valid, keep = run(torch.from_numpy(boxes),
+                               torch.from_numpy(scores))
+        ref_idx, ref_valid = nms_jax.rotate_nms_presorted(
+            jnp.asarray(boxes), jnp.asarray(scores), thr, post_max_size=100)
+        np.testing.assert_array_equal(valid.numpy(), np.asarray(ref_valid))
+        np.testing.assert_array_equal(idx.numpy(), np.asarray(ref_idx))
+        ref_keep = nms_jax.center_suppress_presorted(
+            jnp.asarray(boxes[..., :2]), jnp.asarray(scores > -np.inf), 0.3)
+        np.testing.assert_array_equal(keep.numpy(), np.asarray(ref_keep))
+        assert 0 < int(valid.sum()) < int((scores > -np.inf).sum())
+    iou = rotated_iou.rotate_iou_matrix(torch.from_numpy(boxes),
+                                        torch.from_numpy(boxes))
+    valid = torch.from_numpy(cases[1] > -np.inf)
+    keep = nms.greedy_suppress(iou > thr, valid)
+    for r in range(len(boxes)):
+        ref = nms_jax._greedy_suppress(jnp.asarray(iou[r].numpy()),
+                                       jnp.asarray(valid[r].numpy()), thr)
+        np.testing.assert_array_equal(keep[r].numpy(), np.asarray(ref))
+
+
 # --------------------------------------------------------------------------
 # predict: top-k tie order
 # --------------------------------------------------------------------------
