@@ -15,6 +15,8 @@ A key seen once maps to its value; a repeated key or a ``[..]`` list maps
 to a ``list``.  Use :func:`as_list` where a field is ``repeated`` in the
 schema.  Floats come back as Python floats of the literal; proto ``float``
 fields hold them in single precision, which :func:`f32` reproduces.
+:func:`to_text` writes such a dict back as text that this reader (and
+protobuf's) reads to the same values.
 """
 from __future__ import annotations
 
@@ -199,3 +201,49 @@ def as_list(value) -> list:
 def f32(value) -> float:
     """A proto ``float`` field's value: the literal rounded to fp32."""
     return float(np.float32(value))
+
+
+# the schema's one enum (second.proto LossNormType): its values are
+# written bare, every other string quoted
+ENUM_VALUES = frozenset(("NormByNumPositives", "NormByNumExamples",
+                         "NormByNumPosNeg", "DontNorm"))
+
+
+def _scalar_text(value) -> str:
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, (int, float)):
+        return repr(value)
+    if isinstance(value, str):
+        if value in ENUM_VALUES:
+            return value
+        return '"' + (value.replace("\\", "\\\\").replace('"', '\\"')
+                      .replace("\n", "\\n")) + '"'
+    raise TypeError(f"no text form for {type(value).__name__}")
+
+
+def to_text(config: Dict[str, Any], indent: int = 0) -> str:
+    """Nested dicts -> protobuf text format: ``parse_text(to_text(d)) ==
+    d`` for every dict :func:`parse_text` gives."""
+    pad = "  " * indent
+    lines = []
+    for name, value in config.items():
+        if isinstance(value, dict):
+            lines.append(f"{pad}{name} {{")
+            lines.append(to_text(value, indent + 1))
+            lines.append(f"{pad}}}")
+        elif isinstance(value, list) and any(isinstance(v, dict)
+                                             for v in value):
+            lines.append(f"{pad}{name}: [")
+            for i, v in enumerate(value):
+                lines.append(f"{pad}  {{")
+                lines.append(to_text(v, indent + 2))
+                lines.append(f"{pad}  }}" + ("," if i + 1 < len(value)
+                                             else ""))
+            lines.append(f"{pad}]")
+        elif isinstance(value, list):
+            lines.append(f"{pad}{name}: ["
+                         + ", ".join(map(_scalar_text, value)) + "]")
+        else:
+            lines.append(f"{pad}{name}: {_scalar_text(value)}")
+    return "\n".join(line for line in lines if line)

@@ -1,13 +1,18 @@
-"""Offline data creation for KITTI: split infos, frustum-reduced clouds
-and the ground-truth database.
+"""Offline data creation: building-scan scenes and infos, KITTI split
+infos, frustum-reduced clouds and the ground-truth databases.
 
 The port's copy of the JAX package's ``data/create_data.py``:
-``kitti_data_prep`` (infos of ``ImageSets/train.txt`` and ``val.txt``,
-reduced clouds, the gt database of the training split),
-``create_reduced_point_cloud``, ``_create_kitti_gt_database`` and
-``create_groundtruth_database_from_infos`` (per-object crops stored
-box-relative, and their db infos).  The same inputs give the same files.
-The building-scan prep of the reference is not ported.
+``building_data_prep`` (synthetic scans of ``generate_building_scene``,
+scene ids ``seed * 100003 + i``, train and val infos, the gt database of
+the training split), ``building_data_prep_from_scans`` (real scans and
+their JSON sidecars through ``data/scan_io.py``, the last
+``round(len * val_fraction)`` scans, at least one where there are two or
+more, for validation), ``kitti_data_prep`` (infos of
+``ImageSets/train.txt`` and ``val.txt``, reduced clouds, the gt database
+of the training split), ``create_reduced_point_cloud``,
+``_create_kitti_gt_database`` and ``create_groundtruth_database_from_infos``
+(per-object crops stored box-relative, and their db infos).  The same
+inputs give the same files.
 """
 from __future__ import annotations
 
@@ -18,6 +23,89 @@ import numpy as np
 
 from ..core import box_ops
 from . import kitti_common as kitti
+from . import scan_io
+from .building import generate_building_scene
+
+
+def building_data_prep(root_path, num_scenes: int = 128, num_val: int = 32,
+                       seed: int = 0) -> None:
+    """Write synthetic scans, split infos, and a GT database to disk."""
+    root = pathlib.Path(root_path)
+    (root / "scenes").mkdir(parents=True, exist_ok=True)
+    (root / "gt_database").mkdir(parents=True, exist_ok=True)
+
+    def write_split(name, ids):
+        infos = []
+        for i in ids:
+            scene = generate_building_scene(i)
+            rel = f"scenes/scene_{i:06d}.npz"
+            np.savez_compressed(root / rel, points=scene["points"])
+            infos.append({
+                "scene_id": i, "path": rel,
+                "gt_boxes": scene["gt_boxes"],
+                "gt_names": scene["gt_names"],
+            })
+        with open(root / f"building_infos_{name}.pkl", "wb") as f:
+            pickle.dump(infos, f)
+        return infos
+
+    train_ids = [seed * 100003 + i for i in range(num_scenes)]
+    val_ids = [seed * 100003 + num_scenes + i for i in range(num_val)]
+    train_infos = write_split("train", train_ids)
+    write_split("val", val_ids)
+    create_groundtruth_database_from_infos(
+        root, train_infos, "building_dbinfos_train.pkl",
+        points_loader=lambda info: np.load(root / info["path"])["points"])
+    print(f"building data: {num_scenes} train + {num_val} val scenes "
+          f"written to {root}")
+
+
+def building_data_prep_from_scans(scan_dir, root_path,
+                                  val_fraction: float = 0.2) -> None:
+    """Ingest real scans (.ply / .pcd / .bin / .npz) with JSON box
+    annotations into the building-dataset layout.
+
+    ``scan_dir`` holds scan files plus same-stem ``.json`` sidecars
+    (``{"boxes": [[x,y,z,w,l,h,yaw], ...], "names": [...]}``); the output
+    is the scenes/ + infos-pkl + gt-database layout that
+    :func:`building_data_prep` writes, so ``BuildingDataset`` trains from
+    it unchanged.
+    """
+    scan_dir = pathlib.Path(scan_dir)
+    root = pathlib.Path(root_path)
+    (root / "scenes").mkdir(parents=True, exist_ok=True)
+    scans = sorted(p for p in scan_dir.iterdir()
+                   if p.suffix.lower() in (".ply", ".pcd", ".bin", ".npz"))
+    if not scans:
+        raise FileNotFoundError(f"no scans under {scan_dir}")
+
+    infos = []
+    for i, scan_path in enumerate(scans):
+        points = scan_io.read_scan(scan_path)
+        anno_path = scan_path.with_suffix(".json")
+        if anno_path.exists():
+            boxes, names = scan_io.read_annotations(anno_path)
+        else:
+            boxes = np.zeros((0, 7), np.float32)
+            names = np.asarray([], dtype=str)
+        rel = f"scenes/scene_{i:06d}.npz"
+        np.savez_compressed(root / rel, points=points)
+        infos.append({"scene_id": i, "path": rel, "source": scan_path.name,
+                      "gt_boxes": boxes, "gt_names": names})
+
+    n_val = max(int(round(len(infos) * val_fraction)), 1) \
+        if len(infos) > 1 else 0
+    train_infos = infos[: len(infos) - n_val]
+    val_infos = infos[len(infos) - n_val:]
+    with open(root / "building_infos_train.pkl", "wb") as f:
+        pickle.dump(train_infos, f)
+    with open(root / "building_infos_val.pkl", "wb") as f:
+        pickle.dump(val_infos, f)
+    create_groundtruth_database_from_infos(
+        root, train_infos, "building_dbinfos_train.pkl",
+        points_loader=lambda info: np.load(root / info["path"])["points"])
+    print(f"building data (real scans): {len(train_infos)} train + "
+          f"{len(val_infos)} val scenes from {scan_dir} -> {root}")
 
 
 def create_groundtruth_database_from_infos(root, infos, db_info_name,

@@ -33,8 +33,9 @@ each rank takes its rows of every global batch, which rank 0 reads;
 the BatchNorms take the global batch's statistics, the loss is
 normalised by the global batch and the gradients are summed over the
 ranks before the clip, so that a step equals the one-process step on
-the joined batch.  The reference's ``profile_steps`` trace is not
-ported.
+the joined batch.  ``profile_steps = N`` traces N steps after two
+warm-up steps with ``torch.profiler`` (host and device activities; rank 0
+alone) into a Chrome / Perfetto trace under ``<model_dir>/profile``.
 """
 from __future__ import annotations
 
@@ -424,8 +425,8 @@ def check_batch_divides(config_path, num_devices: Optional[int],
 def train(config_path, model_dir, *, resume: bool = True,
           max_steps: Optional[int] = None, display_step: int = 50,
           seed: int = 0, num_devices: Optional[int] = None,
-          saturation_abort_windows: int = 3, device="cuda",
-          devices=None) -> TrainState:
+          saturation_abort_windows: int = 3, profile_steps: int = 0,
+          device="cuda", devices=None) -> TrainState:
     """Train ``config_path`` into ``model_dir`` with checkpoint / resume and
     in-loop evaluation, as the JAX package's ``train`` does.
 
@@ -442,7 +443,11 @@ def train(config_path, model_dir, *, resume: bool = True,
     of prefix ``batches_by_voxel_capacity``.  ``saturation_abort_windows``:
     raise :class:`CapacitySaturationError` when ``mid_capacity_saturated``
     stays above 0 that many display windows in a row (0 disables; no
-    pillar model reports it).  -> the final :class:`TrainState`.
+    pillar model reports it).  ``profile_steps``: trace that many steps
+    after the first two of this run with ``torch.profiler`` (CPU and, on a
+    card, CUDA activities) and write the trace, which Chrome and Perfetto
+    read, to ``<model_dir>/profile/steps_<a>-<b>.trace.json``; the steps
+    outside it run as they do without.  -> the final :class:`TrainState`.
 
     ``num_devices > 1`` trains data parallel over that many ranks, rank
     ``r`` on ``devices[r]`` (default: the first cards for ``device="cuda"``,
@@ -462,7 +467,8 @@ def train(config_path, model_dir, *, resume: bool = True,
             config_path, model_dir, dict(
                 resume=resume, max_steps=max_steps,
                 display_step=display_step, seed=seed,
-                saturation_abort_windows=saturation_abort_windows)))
+                saturation_abort_windows=saturation_abort_windows,
+                profile_steps=profile_steps)))
         bundle = Bundle(config_path)
         state = init_state(bundle, rng_seed=seed,
                            total_steps=_total_steps(bundle, max_steps),
@@ -473,7 +479,44 @@ def train(config_path, model_dir, *, resume: bool = True,
     return _train(config_path, model_dir, mesh=mesh, resume=resume,
                   max_steps=max_steps, display_step=display_step, seed=seed,
                   saturation_abort_windows=saturation_abort_windows,
-                  device=device)
+                  profile_steps=profile_steps, device=device)
+
+
+class _StepTrace:
+    """``torch.profiler`` over the training steps ``[first, first + n)``:
+    started before step ``first``, stopped after the last of them (the
+    device synchronised once there) and written as a Chrome trace into
+    ``out_dir``."""
+
+    def __init__(self, out_dir: pathlib.Path, first: int, n: int, dev,
+                 logger):
+        self.out_dir, self.first, self.last = out_dir, first, first + n
+        self.dev, self.logger = dev, logger
+        self.prof = None
+
+    def before(self, step: int) -> None:
+        if step == self.first:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.dev.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+
+    def after(self, step: int) -> None:
+        if step == self.last:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.dev.type == "cuda":
+            torch.cuda.synchronize(self.dev)
+        prof, self.prof = self.prof, None
+        prof.stop()
+        self.out_dir.mkdir(parents=True, exist_ok=True)
+        path = self.out_dir / f"steps_{self.first}-{self.last}.trace.json"
+        prof.export_chrome_trace(str(path))
+        self.logger.text(f"profile trace written to {path}")
 
 
 def _total_steps(bundle: Bundle, max_steps: Optional[int]) -> int:
@@ -488,7 +531,8 @@ def _train_rank(mesh: Mesh, config_path, model_dir, kwargs: dict):
 
 def _train(config_path, model_dir, *, mesh: Optional[Mesh], resume: bool,
            max_steps: Optional[int], display_step: int, seed: int,
-           saturation_abort_windows: int, device) -> TrainState:
+           saturation_abort_windows: int, profile_steps: int = 0,
+           device) -> TrainState:
     """The training loop of :func:`train`, on one rank of ``mesh`` or
     alone."""
     dev = mesh.device if mesh is not None else resolve_device(device)
@@ -539,8 +583,13 @@ def _train(config_path, model_dir, *, mesh: Optional[Mesh], resume: bool,
     sat_windows = 0
     # batches by voxel capacity: one entry without static_shape_buckets
     capacities: Dict[int, int] = {}
+    # rank 0 traces steps [start + 2, start + 2 + profile_steps)
+    trace = _StepTrace(model_dir / "profile", state.step + 2, profile_steps,
+                       dev, logger) if main and profile_steps else None
     try:
         while state.step < total_steps:
+            if trace is not None:
+                trace.before(state.step)
             with timers.time("host_prep"):
                 batch = next(batches) if main else None
                 if mesh is not None:    # each rank's rows of rank 0's batch
@@ -553,6 +602,8 @@ def _train(config_path, model_dir, *, mesh: Optional[Mesh], resume: bool,
             capacities[v] = capacities.get(v, 0) + 1
             with timers.time("step"):
                 metrics = train_step(state, example)
+            if trace is not None:
+                trace.after(state.step)
             # metrics stay device tensors until the window ends: reading
             # one would sync every step
             window.setdefault("pr", []).append(metrics.pop("pr"))
@@ -609,6 +660,8 @@ def _train(config_path, model_dir, *, mesh: Optional[Mesh], resume: bool,
                                   if isinstance(v, (int, float))},
                            prefix="eval")
     finally:
+        if trace is not None:
+            trace.stop()        # a run shorter than the trace: what it has
         if main:
             batches.close()     # stops the loader's producer and its pool
             try:

@@ -18,7 +18,8 @@ scaled to variance 1 / fan_in), zero biases except the class head's
 focal prior, BatchNorm scale 1, bias 0, running mean 0, variance 1, and
 the sparse middle's kernels as ``models/middle.py::_sparse_kernel_init``
 draws them: a unit normal truncated at two standard deviations times
-sqrt(2 / (taps * Cin)).
+sqrt(2 / (taps * Cin)).  The truncated normal is drawn by its inverse
+CDF, one uniform draw an element (``models/middle.py::trunc_normal``).
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..models.middle import MaskedBatchNorm, SparseConvWeight
+from ..models.middle import MaskedBatchNorm, SparseConvWeight, trunc_normal
 
 # a sparse conv's output row sums about this share of its K taps (the rest
 # find no neighbour), so its weights are drawn that much wider
@@ -107,9 +108,7 @@ def flax_init_state_dict(model: nn.Module,
         elif isinstance(mod, SparseConvWeight):
             shape = tuple(mod.weight.shape)       # (kz, ky, kx, Cin, Cout)
             std = (2.0 / int(np.prod(shape[:4]))) ** 0.5
-            w = torch.empty(shape)
-            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            out[f"{base}weight"] = w * std
+            out[f"{base}weight"] = trunc_normal(shape, gen) * std
         elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
             out[f"{base}weight"] = torch.ones_like(mod.weight)
             out[f"{base}bias"] = torch.zeros_like(mod.bias)
@@ -125,10 +124,7 @@ def flax_init_state_dict(model: nn.Module,
             cin = shape[0] if isinstance(mod, nn.ConvTranspose2d) else shape[1]
             fan_in = cin * int(np.prod(shape[2:]))
             std = (1.0 / fan_in) ** 0.5 / TRUNC_NORMAL_STD
-            w = torch.empty(shape)
-            nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                  generator=gen)
-            out[f"{base}weight"] = w
+            out[f"{base}weight"] = trunc_normal(shape, gen) * std
             if mod.bias is not None:
                 head = mod_name.rsplit(".", 1)[-1]
                 out[f"{base}bias"] = torch.full(

@@ -13,6 +13,7 @@ the test).
 """
 import contextlib
 import dataclasses
+import json
 import pickle
 
 import jax
@@ -33,7 +34,8 @@ from automatic_as_built_reconstruction_tpu.models import voxelnet as jvn
 from automatic_as_built_reconstruction_tpu.ops import (
     sparse_conv as jax_sparse_conv)
 from automatic_as_built_reconstruction_tpu.train import train as jax_train
-from automatic_as_built_reconstruction_tpu.utils import eval as jax_eval
+from automatic_as_built_reconstruction_tpu.utils import (
+    asbuilt_export as jax_asbuilt_export, eval as jax_eval)
 from automatic_as_built_reconstruction_tpu_torch.builder import (
     input_reader_builder)
 from automatic_as_built_reconstruction_tpu_torch.core import (
@@ -47,7 +49,7 @@ from automatic_as_built_reconstruction_tpu_torch.parallel.inference import (
 from automatic_as_built_reconstruction_tpu_torch.train import (
     input_pipeline, train)
 from automatic_as_built_reconstruction_tpu_torch.utils import (
-    eval as eval_mod, weight_import)
+    asbuilt_export, eval as eval_mod, weight_import)
 
 from test_torch_models import (CKPT, JAX_CFG, PORT_CFG, jax_model_cfg,
                                random_variables)
@@ -680,6 +682,25 @@ def test_evaluate_four_scenes_ap_matches_reference(four_scenes):
     print("jax ", ref)
     assert_same_ap(got, ref)
     assert ref["wall.bev.num_gt"] == 141 and ref["mAP.bev"] > 0.8
+
+
+def test_asbuilt_model_of_four_scenes_matches_reference(four_scenes):
+    """The as-built export of what the trained network detects on the four
+    scenes: the port's ``build_asbuilt_model`` on the JAX package's raw
+    detections is the reference's model (JSON and SVG) character for
+    character, and on each side's own detections the models count the
+    same detections, wall segments and runs, columns and doors."""
+    port, ref = four_scenes["port"]["raw"], four_scenes["jax"]["raw"]
+    names = building.CLASSES
+    for p, r in zip(port, ref):
+        got = asbuilt_export.build_asbuilt_model(r, names)
+        want = jax_asbuilt_export.build_asbuilt_model(r, names)
+        assert json.dumps(got, indent=1) == json.dumps(want, indent=1)
+        assert (asbuilt_export.render_svg(got)
+                == jax_asbuilt_export.render_svg(want))
+        assert want["stats"]["num_wall_runs"] > 0
+        assert (asbuilt_export.build_asbuilt_model(p, names)["stats"]
+                == want["stats"])
 
 
 def test_evaluate_tiny_seeded_weights_and_timers(capsys):

@@ -73,7 +73,6 @@ PEOPLE = SECOND / "people.fhd.config"
 LITE = SECOND / "car" / "car.lite.config"
 CAR_FHD = SECOND / "car" / "car.fhd.config"
 MIXED = SECOND / "car" / "car.fhd.mixed.config"
-TOTAL_STEPS = 40
 MIDDLE_TOL = dict(rtol=1e-4, atol=1e-4)
 F64_LOSS_TOL = dict(rtol=1e-10, atol=0)
 F64_GRAD_SHARE = 1e-10
@@ -427,9 +426,8 @@ def test_people_fhd_float64_step_matches_jax(people_cfg, people_step):
     and every gradient, the two-class head's included."""
     bundle = train.Bundle(people_cfg)
     assert bundle.middle_plan(True) is not None
-    state = train.init_state(bundle, total_steps=TOTAL_STEPS, device="cpu")
-    weight_import.load_variables(state.model, people_step["init"])
-    model = state.model.to(torch.float64).train()
+    weight_import.load_variables(bundle.model, people_step["init"])
+    model = bundle.model.to(torch.float64).train()
     example = {k: v.double() if v.is_floating_point() else v
                for k, v in train.to_device(people_step["batch"],
                                            "cpu").items()}

@@ -67,6 +67,12 @@ from automatic_as_built_reconstruction_tpu_torch.parallel.launch import run_rank
 import automatic_as_built_reconstruction_tpu_torch.ops.library
 import automatic_as_built_reconstruction_tpu_torch.utils.serving_export
 import automatic_as_built_reconstruction_tpu_torch.utils.weight_import
+import automatic_as_built_reconstruction_tpu_torch.viewer.server
+import automatic_as_built_reconstruction_tpu_torch.utils.asbuilt_export
+import automatic_as_built_reconstruction_tpu_torch.utils.config_tool
+import automatic_as_built_reconstruction_tpu_torch.data.scan_io
+import automatic_as_built_reconstruction_tpu_torch.core.nms
+import automatic_as_built_reconstruction_tpu_torch.core.bev_ops
 import chip_smoke
 import head_drift
 import join_grad_ablation

@@ -58,13 +58,13 @@ from automatic_as_built_reconstruction_tpu_torch import cli
 from automatic_as_built_reconstruction_tpu_torch.builder import config_io
 from automatic_as_built_reconstruction_tpu_torch.data import (
     batching, synth_kitti)
-from automatic_as_built_reconstruction_tpu_torch.models import voxelnet
 from automatic_as_built_reconstruction_tpu_torch.train import (
     input_pipeline, train)
 from automatic_as_built_reconstruction_tpu_torch.utils import weight_import
 
 from test_torch_config_anchors import _compare
 from test_torch_kitti import kitti_config
+from test_torch_second_train import recorded_step
 from test_torch_train_data import assert_same
 
 REPO = Path(__file__).resolve().parents[1]
@@ -329,9 +329,10 @@ def _float64_grads(micro_cfg, init, batch):
 
 
 def test_one_bucketed_train_step_matches_jax(micro_cfg, reference):
-    """At the batch's bucket: loss terms and every gradient of a forward,
-    then every parameter and BatchNorm statistic after one
-    make_train_step of the port."""
+    """At the batch's bucket: loss terms and every gradient of the
+    forward of one make_train_step of the port (before its clip:
+    ``recorded_step``), then every parameter and BatchNorm statistic
+    after it."""
     batch = reference["batch"]
     assert batch["voxels"].shape[1] in BUCKETS[:-1]
     assert not batch["anchors_mask"].all()
@@ -339,20 +340,15 @@ def test_one_bucketed_train_step_matches_jax(micro_cfg, reference):
     state = train.init_state(bundle, total_steps=TOTAL_STEPS, device="cpu")
     weight_import.load_variables(state.model, reference["init"])
     example = train.to_device(batch, "cpu")
-    model = state.model.train()
-    preds = model(example["voxels"], example["num_points"],
-                  example["coordinates"])
-    loss, terms = voxelnet.compute_loss(preds, example, bundle.model_cfg)
+    metrics, terms, port_grads = recorded_step(bundle, state, example)
     for k, want in reference["terms"].items():
         np.testing.assert_allclose(float(terms[k].detach()), want,
                                    **LOSS_TOL, err_msg=k)
-    loss.backward()
     stats = reference["init"]["batch_stats"]
     grads = jax_weight_import.to_torch_state_dict(
         {"params": reference["grads"], "batch_stats": stats})
     grads64 = jax_weight_import.to_torch_state_dict(
         {"params": reference["grads64"], "batch_stats": stats})
-    port_grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
     worst = {"port": 0.0, "jax": 0.0}
     for name, got in port_grads.items():
         want = grads64[name]
@@ -367,9 +363,6 @@ def test_one_bucketed_train_step_matches_jax(micro_cfg, reference):
     print(f"float32 gradients against the JAX package's float64 step, "
           f"worst share of max|g|: {worst}")
 
-    state = train.init_state(bundle, total_steps=TOTAL_STEPS, device="cpu")
-    weight_import.load_variables(state.model, reference["init"])
-    metrics = train.make_train_step(bundle)(state, example)
     np.testing.assert_allclose(float(metrics["loss"]), reference["loss"],
                                **LOSS_TOL)
     want = jax_weight_import.to_torch_state_dict(reference["after_one"])
@@ -398,10 +391,11 @@ def test_cli_help_lists_the_ported_verbs():
          ".cli", "--help"], cwd=REPO, capture_output=True, text=True,
         timeout=120)
     assert proc.returncode == 0, proc.stderr
-    for verb in ("train", "evaluate", "kitti_data_prep"):
+    for verb in ("train", "evaluate", "kitti_data_prep", "building_data_prep",
+                 "export_asbuilt", "viewer"):
         assert verb in proc.stdout
-    with pytest.raises(SystemExit):
-        cli.main(["viewer", "--config_path", "x"])
+    with pytest.raises(SystemExit):      # every verb is ported: no such verb
+        cli.main(["no_such_verb", "--config_path", "x"])
 
 
 def test_cli_prep_train_and_evaluate_on_the_cpu(tmp_path, capsys):

@@ -131,16 +131,16 @@ def runs(configs):
     out = {"jax_bf16": _jax_step(mixed, init, example),
            "jax_f32": _jax_step(f32, init, example)}
 
-    state = train.init_state(bundle, total_steps=40, device="cpu")
-    weight_import.load_variables(state.model, init)
+    model = bundle.model
+    weight_import.load_variables(model, init)
     ex = train.to_device(batch, "cpu")
-    preds = train.forward(state.model.train(), ex, bundle.model_cfg)
+    preds = train.forward(model.train(), ex, bundle.model_cfg)
     loss, terms = voxelnet.compute_loss(preds, ex, bundle.model_cfg)
     loss.backward()
     out["port_bf16"] = (
         {k: v.detach().permute(0, 2, 3, 1).numpy() for k, v in preds.items()},
         {k: float(v.detach()) for k, v in terms.items()},
-        {n: p.grad.numpy() for n, p in state.model.named_parameters()})
+        {n: p.grad.numpy() for n, p in model.named_parameters()})
     out["preds"] = preds
     return out
 

@@ -160,7 +160,8 @@ def port_and_jax_steps(port_cfgs, jax_cfgs, init, batches) -> dict:
     initial weights and the batches: {"jax_bf16" | "jax_f32" |
     "port_bf16" | "port_f32": (heads, terms, gradients) of the first
     batch, ("preds", port run): its heads, ("terms", run): [terms of each
-    batch]} (the port's float32 run on the first batch only)."""
+    batch]} (the port's float32 run on the first batch only, a forward:
+    its gradients None)."""
     examples = [jax_train._to_device(jax_batching.device_example(b))
                 for b in batches]
     out = {}
@@ -172,17 +173,22 @@ def port_and_jax_steps(port_cfgs, jax_cfgs, init, batches) -> dict:
     for name, path, n in zip(("port_bf16", "port_f32"), port_cfgs,
                              (len(exs), 1)):
         b = train.Bundle(path)
-        state = train.init_state(b, total_steps=40, device="cpu")
-        weight_import.load_variables(state.model, init)
-        model = state.model.train()    # BatchNorm on each batch's statistics
-        preds = train.forward(model, exs[0], b.model_cfg)
-        loss, terms = voxelnet.compute_loss(preds, exs[0], b.model_cfg)
-        loss.backward()
+        model = b.model
+        weight_import.load_variables(model, init)
+        model.train()                  # BatchNorm on each batch's statistics
+        # the float32 run's loss terms alone are held: no backward
+        with torch.set_grad_enabled(name == "port_bf16"):
+            preds = train.forward(model, exs[0], b.model_cfg)
+            loss, terms = voxelnet.compute_loss(preds, exs[0], b.model_cfg)
+        grads = None
+        if name == "port_bf16":
+            loss.backward()
+            grads = {n: p.grad.numpy()
+                     for n, p in model.named_parameters()}
         out[name] = (
             {k: v.detach().permute(0, 2, 3, 1).numpy()
              for k, v in preds.items()},
-            {k: float(v.detach()) for k, v in terms.items()},
-            {n: p.grad.numpy() for n, p in state.model.named_parameters()})
+            {k: float(v.detach()) for k, v in terms.items()}, grads)
         out["preds", name] = preds
         out["terms", name] = [out[name][1]]
         with torch.no_grad():

@@ -78,6 +78,7 @@ from automatic_as_built_reconstruction_tpu_torch.utils import (
 
 from test_torch_kitti import assert_same_tree, kitti_config
 from test_torch_kitti_pillars import _Float64Numpy
+from test_torch_second_train import recorded_step
 from test_torch_train_data import assert_same, numpy_reference
 
 REPO = Path(__file__).resolve().parents[1]
@@ -288,7 +289,8 @@ def reference(all_micro_cfg):
 def test_one_all_fhd_train_step_matches_jax(all_micro_cfg, reference):
     """Loss terms, every gradient, then every parameter and BatchNorm
     statistic after one make_train_step (key-match mode, three
-    classes)."""
+    classes).  The terms and gradients are the step's own, before its
+    clip (``recorded_step``)."""
     batch = reference["batch"]
     assert {1, 2, 3} & set(np.unique(batch["labels"]).tolist())
     bundle = train.Bundle(all_micro_cfg[0])
@@ -296,18 +298,13 @@ def test_one_all_fhd_train_step_matches_jax(all_micro_cfg, reference):
     state = train.init_state(bundle, total_steps=TOTAL_STEPS, device="cpu")
     weight_import.load_variables(state.model, reference["init"])
     example = train.to_device(batch, "cpu")
-    model = state.model.train()
-    preds = model(example["voxels"], example["num_points"],
-                  example["coordinates"])
-    loss, terms = voxelnet.compute_loss(preds, example, bundle.model_cfg)
+    metrics, terms, port_grads = recorded_step(bundle, state, example)
     for k, want in reference["terms"].items():
         np.testing.assert_allclose(float(terms[k].detach()), want,
                                    **LOSS_TOL, err_msg=k)
-    loss.backward()
     grads = jax_weight_import.to_torch_state_dict(
         {"params": reference["grads"],
          "batch_stats": reference["init"]["batch_stats"]})
-    port_grads = {n: p.grad.numpy() for n, p in model.named_parameters()}
     worst = 0.0
     for name, got in port_grads.items():
         want = grads[name]
@@ -317,9 +314,6 @@ def test_one_all_fhd_train_step_matches_jax(all_micro_cfg, reference):
                                    atol=GRAD_SHARE * scale, err_msg=name)
         worst = max(worst, float(np.abs(got - want).max()) / scale)
 
-    state = train.init_state(bundle, total_steps=TOTAL_STEPS, device="cpu")
-    weight_import.load_variables(state.model, reference["init"])
-    metrics = train.make_train_step(bundle)(state, example)
     np.testing.assert_allclose(float(metrics["loss"]),
                                reference["terms"]["loss"], **LOSS_TOL)
     assert int(metrics["mid_capacity_saturated"]) == 0
@@ -386,9 +380,8 @@ def test_float64_all_fhd_train_step_matches_jax_keymatch(
     throughout) against the JAX package's key-match step in float64: loss
     terms and every gradient, the three-class head's included."""
     bundle = train.Bundle(all_micro_cfg[0])
-    state = train.init_state(bundle, total_steps=TOTAL_STEPS, device="cpu")
-    weight_import.load_variables(state.model, reference["init"])
-    model = state.model.to(torch.float64).train()
+    weight_import.load_variables(bundle.model, reference["init"])
+    model = bundle.model.to(torch.float64).train()
     example = {k: v.double() if v.is_floating_point() else v
                for k, v in train.to_device(reference["batch"],
                                            "cpu").items()}

@@ -181,6 +181,23 @@ def keymatch_reference(micro_cfg, reference):
             "terms": {k: float(v) for k, v in terms.items()}}
 
 
+def recorded_step(bundle, state, example) -> tuple:
+    """One ``make_train_step`` of ``state`` on ``example``.  -> (its
+    metrics, the loss terms and {parameter name: gradient} that the step
+    computed before its clip, as ``train.loss_and_grads`` returned
+    them)."""
+    seen = []
+    loss_and_grads = train.loss_and_grads
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(train, "loss_and_grads",
+                   lambda *a, **k: seen.append(loss_and_grads(*a, **k))
+                   or seen[-1])
+        metrics = train.make_train_step(bundle)(state, example)
+    (_, terms, grads), = seen
+    return metrics, terms, {n: g.detach().numpy() for (n, _), g in
+                            zip(state.model.named_parameters(), grads)}
+
+
 def port_state(micro_cfg, variables):
     bundle = train.Bundle(micro_cfg[0])
     state = train.init_state(bundle, total_steps=TOTAL_STEPS, device="cpu")
@@ -189,33 +206,26 @@ def port_state(micro_cfg, variables):
 
 
 def test_one_second_train_step_matches_jax(micro_cfg, reference):
-    """Loss terms, every gradient, then (after make_train_step) every
-    parameter and BatchNorm statistic."""
+    """Loss terms, every gradient, then every parameter and BatchNorm
+    statistic after one make_train_step (the terms and gradients are the
+    step's own, before its clip: :func:`recorded_step`)."""
     bundle, state = port_state(micro_cfg, reference["init"])
     example = train.to_device(reference["batch"], "cpu")
-    model = state.model.train()
-    preds = model(example["voxels"], example["num_points"],
-                  example["coordinates"])
-    loss, terms = voxelnet.compute_loss(preds, example, bundle.model_cfg)
+    metrics, terms, port_grads = recorded_step(bundle, state, example)
     for k, want in reference["terms"].items():
         np.testing.assert_allclose(float(terms[k].detach()), want,
                                    **LOSS_TOL, err_msg=k)
-    loss.backward()
     grads = jax_weight_import.to_torch_state_dict(
         {"params": reference["grads"],
          "batch_stats": reference["init"]["batch_stats"]})
-    names = dict(model.named_parameters())
-    assert any(n.startswith("middle_feature_extractor") for n in names)
-    port_grads = {n: p.grad.numpy() for n, p in names.items()}
-    for name, p in names.items():
+    assert any(n.startswith("middle_feature_extractor") for n in port_grads)
+    for name, got in port_grads.items():
         want = grads[name]
         scale = float(np.abs(want).max())
         assert scale > 0, name
-        np.testing.assert_allclose(p.grad.numpy(), want, rtol=1e-3,
+        np.testing.assert_allclose(got, want, rtol=1e-3,
                                    atol=5e-3 * scale, err_msg=name)
 
-    bundle, state = port_state(micro_cfg, reference["init"])
-    metrics = train.make_train_step(bundle)(state, example)
     np.testing.assert_allclose(float(metrics["loss"]),
                                reference["terms"]["loss"], **LOSS_TOL)
     assert int(metrics["mid_capacity_saturated"]) == 0
@@ -243,8 +253,9 @@ def test_float64_second_train_step_matches_jax_keymatch(
     """The port's step in float64 (the plain joins, float64 throughout)
     against the JAX package's key-match float32 step: loss terms and
     every gradient, where only the JAX side's float32 rounding differs."""
-    bundle, state = port_state(micro_cfg, reference["init"])
-    model = state.model.to(torch.float64).train()
+    bundle = train.Bundle(micro_cfg[0])
+    weight_import.load_variables(bundle.model, reference["init"])
+    model = bundle.model.to(torch.float64).train()
     example = {k: v.double() if v.is_floating_point() else v
                for k, v in train.to_device(reference["batch"],
                                            "cpu").items()}
