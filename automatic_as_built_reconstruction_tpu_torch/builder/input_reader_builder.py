@@ -9,9 +9,9 @@ sampler of a training reader, its generator seeded
 worker pools; a training reader's ``static_shape_buckets`` (the full
 voxel capacity added as the last bucket where the config's largest is
 below it); with ``middle_plan``, the sparse middle's rulebooks built on
-the host for every example (``ops/rulebook_host.py``).  Host rulebooks
-at each bucket's plan (``static_shape_buckets`` with ``middle_plan``) are
-not ported and raise ``NotImplementedError``."""
+the host for every example (``ops/rulebook_host.py``), with
+``static_shape_buckets`` at each example's own bucket's plan and padded
+by the loader to its batch's bucket."""
 from __future__ import annotations
 
 import functools
@@ -23,7 +23,7 @@ from ..data import building  # noqa: F401 - registers BuildingDataset
 from ..data import kitti_dataset  # noqa: F401 - registers KittiDataset
 from ..data.dataset import get_dataset_class
 from ..data.preprocess import PrepConfig, prep_pointcloud
-from ..ops import rulebook_host
+from ..ops import rulebook_host, sparse_conv
 from ..train.input_pipeline import BatchLoader, PrepDataset
 from . import dbsampler_builder
 from .config_io import as_list, f32
@@ -93,9 +93,11 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
     (``models.voxelnet.middle_plan``) for host-built rulebooks, or None
     (key-match mode and device-built rulebooks need none).  The native
     rulebook builder is built and loaded here, so a failure raises before
-    any worker starts.  ``capacity_shrink`` / ``out_caps`` re-plan the
-    reference's bucketed host rulebooks, which are not ported: they are
-    accepted and unused."""
+    any worker starts.  With ``static_shape_buckets`` and a plan, each
+    bucket gets its own plan (``capacity_shrink``, ``out_caps`` verbatim
+    at every bucket, as the model's plan at that capacity takes them):
+    an example's host rulebooks are built at its own bucket's plan and
+    the loader pads them to its batch's."""
     class_names = list(as_list(input_cfg.get("class_names")))
     dataset = _build_dataset(input_cfg.get("dataset", {}), class_names,
                              training)
@@ -120,6 +122,7 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
     }
     buckets = (tuple(int(b) for b in as_list(pp.get("static_shape_buckets")))
                if training else ())
+    bucket_plans = None
     if buckets:
         # the last bucket must be the full voxel capacity, or dense scans
         # would be silently truncated below max_number_of_voxels
@@ -128,12 +131,13 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
             print(f"WARNING: static_shape_buckets max {max(buckets)} < "
                   f"max_number_of_voxels {cap}; appending {cap} so dense "
                   f"scans keep their full voxel budget")
-            buckets = buckets + (cap,)
+            buckets = tuple(sorted(set(buckets) | {cap}))
+        buckets = tuple(sorted(buckets))
         if middle_plan is not None:
-            raise NotImplementedError(
-                "host-built rulebooks with static_shape_buckets (the "
-                "reference's per-bucket plans, pad_rulebooks_to_plan) are "
-                "not ported")
+            grid, specs = sparse_conv.respec(middle_plan)
+            bucket_plans = {b: sparse_conv.plan_from_specs(
+                grid, b, specs, capacity_shrink, out_caps=out_caps)
+                for b in buckets}
     if middle_plan is not None:
         rulebook_host.native()
 
@@ -141,12 +145,14 @@ def build(input_cfg: dict, training: bool, voxel_generator, target_assigner,
         prep_pointcloud, voxel_generator=voxel_generator,
         target_assigner=target_assigner, prep_cfg=prep_cfg,
         training=training, anchor_cache=anchor_cache,
-        db_sampler=db_sampler, middle_plan=middle_plan)
+        db_sampler=db_sampler, middle_plan=middle_plan,
+        middle_plan_buckets=bucket_plans)
     prep_ds = PrepDataset(dataset, lambda sd, rng: prep_fn(sd, rng=rng))
     loader = BatchLoader(
         prep_ds, batch_size=int(input_cfg.get("batch_size", 0)) or 2,
         shuffle=training,
         num_workers=int(input_cfg.get("num_workers", 0)) or 1, seed=seed,
         repeat=training, drop_last=training, buckets=buckets or None,
+        bucket_plans=bucket_plans,
         process_workers=bool(input_cfg.get("process_workers", False)))
     return prep_ds, loader

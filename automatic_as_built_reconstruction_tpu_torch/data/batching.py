@@ -4,9 +4,9 @@ Every example is already padded to static capacity by ``prep_pointcloud``,
 so batching is a plain stack.  The port's copy of the JAX package's
 ``data/batching.py``: ``merge_batch``, ``device_example`` (both carry the
 host-built rulebooks, keys ``rb*``) and the bucketed shrinking
-(``pick_bucket``, ``shrink_to_bucket``).  The host-rulebook padding to a
-bucket's plan (``pad_rulebooks_to_plan``) is not ported: no config pairs
-host rulebooks with ``static_shape_buckets``.
+(``pick_bucket``, ``shrink_to_bucket``), and the host rulebooks of an
+example built at its own bucket's plan padded up to the batch bucket's
+(``pad_rulebooks_to_plan``).
 """
 from __future__ import annotations
 
@@ -59,6 +59,43 @@ def shrink_to_bucket(example: Dict[str, np.ndarray],
     if "num_voxels" in out:
         out["num_voxels"] = np.minimum(out["num_voxels"],
                                        bucket).astype(np.int32)
+    return out
+
+
+def _pad_rows(a: np.ndarray, rows: int, fill) -> np.ndarray:
+    if a.shape[0] >= rows:
+        return a[:rows]
+    pad = np.full((rows - a.shape[0],) + a.shape[1:], fill, a.dtype)
+    return np.concatenate([a, pad], axis=0)
+
+
+def _pad_cols(a: np.ndarray, cols: int, fill) -> np.ndarray:
+    if a.shape[1] >= cols:
+        return a[:, :cols]
+    pad = np.full((a.shape[0], cols - a.shape[1]) + a.shape[2:], fill,
+                  a.dtype)
+    return np.concatenate([a, pad], axis=1)
+
+
+def pad_rulebooks_to_plan(example: Dict[str, np.ndarray],
+                          plan) -> Dict[str, np.ndarray]:
+    """Pad an example's host rulebooks (built at its own bucket's plan) up
+    to the shapes of ``plan`` (the batch bucket's plan).  The padding
+    changes nothing: extra rulebook columns have ``found`` False, extra
+    output sites ``out_valid`` False and coords -1, and the gather
+    indices stay valid in the larger feature table."""
+    out = dict(example)
+    for i, blk in enumerate(plan):
+        if f"rb{i}_subm_idx" not in out:
+            break
+        for key, size, fill, pad in (
+                ("subm_idx", blk.in_cap, 0, _pad_cols),
+                ("subm_found", blk.in_cap, False, _pad_cols),
+                ("out_coords", blk.out_cap, -1, _pad_rows),
+                ("out_valid", blk.out_cap, False, _pad_rows),
+                ("down_idx", blk.out_cap, 0, _pad_cols),
+                ("down_found", blk.out_cap, False, _pad_cols)):
+            out[f"rb{i}_{key}"] = pad(out[f"rb{i}_{key}"], size, fill)
     return out
 
 

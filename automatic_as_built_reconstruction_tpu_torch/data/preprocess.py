@@ -13,9 +13,9 @@ sparse middle's rulebooks, built on the host (``ops/rulebook_host.py``,
 keys ``rb*``) -> anchors (cached) -> anchor mask (BEV density integral
 image) -> (training) target assignment.  Every rng call is the
 reference's, in its order, so one seed (and one sampler state) gives the
-reference's example.  Host rulebooks at a bucket's plan
-(``middle_plan_buckets``) are not ported and raise
-``NotImplementedError``.
+reference's example.  With ``middle_plan_buckets`` ({bucket: plan}, host
+rulebooks with ``static_shape_buckets``) the rulebooks are those of the
+example's own bucket.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from ..core import augment, box_ops
 from ..core.target_assign import TargetAssigner
 from ..core.voxelize import VoxelGenerator
 from ..ops import rulebook_host
+from . import batching
 
 
 @dataclasses.dataclass
@@ -81,10 +82,6 @@ def prep_pointcloud(input_dict: dict,
     With ``training`` also ``labels`` [A], ``reg_targets`` [A, code],
     ``importance`` [A], ``gt_boxes`` [G, 7] and ``gt_names`` [G].
     """
-    if middle_plan_buckets is not None:
-        raise NotImplementedError(
-            "host-built rulebooks at a bucket's plan (middle_plan_buckets: "
-            "host rulebooks with static_shape_buckets) are not ported")
     rng = rng or np.random.default_rng()
     points = np.array(input_dict["lidar"]["points"], np.float32, copy=True)
     class_names = list(prep_cfg.class_names)
@@ -184,7 +181,13 @@ def prep_pointcloud(input_dict: dict,
         "coordinates": coords.astype(np.int32),
         "num_voxels": np.asarray(nv, np.int32),
     }
-    if middle_plan is not None:
+    if middle_plan_buckets is not None:
+        # the rulebooks of the example's own bucket (the loader pads them
+        # to its batch's bucket)
+        bucket = batching.pick_bucket(nv, sorted(middle_plan_buckets))
+        example.update(rulebook_host.build_middle_rulebooks(
+            coords[:bucket], middle_plan_buckets[bucket]))
+    elif middle_plan is not None:
         example.update(rulebook_host.build_middle_rulebooks(
             coords, middle_plan))
     if "metadata" in input_dict:

@@ -20,8 +20,12 @@ bfloat16 features and weights into float32 and back, BatchNorm in
 float32.  Parameter names follow the lineage torch net: the
 n-th conv of the stack is ``middle_conv.{3n}.weight`` in the spconv 1.x
 layout ``(kz, ky, kx, Cin, Cout)``, its BatchNorm ``middle_conv.{3n+1}``
-— the names ``utils/weight_import.py`` emits.  ``DenseMiddle`` is not
-ported.
+— the names ``utils/weight_import.py`` emits.
+
+``DenseMiddle`` (the VoxelNet paper's dense 3-D convolution middle)
+scatters the voxel features into a dense ``[B, D, H, W, C]`` canvas
+through the pillar-scatter kernel (K1 at ``hw = D * H * W``; its gradient
+is K1's gather kernel) and runs cuDNN ``conv3d`` on it.
 """
 from __future__ import annotations
 
@@ -34,14 +38,79 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops import sparse_conv as sc
+from ..ops.pillar_scatter import scatter_sorted_to_canvas
 from ..ops.sparse_gather_gemm import gather_gemm, group_perm, keymatch_gemm
-from .pointpillars import BN_EPS, BN_MOMENTUM, all_reduce_sum
+from .pointpillars import (BN_EPS, BN_MOMENTUM, FlaxBatchNorm3d,
+                           all_reduce_sum)
 
 
 def scatter_to_dense(voxel_features: torch.Tensor, coords: torch.Tensor,
                      grid_dhw: Tuple[int, int, int]) -> torch.Tensor:
     """[B,V,F] + [B,V,3] (z,y,x; -1 pad) -> dense [B, D, H, W, F]."""
     return sc.densify(voxel_features, coords, coords[..., 0] >= 0, grid_dhw)
+
+
+def dense_canvas(voxel_features: torch.Tensor, coords: torch.Tensor,
+                 grid_dhw: Tuple[int, int, int]) -> torch.Tensor:
+    """:func:`scatter_to_dense` through the pillar-scatter kernel: [B,V,F]
+    + [B,V,3] (z,y,x; -1 pad) -> NCDHW [B, F, D, H, W] with
+    ``channels_last_3d`` strides (a view of the kernel's [B, D*H*W, F]
+    canvas, no copy).  Padded voxels get the id D*H*W, which the kernel
+    drops; the other ids are unique, as hard voxelization makes them."""
+    B, V, nf = voxel_features.shape
+    D, H, W = grid_dhw
+    lin = ((coords[..., 0] * H + coords[..., 1]) * W + coords[..., 2])
+    lin = torch.where(coords[..., 0] >= 0, lin, D * H * W).to(torch.int32)
+    canvas = scatter_sorted_to_canvas(voxel_features.contiguous(), lin,
+                                      D * H * W)
+    return canvas.view(B, D, H, W, nf).permute(0, 4, 1, 2, 3)
+
+
+def _dense_out(n: int, stride: int) -> int:
+    """Output length of a 3-wide, 1-padded convolution of ``stride``."""
+    return (n - 1) // stride + 1
+
+
+class DenseMiddle(nn.Module):
+    """Dense 3-D convolution middle (the JAX package's ``DenseMiddle``):
+    per block ``layers_per_block`` stride-1 3x3x3 convolutions, then one
+    strided one (z by ``z_strides``, y and x by ``xy_strides``), each with
+    BatchNorm over every dense site (empty ones included) and ReLU.  The
+    output puts depth outside the channels, [B, D' * C, H', W'] (channel
+    ``d * C + c``, as the JAX module's ``[B, H, W, D, C]`` reshape), with
+    channels-last strides.  The n-th convolution is ``middle_conv.{3n}``,
+    its BatchNorm ``middle_conv.{3n + 1}``."""
+
+    def __init__(self, grid_dhw: Tuple[int, int, int],
+                 num_input_features: int = 4,
+                 num_filters: Sequence[int] = (16, 32, 64),
+                 layers_per_block: Sequence[int] = (2, 2, 2),
+                 z_strides: Sequence[int] = (2, 2, 2),
+                 xy_strides: Sequence[int] = (1, 1, 2)):
+        super().__init__()
+        self.grid_dhw = tuple(int(g) for g in grid_dhw)
+        mods = []
+        cin, depth = num_input_features, self.grid_dhw[0]
+        for f, n, zs, xys in zip(num_filters, layers_per_block, z_strides,
+                                 xy_strides):
+            for stride in [(1, 1, 1)] * n + [(zs, xys, xys)]:
+                mods += [nn.Conv3d(cin, f, 3, stride=stride, padding=1,
+                                   bias=False),
+                         FlaxBatchNorm3d(f, eps=BN_EPS,
+                                         momentum=BN_MOMENTUM),
+                         nn.ReLU()]
+                cin = f
+            depth = _dense_out(depth, zs)
+        self.middle_conv = nn.Sequential(*mods)
+        self.out_channels = cin * depth
+
+    def forward(self, voxel_features: torch.Tensor,
+                coords: torch.Tensor) -> torch.Tensor:
+        x = self.middle_conv(dense_canvas(voxel_features, coords,
+                                          self.grid_dhw))
+        B, C, D, H, W = x.shape
+        x = x.permute(0, 3, 4, 2, 1).reshape(B, H, W, D * C)
+        return x.permute(0, 3, 1, 2)
 
 
 class MaskedBatchNorm(nn.Module):

@@ -26,11 +26,17 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..ops.pillar_scatter import scatter_sorted_to_canvas
-from .voxel_encoder import points_mask
 
 # flax BatchNorm(momentum=0.99, epsilon=1e-3) in torch terms
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.01
+
+
+def points_mask(num_points: torch.Tensor, max_points: int,
+                dtype=torch.float32) -> torch.Tensor:
+    """[B, V] counts -> [B, V, T, 1] validity mask."""
+    ids = torch.arange(max_points, device=num_points.device)
+    return (ids[None, None, :] < num_points[..., None]).to(dtype)[..., None]
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -121,6 +127,10 @@ class FlaxBatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
     pass
 
 
+class FlaxBatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
+    pass
+
+
 class Linear(nn.Linear):
     """``nn.Linear`` that computes in bfloat16 where its input is bfloat16,
     as flax's ``Dense(dtype=bfloat16)`` does: the kernel rounded to
@@ -167,21 +177,27 @@ class PillarFeatureNet(nn.Module):
     """Decorate points (cluster offset + pillar-centre offset), run PFN
     layers, max-pool to one feature per pillar.
 
-    Decorations: [x, y, z, r, xc, yc, zc, xp, yp], built in the points'
-    type; the PFN layers run in ``dtype`` (float32 or bfloat16).
+    Decorations: [x, y, z, r, xc, yc, zc, xp, yp] (+ |p| with
+    ``with_distance``), built in the points' type; the PFN layers run in
+    ``dtype`` (float32 or bfloat16).  ``radius=True`` is the
+    PillarFeatureNetRadius variant: the absolute (x, y) channels are
+    folded into the BEV radius sqrt(x^2 + y^2), everything else unchanged.
     """
 
     def __init__(self, num_input_features: int = 4,
                  num_filters: Sequence[int] = (64,),
                  voxel_size: Tuple[float, float] = (0.2, 0.2),
                  pc_range: Tuple[float, float] = (0.0, -40.0),
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 with_distance: bool = False, radius: bool = False):
         super().__init__()
         self.dtype = dtype
         self.num_input_features = num_input_features
         self.voxel_size = tuple(voxel_size)
         self.pc_range = tuple(pc_range)
-        in_ch = num_input_features + 5
+        self.with_distance = with_distance
+        self.radius = radius
+        in_ch = num_input_features + 5 + int(with_distance) - int(radius)
         layers = []
         for i, units in enumerate(num_filters):
             last = i == len(num_filters) - 1
@@ -200,10 +216,12 @@ class PillarFeatureNet(nn.Module):
         math on the point-major layout, each point decorated against its
         own pillar's mean and centre, one PFN layer, then a max per
         pillar.  Equal to the padded path in eval mode: ReLU makes padded
-        zero rows neutral under the max.  Single-layer configs only.
+        zero rows neutral under the max.  Single-layer configs only, as in
+        the JAX package (``models/pointpillars.py:87`` there raises too).
         """
         if flat_points is not None:
             if len(self.pfn_layers) != 1:
+                # the JAX package refuses it too (models/pointpillars.py:87)
                 raise NotImplementedError(
                     "flat PFN mode supports a single PFN layer")
             return self._flat(flat_points, flat_slot, num_points, coords)
@@ -222,12 +240,26 @@ class PillarFeatureNet(nn.Module):
             [voxels[..., 0] - px[..., None], voxels[..., 1] - py[..., None]],
             dim=-1)
 
-        raw = voxels[..., : self.num_input_features]
-        x = torch.cat([raw, f_cluster, f_center], dim=-1) * mask
+        x = torch.cat(self._decorations(voxels, f_cluster, f_center),
+                      dim=-1) * mask
         x, mask = self._compute_type(x), self._compute_type(mask)
         for layer in self.pfn_layers:
             x = layer(x, mask)
         return x
+
+    def _decorations(self, points, f_cluster, f_center):
+        """[raw (or radius, z, ...), f_cluster, f_center (, |p|)] of
+        points [..., C]."""
+        raw = points[..., : self.num_input_features]
+        if self.radius:
+            r_bev = torch.linalg.vector_norm(raw[..., :2], dim=-1,
+                                             keepdim=True)
+            raw = torch.cat([r_bev, raw[..., 2:]], dim=-1)
+        features = [raw, f_cluster, f_center]
+        if self.with_distance:
+            features.append(torch.linalg.vector_norm(
+                points[..., :3], dim=-1, keepdim=True))
+        return features
 
     def _compute_type(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` in the PFN's type: bfloat16 where the module computes in
@@ -264,8 +296,8 @@ class PillarFeatureNet(nn.Module):
         f_center = torch.stack([points[..., 0] - px, points[..., 1] - py],
                                dim=-1)
 
-        raw = points[..., : self.num_input_features]
-        x = torch.cat([raw, f_cluster, f_center], dim=-1)
+        x = torch.cat(self._decorations(points, f_cluster, f_center),
+                      dim=-1)
         x = self._compute_type(x * pvalid[..., None].to(dt))
         # the same PFNLayer: a [B, P, 1, F] layout makes its max over
         # axis 2 a no-op, so it returns each point's activation [B, P, F]

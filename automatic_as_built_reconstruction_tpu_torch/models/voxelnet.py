@@ -1,23 +1,29 @@
-"""VoxelNet (VFE -> middle -> RPN) + ``predict`` (decode, top-k, rotated
-NMS, centre suppression).
+"""VoxelNet (VFE -> middle -> RPN) + ``compute_loss`` + ``predict``
+(decode, top-k, rotated or nearest NMS, centre suppression).
 
 The port of the JAX package's ``models/voxelnet.py``: its own copy of
-``VoxelNetConfig`` (the fields the serving paths read), the ``VoxelNet``
-pillar branch (PillarFeatureNet -> PointPillarsScatter -> RPN) and sparse
-branch (SimpleVoxel -> SparseMiddle -> RPN), ``num_middle_blocks``,
-``middle_plan``, ``compute_loss`` (:364) and ``predict`` (:452).  The
-sparse branch takes host-built rulebooks (``middle_rulebooks=``).  Both
-compute in bfloat16 with ``compute_dtype="bfloat16"``, as the JAX
-package's flax modules run with ``dtype=bfloat16``: the pillar branch's
-PFN, scatter and RPN (the pillar scatter's kernel on bfloat16 rows), the
-sparse branch's middle (its gather or key-match joins in the kernels'
-bfloat16 forms) and RPN; ``SimpleVoxel`` stays float32, and every head
-comes back in float32.  The other VFEs, ``DenseMiddle``, the
-yaw-quality head, ``PillarFeatureNetRadius``, ``with_distance``,
-fractional upsample strides, softmax class scores
-(``encode_background_as_zeros`` false) and a model without the direction
-classifier wait for later slices and raise ``NotImplementedError``; of
-the flat PFN modes the segment-ops one is ported, ``segment_scan`` is not.
+``VoxelNetConfig``, the ``VoxelNet`` of its three families — pillars
+(``PillarFeatureNet`` / ``PillarFeatureNetRadius`` ->
+``PointPillarsScatter``), SECOND (``SimpleVoxel`` / ``SimpleVoxelRadius``
+-> ``SparseMiddle``) and VoxelNet (``VoxelFeatureExtractor(V2)`` ->
+``DenseMiddle``) — then the RPN; ``num_middle_blocks``, ``middle_plan``,
+``compute_loss`` (:364) and ``predict`` (:452) with every head the JAX
+package has: sigmoid or softmax class scores (``encode_background_as_zeros``),
+the direction classifier or none, the yaw-quality head.  The sparse
+middle takes host-built rulebooks (``middle_rulebooks=``).  Both the
+pillar and the sparse branch compute in bfloat16 with
+``compute_dtype="bfloat16"``, as the JAX package's flax modules run with
+``dtype=bfloat16``: the PFN, scatter and RPN (the pillar scatter's kernel
+on bfloat16 rows), the sparse middle (its joins in the kernels' bfloat16
+forms) and RPN; ``SimpleVoxel``, the VoxelNet VFEs and ``DenseMiddle``
+stay float32, and every head comes back in float32.
+
+Refused because the JAX package cannot do them either: ``predict`` with
+``box_code_size`` 8 (the JAX ``predict`` decodes without
+``encode_angle_to_vector``, ``models/voxelnet.py:508``), the multi-layer
+flat PFN (``models/pointpillars.py:87``) and the flat PFN's
+``segment_scan`` mode (``flat_segment_scan``; a known fault of the
+reference, ``models/pointpillars.py:138-218``, not copied).
 """
 from __future__ import annotations
 
@@ -31,13 +37,25 @@ from torch import nn
 from ..ops import box_ops, nms
 from ..ops import sparse_conv as sc
 from . import losses as losses_mod
-from .middle import MaskedBatchNorm, SparseMiddle
+from .middle import DenseMiddle, MaskedBatchNorm, SparseMiddle
 from .pointpillars import (PillarFeatureNet, PointPillarsScatter,
                            _FlaxBatchNorm)
 from .rpn import RPN
-from .voxel_encoder import SimpleVoxel
+from .voxel_encoder import (SimpleVoxel, SimpleVoxelRadius,
+                            VoxelFeatureExtractor, VoxelFeatureExtractorV2)
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+PILLAR_VFES = ("PillarFeatureNet", "PillarFeatureNetRadius")
+VFE_REGISTRY = {
+    "SimpleVoxel": SimpleVoxel,
+    "SimpleVoxelRadius": SimpleVoxelRadius,
+    "VoxelFeatureExtractor": VoxelFeatureExtractor,
+    "VoxelFeatureExtractorV2": VoxelFeatureExtractorV2,
+    "PillarFeatureNet": PillarFeatureNet,
+    # PillarFeatureNet with the absolute BEV position folded to a radius
+    "PillarFeatureNetRadius": PillarFeatureNet,
+}
 
 # every lineage SpMiddle* spelling builds the sparse stack; the exact
 # per-variant layer plan comes from models/middle_plans.py (wired in by
@@ -122,7 +140,12 @@ class VoxelNetConfig:
     cls_weight: float = 1.0
     loc_weight: float = 2.0
     dir_weight: float = 0.2
+    # yaw-quality head: per-anchor logit trained against
+    # |cos(pred_yaw - gt_yaw)| on positives; predict multiplies
+    # sigmoid(logit) ** power into the scores before top-k
     use_yaw_quality_head: bool = False
+    yaw_quality_weight: float = 1.0
+    yaw_quality_predict_power: float = 1.0
     pos_cls_weight: float = 1.0
     neg_cls_weight: float = 1.0
     focal_gamma: float = 2.0
@@ -166,46 +189,46 @@ class VoxelNetConfig:
 
 
 class VoxelNet(nn.Module):
-    """VFE -> middle -> RPN; raw NCHW maps.  Two families: PillarFeatureNet
-    -> PointPillarsScatter, and SimpleVoxel -> SparseMiddle."""
+    """VFE -> middle -> RPN; raw NCHW maps.  Three families:
+    PillarFeatureNet(Radius) -> PointPillarsScatter, SimpleVoxel(Radius)
+    -> SparseMiddle, and VoxelFeatureExtractor(V2) -> DenseMiddle (any
+    VFE goes with any middle, as in the JAX package)."""
 
     def __init__(self, cfg: VoxelNetConfig):
         super().__init__()
-        if cfg.vfe_name not in ("PillarFeatureNet", "SimpleVoxel"):
-            raise NotImplementedError(
-                f"VFE {cfg.vfe_name}: only PillarFeatureNet and SimpleVoxel "
-                f"are ported")
+        if cfg.vfe_name not in VFE_REGISTRY:
+            raise ValueError(f"unknown VFE {cfg.vfe_name}: want one of "
+                             f"{sorted(VFE_REGISTRY)}")
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise NotImplementedError(
                 f"compute_dtype {cfg.compute_dtype}: only "
                 f"{sorted(COMPUTE_DTYPES)} are ported")
-        if cfg.with_distance:
-            raise NotImplementedError("PillarFeatureNet with_distance is not "
-                                      "ported")
-        if any(s < 1 or s != int(s) for s in cfg.rpn_upsample_strides):
-            raise NotImplementedError(
-                f"upsample strides {cfg.rpn_upsample_strides}: only integer "
-                f"strides >= 1 are ported")
         sparse = cfg.middle_name in SPARSE_MIDDLE_NAMES
-        if not sparse and cfg.middle_name != "PointPillarsScatter":
-            raise NotImplementedError(
-                f"middle {cfg.middle_name}: only PointPillarsScatter and "
-                f"the sparse middle stack are ported")
-        if cfg.use_yaw_quality_head:
-            raise NotImplementedError("the yaw-quality head is not ported")
-        _refuse_unported_heads(cfg)
+        if not sparse and cfg.middle_name not in ("PointPillarsScatter",
+                                                  "DenseMiddle"):
+            raise ValueError(f"unknown middle {cfg.middle_name}")
         self.cfg = cfg
-        if cfg.vfe_name == "PillarFeatureNet":
+        vfe_cls = VFE_REGISTRY[cfg.vfe_name]
+        if vfe_cls is PillarFeatureNet:
             self.voxel_feature_extractor = PillarFeatureNet(
                 num_input_features=cfg.num_input_features,
                 num_filters=cfg.vfe_num_filters,
                 voxel_size=cfg.voxel_size[:2], pc_range=cfg.pc_range[:2],
-                dtype=COMPUTE_DTYPES[cfg.compute_dtype])
+                dtype=COMPUTE_DTYPES[cfg.compute_dtype],
+                with_distance=cfg.with_distance,
+                radius=cfg.vfe_name.endswith("Radius"))
+            vfe_channels = cfg.vfe_num_filters[-1]
+        elif issubclass(vfe_cls, VoxelFeatureExtractor):
+            self.voxel_feature_extractor = vfe_cls(
+                num_input_features=cfg.num_input_features,
+                num_filters=cfg.vfe_num_filters,
+                with_distance=cfg.with_distance)
             vfe_channels = cfg.vfe_num_filters[-1]
         else:
-            self.voxel_feature_extractor = SimpleVoxel(
+            self.voxel_feature_extractor = vfe_cls(
                 num_input_features=cfg.num_input_features)
-            vfe_channels = cfg.num_input_features
+            vfe_channels = cfg.num_input_features - int(
+                vfe_cls is SimpleVoxelRadius)
         if sparse:
             self.middle_feature_extractor = SparseMiddle(
                 grid_dhw=_sparse_grid(cfg), num_input_features=vfe_channels,
@@ -225,6 +248,16 @@ class VoxelNet(nn.Module):
                 dense_tail_blocks=cfg.sparse_dense_tail_blocks,
                 dtype=COMPUTE_DTYPES[cfg.compute_dtype])
             rpn_in = self.middle_feature_extractor.out_channels
+        elif cfg.middle_name == "DenseMiddle":
+            self.middle_feature_extractor = DenseMiddle(
+                grid_dhw=(cfg.grid_size[2], cfg.grid_size[1],
+                          cfg.grid_size[0]),
+                num_input_features=vfe_channels,
+                num_filters=cfg.middle_num_filters,
+                layers_per_block=cfg.middle_layers_per_block,
+                z_strides=cfg.middle_z_strides,
+                xy_strides=cfg.middle_xy_strides)
+            rpn_in = self.middle_feature_extractor.out_channels
         else:
             self.middle_feature_extractor = PointPillarsScatter(
                 cfg.bev_shape)
@@ -234,11 +267,14 @@ class VoxelNet(nn.Module):
             layer_nums=cfg.rpn_layer_nums,
             layer_strides=cfg.rpn_layer_strides,
             num_filters=cfg.rpn_num_filters,
-            upsample_strides=[int(s) for s in cfg.rpn_upsample_strides],
+            upsample_strides=cfg.rpn_upsample_strides,
             num_upsample_filters=cfg.rpn_num_upsample_filters,
             num_anchor_per_loc=cfg.num_anchor_per_loc,
             num_class=cfg.num_class, box_code_size=cfg.box_code_size,
             num_direction_bins=cfg.num_direction_bins,
+            use_direction_classifier=cfg.use_direction_classifier,
+            encode_background_as_zeros=cfg.encode_background_as_zeros,
+            use_yaw_quality=cfg.use_yaw_quality_head,
             dtype=COMPUTE_DTYPES[cfg.compute_dtype])
 
     def forward(self, voxels: torch.Tensor, num_points: torch.Tensor,
@@ -257,7 +293,7 @@ class VoxelNet(nn.Module):
         own on the device.
         """
         if flat_points is not None:
-            if self.cfg.vfe_name != "PillarFeatureNet":
+            if self.cfg.vfe_name not in PILLAR_VFES:
                 raise NotImplementedError(
                     "flat point input is a pillar-encoder path")
             voxel_features = self.voxel_feature_extractor(
@@ -298,43 +334,47 @@ def set_batch_norm_group(model: nn.Module, group) -> None:
             m.stats_group = group
 
 
-def _refuse_unported_heads(cfg: VoxelNetConfig) -> None:
-    if not cfg.encode_background_as_zeros:
-        raise NotImplementedError("softmax class scores (background as a "
-                                  "class) are not ported")
-    if not cfg.use_direction_classifier:
-        raise NotImplementedError("a model without the direction "
-                                  "classifier is not ported")
-
-
 def flatten_preds(preds: Dict[str, torch.Tensor], cfg: VoxelNetConfig):
     """NCHW maps [B, A*c, H, W] -> [B, H*W*A, c] aligned with the anchor
-    axis.  The maps go to NHWC first: the anchor axis is (y, x, anchor)
-    with the anchor fastest, as the JAX package's NHWC reshape gives it."""
+    axis (the quality logits [B, H*W*A]).  The maps go to NHWC first: the
+    anchor axis is (y, x, anchor) with the anchor fastest, as the JAX
+    package's NHWC reshape gives it."""
     def flat(t, c):
         return t.permute(0, 2, 3, 1).reshape(t.shape[0], -1, c)
 
-    return {"box_preds": flat(preds["box_preds"], cfg.box_code_size),
-            "cls_preds": flat(preds["cls_preds"], cfg.num_class),
-            "dir_cls_preds": flat(preds["dir_cls_preds"],
-                                  cfg.num_direction_bins)}
+    ncls = (cfg.num_class if cfg.encode_background_as_zeros
+            else cfg.num_class + 1)
+    out = {"box_preds": flat(preds["box_preds"], cfg.box_code_size),
+           "cls_preds": flat(preds["cls_preds"], ncls)}
+    if "dir_cls_preds" in preds:
+        out["dir_cls_preds"] = flat(preds["dir_cls_preds"],
+                                    cfg.num_direction_bins)
+    if "quality_preds" in preds:
+        out["quality_preds"] = flat(preds["quality_preds"], 1)[..., 0]
+    return out
+
+
+def sigmoid_bce(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Numerically stable sigmoid BCE with soft targets (the JAX package's
+    ``optax_sigmoid_bce``)."""
+    return (torch.clamp_min(logits, 0.0) - logits * targets
+            + torch.log1p(torch.exp(-torch.abs(logits))))
 
 
 def compute_loss(preds: Dict[str, torch.Tensor],
                  example: Dict[str, torch.Tensor], cfg: VoxelNetConfig,
                  batch_size: Optional[int] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total loss + per-term metrics (``loss_cls``, ``loss_loc``,
-    ``loss_dir``, ``loss``), as the JAX package's ``compute_loss``.
+    """Total loss + per-term metrics (``loss_cls``, ``loss_loc``, with the
+    direction classifier ``loss_dir``, with the yaw-quality head
+    ``loss_quality``, and ``loss``), as the JAX package's
+    ``compute_loss``.
 
     example: labels [B,A] int, reg_targets [B,A,code], anchors [B,A,7].
     ``batch_size``: the normaliser (the examples' count if None); a rank
     of a data-parallel step passes the global batch's, so that the ranks'
     losses sum to the loss of the whole batch.
     """
-    if cfg.use_yaw_quality_head:
-        raise NotImplementedError("the yaw-quality loss is not ported")
-    _refuse_unported_heads(cfg)
     p = flatten_preds(preds, cfg)
     labels = example["labels"]
     reg_targets = example["reg_targets"]
@@ -343,11 +383,13 @@ def compute_loss(preds: Dict[str, torch.Tensor],
     cls_weights, reg_weights, cared = losses_mod.prepare_loss_weights(
         labels, cfg.pos_cls_weight, cfg.neg_cls_weight, cfg.loss_norm_type)
 
-    # classification: one-hot with the background column dropped
+    # classification: one-hot, the background column dropped unless the
+    # scores are a softmax over it
     cls_targets = torch.where(cared, labels, torch.zeros_like(labels))
     one_hot = torch.nn.functional.one_hot(
         cls_targets.long(), cfg.num_class + 1).to(p["cls_preds"].dtype)
-    one_hot = one_hot[..., 1:]
+    if cfg.encode_background_as_zeros:
+        one_hot = one_hot[..., 1:]
     focal = losses_mod.SigmoidFocalClassificationLoss(
         gamma=cfg.focal_gamma, alpha=cfg.focal_alpha)
     cls_loss = focal(p["cls_preds"], one_hot, cls_weights).sum() / B
@@ -363,20 +405,33 @@ def compute_loss(preds: Dict[str, torch.Tensor],
         sigma=cfg.smooth_l1_sigma, code_weights=cfg.code_weights)
     loc_loss = smooth_l1(box_preds_s, reg_targets_s, reg_weights).sum() / B
 
-    dir_targets = box_ops.get_direction_target(
-        example["anchors"], reg_targets, cfg.direction_offset,
-        cfg.num_direction_bins)
-    dir_one_hot = torch.nn.functional.one_hot(
-        dir_targets, cfg.num_direction_bins).to(p["dir_cls_preds"].dtype)
-    dir_w = (labels > 0).to(box_preds.dtype)
-    dir_w = dir_w / torch.clamp_min(dir_w.sum(-1, keepdim=True), 1.0)
-    dir_loss = losses_mod.WeightedSoftmaxClassificationLoss()(
-        p["dir_cls_preds"], dir_one_hot, dir_w).sum() / B
+    total = cfg.cls_weight * cls_loss + cfg.loc_weight * loc_loss
+    metrics = {"loss_cls": cls_loss, "loss_loc": loc_loss}
+    pos_w = (labels > 0).to(box_preds.dtype)
+    pos_w = pos_w / torch.clamp_min(pos_w.sum(-1, keepdim=True), 1.0)
 
-    total = (cfg.cls_weight * cls_loss + cfg.loc_weight * loc_loss
-             + cfg.dir_weight * dir_loss)
-    return total, {"loss_cls": cls_loss, "loss_loc": loc_loss,
-                   "loss_dir": dir_loss, "loss": total}
+    if cfg.use_direction_classifier:
+        dir_targets = box_ops.get_direction_target(
+            example["anchors"], reg_targets, cfg.direction_offset,
+            cfg.num_direction_bins)
+        dir_one_hot = torch.nn.functional.one_hot(
+            dir_targets, cfg.num_direction_bins).to(p["dir_cls_preds"].dtype)
+        dir_loss = losses_mod.WeightedSoftmaxClassificationLoss()(
+            p["dir_cls_preds"], dir_one_hot, pos_w).sum() / B
+        total = total + cfg.dir_weight * dir_loss
+        metrics["loss_dir"] = dir_loss
+
+    if cfg.use_yaw_quality_head and "quality_preds" in p:
+        # quality target |cos(pred_yaw - gt_yaw)| on positives; the box
+        # head is not steered by it (its yaw enters detached)
+        yaw_err = box_preds[..., 6].detach() - reg_targets[..., 6]
+        q_bce = sigmoid_bce(p["quality_preds"], torch.abs(torch.cos(yaw_err)))
+        quality_loss = (q_bce * pos_w).sum() / B
+        total = total + cfg.yaw_quality_weight * quality_loss
+        metrics["loss_quality"] = quality_loss
+
+    metrics["loss"] = total
+    return total, metrics
 
 
 def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -388,8 +443,9 @@ def predict(preds: Dict[str, torch.Tensor], anchors: torch.Tensor,
             cfg: VoxelNetConfig,
             anchors_mask: Optional[torch.Tensor] = None
             ) -> Dict[str, torch.Tensor]:
-    """Decode + score threshold + per-class rotated NMS (+ centre
-    suppression), static shapes.
+    """Decode + score threshold + per-class rotated (or, without
+    ``use_rotate_nms``, nearest axis-aligned) NMS (+ centre suppression),
+    static shapes.
 
     Args:
         preds: NCHW prediction maps from :class:`VoxelNet`.
@@ -400,14 +456,24 @@ def predict(preds: Dict[str, torch.Tensor], anchors: torch.Tensor,
         box3d_lidar [B, K, 7], scores [B, K], label_preds [B, K] (int32,
         0-based class), valid [B, K] bool.
     """
-    if not cfg.use_rotate_nms:
-        raise NotImplementedError("only rotated NMS is ported")
     if cfg.box_code_size != 7:
+        # the JAX package's predict decodes 7-dof residuals only
+        # (second_box_decode without encode_angle_to_vector,
+        # models/voxelnet.py:508 there)
         raise NotImplementedError("predict decodes 7-dof residuals only")
-    _refuse_unported_heads(cfg)
     p = flatten_preds(preds, cfg)
     box_preds = p["box_preds"].float()
-    scores_all = torch.sigmoid(p["cls_preds"].float())    # [B, A, C]
+    cls_preds = p["cls_preds"].float()
+    if cfg.encode_background_as_zeros:
+        scores_all = torch.sigmoid(cls_preds)              # [B, A, C]
+    else:
+        scores_all = torch.softmax(cls_preds, dim=-1)[..., 1:]
+    if cfg.use_yaw_quality_head and "quality_preds" in p:
+        # rank by cls_score * yaw_quality BEFORE top-k
+        quality = torch.sigmoid(p["quality_preds"].float())
+        if cfg.yaw_quality_predict_power != 1.0:
+            quality = quality ** cfg.yaw_quality_predict_power
+        scores_all = scores_all * quality[..., None]
     if anchors_mask is not None:
         scores_all = torch.where(anchors_mask[..., None], scores_all,
                                  torch.zeros((), device=scores_all.device))
@@ -431,14 +497,15 @@ def predict(preds: Dict[str, torch.Tensor], anchors: torch.Tensor,
     idx_b = top_idx.reshape(B, C * pre)
     boxes_top = box_ops.second_box_decode(_take_rows(box_preds, idx_b),
                                           _take_rows(anchors.float(), idx_b))
-    gathered_dir = _take_rows(p["dir_cls_preds"].float(), idx_b)
-    dir_labels = torch.argmax(gathered_dir, dim=-1)
-    period = 2 * math.pi / cfg.num_direction_bins
-    dir_rot = box_ops.limit_period(
-        boxes_top[..., 6] - cfg.direction_offset, 0.0, period)
-    yaw = (dir_rot + cfg.direction_offset
-           + period * dir_labels.to(torch.float32))
-    boxes_top = torch.cat([boxes_top[..., :6], yaw[..., None]], dim=-1)
+    if cfg.use_direction_classifier:
+        gathered_dir = _take_rows(p["dir_cls_preds"].float(), idx_b)
+        dir_labels = torch.argmax(gathered_dir, dim=-1)
+        period = 2 * math.pi / cfg.num_direction_bins
+        dir_rot = box_ops.limit_period(
+            boxes_top[..., 6] - cfg.direction_offset, 0.0, period)
+        yaw = (dir_rot + cfg.direction_offset
+               + period * dir_labels.to(torch.float32))
+        boxes_top = torch.cat([boxes_top[..., :6], yaw[..., None]], dim=-1)
 
     if cfg.post_center_limit_range:
         lim = cfg.post_center_limit_range
@@ -452,8 +519,13 @@ def predict(preds: Dict[str, torch.Tensor], anchors: torch.Tensor,
 
     boxes_r = boxes_top.reshape(B * C, pre, boxes_top.shape[-1])
     bev = boxes_r[:, :, [0, 1, 3, 4, 6]]
-    idx, valid = nms.rotate_nms_presorted(bev, top_sc, cfg.nms_iou_threshold,
-                                          post_max_size=D)
+    if cfg.use_rotate_nms:
+        idx, valid = nms.rotate_nms_presorted(
+            bev, top_sc, cfg.nms_iou_threshold, post_max_size=D)
+    else:
+        idx, valid = nms.nearest_nms_presorted(
+            nms.rbbox_to_near_bbox(bev), top_sc, cfg.nms_iou_threshold,
+            post_max_size=D)
     safe = torch.where(valid, idx, 0).long()               # [B*C, D]
     boxes = _take_rows(boxes_r, safe)
     scores = torch.where(valid, torch.gather(top_sc, 1, safe),

@@ -16,15 +16,20 @@ the SECOND serving path runs:
 - **rulebooks**: the merge builders, as functions with the JAX results:
   ``_merge_lookup`` here is a stable sort of the input keys and one
   ``torch.searchsorted`` (a GPU does binary-search gathers in parallel;
-  the JAX package's combined sort is a TPU device).
+  the JAX package's combined sort is a TPU device).  That search is the
+  JAX package's binary-search builders' too
+  (``build_submanifold_rulebook``, ``build_strided_layout``), whose
+  ``gather_idx`` the port gives where a tap finds nothing as well; the
+  dense-LUT builders (``*_lut``: a grid-sized table of row indices, the
+  strided sites marked on the output grid and compacted by a cumsum)
+  give 0 there.
 - **convs**: ``submanifold_conv`` / ``strided_sparse_conv`` (plain gather
-  + one matmul), ``scatter_to_bev``, and the dense oracle ``densify`` /
+  + one matmul), ``sparse_max_pool`` and ``inverse_sparse_conv`` over a
+  strided layout, ``scatter_to_bev``, and the dense oracle ``densify`` /
   ``dense_conv3d``.
 
 Every tensor function takes arbitrary leading batch dimensions: a site
 axis is the last (keys, masks) or the last but one (coords, features).
-The dense-LUT and binary-search builders, ``sparse_max_pool`` and
-``inverse_sparse_conv`` are not ported.
 """
 from __future__ import annotations
 
@@ -329,6 +334,97 @@ def build_submanifold_rulebook_merge(
                                hit.unflatten(-1, (K, N)))
 
 
+def build_submanifold_rulebook(
+        coords: torch.Tensor, valid: torch.Tensor,
+        grid_dhw: Tuple[int, int, int],
+        kernel_size: Tuple[int, int, int] = (3, 3, 3)
+) -> SubmanifoldRulebook:
+    """The JAX package's binary-search builder: each tap's query keys
+    searched in the sorted input keys, the row at the search position
+    kept where the tap finds nothing.  The same search as
+    :func:`build_submanifold_rulebook_merge`."""
+    return build_submanifold_rulebook_merge(coords, valid, grid_dhw,
+                                            kernel_size)
+
+
+def _lut_lookup(in_keys: torch.Tensor, q_keys: torch.Tensor,
+                cells: int):
+    """Row index of each query key through a table of ``cells`` + 1 row
+    indices (-1: no row; the last cell takes every key outside the grid
+    and never matches).  -> (idx [..., Q] int32, 0 where there is no hit;
+    hit [..., Q] bool)."""
+    N = in_keys.shape[-1]
+    table = torch.full(in_keys.shape[:-1] + (cells + 1,), -1,
+                       dtype=torch.int32, device=in_keys.device)
+    rows = torch.arange(N, dtype=torch.int32, device=in_keys.device)
+    table.scatter_(-1, in_keys.clamp(max=cells).long(),
+                   rows.expand(in_keys.shape).contiguous())
+    table[..., cells] = -1
+    idx = torch.gather(table, -1, q_keys.clamp(max=cells).long())
+    hit = (idx >= 0) & (q_keys != INT32_MAX)
+    return idx.clamp(min=0), hit
+
+
+def build_submanifold_rulebook_lut(
+        coords: torch.Tensor, valid: torch.Tensor,
+        grid_dhw: Tuple[int, int, int],
+        kernel_size: Tuple[int, int, int] = (3, 3, 3)
+) -> SubmanifoldRulebook:
+    """The dense lookup-table builder: every active site's row index
+    written into a [D*H*W]-cell table, then one gather a tap.  The same
+    rulebook as :func:`build_submanifold_rulebook` where a tap finds its
+    neighbour; ``gather_idx`` 0 elsewhere."""
+    N = coords.shape[-2]
+    cells = int(np.prod(grid_dhw))
+    in_keys = torch.where(valid, linearize(coords, grid_dhw), INT32_MAX)
+    q = subm_tap_keys(coords, valid, grid_dhw, kernel_size)
+    K = q.shape[-2]
+    idx, hit = _lut_lookup(in_keys, q.flatten(-2), cells)
+    return SubmanifoldRulebook(idx.unflatten(-1, (K, N)),
+                               hit.unflatten(-1, (K, N)))
+
+
+def _candidates(coords: torch.Tensor, valid: torch.Tensor,
+                grid_dhw: Tuple[int, int, int],
+                kernel_size: Tuple[int, int, int],
+                stride: Tuple[int, int, int],
+                padding: Tuple[int, int, int]):
+    """Each input's candidate output cells of a strided conv.  -> (their
+    keys on the output grid [..., C, N], INT32_MAX where none; the output
+    grid)."""
+    out_grid = _out_grid(grid_dhw, padding, kernel_size, stride)
+    sj = _tensor(stride, coords)
+    pj = _tensor(padding, coords)
+    kj = _tensor(kernel_size, coords)
+    n_cand = [int(-(-kk // ss)) for kk, ss in zip(kernel_size, stride)]
+    deltas = _tensor(np.stack(np.meshgrid(
+        *[np.arange(c) for c in n_cand], indexing="ij"), -1).reshape(-1, 3),
+        coords)                                                # [C, 3]
+    c = coords[..., None, :, :]                                # [..,1,N,3]
+    o = torch.div(c + pj, sj, rounding_mode="floor") - deltas[:, None, :]
+    lo = c + pj - kj + 1
+    ok = valid[..., None, :] & ((o * sj >= lo) & (o * sj <= c + pj)).all(-1)
+    return torch.where(ok, linearize(o, out_grid), INT32_MAX), out_grid
+
+
+def _sites_from_keys(out_keys: torch.Tensor, num_out: torch.Tensor,
+                     out_grid) -> StridedSites:
+    """Ascending output keys [..., M] (their count ``num_out``) ->
+    sites."""
+    max_out = out_keys.shape[-1]
+    out_valid = (torch.arange(max_out, device=out_keys.device)
+                 < num_out[..., None])
+    out_keys = torch.where(out_valid, out_keys, INT32_MAX)
+    oD, oW = out_grid[0], out_grid[2]
+    oy = torch.div(out_keys, oW * oD, rounding_mode="floor")
+    ox = torch.div(out_keys, oD, rounding_mode="floor") % oW
+    oz = out_keys % oD
+    out_coords = torch.where(out_valid[..., None],
+                             torch.stack([oz, oy, ox], dim=-1),
+                             -1).to(torch.int32)
+    return StridedSites(out_coords, out_valid, num_out)
+
+
 def build_strided_sites(coords: torch.Tensor, valid: torch.Tensor,
                         grid_dhw: Tuple[int, int, int],
                         kernel_size: Tuple[int, int, int],
@@ -343,20 +439,8 @@ def build_strided_sites(coords: torch.Tensor, valid: torch.Tensor,
     Output site o (per dim) receives input i iff ``o*s + k - p == i`` for
     a tap k in [0, K): ``o*s`` in ``[i + p - k + 1, i + p]``, at most
     ceil(k/s) values from ``floor((i + p) / s)`` downwards."""
-    out_grid = _out_grid(grid_dhw, padding, kernel_size, stride)
-    sj = _tensor(stride, coords)
-    pj = _tensor(padding, coords)
-    kj = _tensor(kernel_size, coords)
-    n_cand = [int(-(-kk // ss)) for kk, ss in zip(kernel_size, stride)]
-    deltas = _tensor(np.stack(np.meshgrid(
-        *[np.arange(c) for c in n_cand], indexing="ij"), -1).reshape(-1, 3),
-        coords)                                                # [C, 3]
-
-    c = coords[..., None, :, :]                                # [..,1,N,3]
-    o = torch.div(c + pj, sj, rounding_mode="floor") - deltas[:, None, :]
-    lo = c + pj - kj + 1
-    ok = valid[..., None, :] & ((o * sj >= lo) & (o * sj <= c + pj)).all(-1)
-    cand = torch.where(ok, linearize(o, out_grid), INT32_MAX)  # [..,C,N]
+    cand, out_grid = _candidates(coords, valid, grid_dhw, kernel_size,
+                                 stride, padding)              # [..,C,N]
     skeys = torch.sort(cand.flatten(-2), dim=-1).values        # [.., C*N]
     first = torch.ones_like(skeys, dtype=torch.bool)
     first[..., 1:] = skeys[..., 1:] != skeys[..., :-1]
@@ -368,18 +452,8 @@ def build_strided_sites(coords: torch.Tensor, valid: torch.Tensor,
     out_keys = torch.full(skeys.shape[:-1] + (max_out + 1,), INT32_MAX,
                           dtype=torch.int32, device=coords.device)
     out_keys.scatter_(-1, slot, skeys.to(torch.int32))
-    out_keys = out_keys[..., :max_out]
     num_out = first.sum(-1).clamp(max=max_out).to(torch.int32)
-    out_valid = (torch.arange(max_out, device=coords.device)
-                 < num_out[..., None])
-    oD, oW = out_grid[0], out_grid[2]
-    oy = torch.div(out_keys, oW * oD, rounding_mode="floor")
-    ox = torch.div(out_keys, oD, rounding_mode="floor") % oW
-    oz = out_keys % oD
-    out_coords = torch.where(out_valid[..., None],
-                             torch.stack([oz, oy, ox], dim=-1),
-                             -1).to(torch.int32)
-    return StridedSites(out_coords, out_valid, num_out)
+    return _sites_from_keys(out_keys[..., :max_out], num_out, out_grid)
 
 
 def strided_tap_keys(sites: StridedSites,
@@ -413,6 +487,58 @@ def build_strided_layout_merge(coords: torch.Tensor, valid: torch.Tensor,
     T = q.shape[-2]
     in_keys = torch.where(valid, linearize(coords, grid_dhw), INT32_MAX)
     idx, hit = _merge_lookup(in_keys, q.flatten(-2))
+    return StridedSparseLayout(sites.out_coords, sites.out_valid,
+                               idx.unflatten(-1, (T, max_out)),
+                               hit.unflatten(-1, (T, max_out)),
+                               sites.num_out)
+
+
+def build_strided_layout(coords: torch.Tensor, valid: torch.Tensor,
+                         grid_dhw: Tuple[int, int, int],
+                         kernel_size: Tuple[int, int, int],
+                         stride: Tuple[int, int, int],
+                         padding: Tuple[int, int, int],
+                         max_out: int) -> StridedSparseLayout:
+    """The JAX package's binary-search builder: the sorted output sites,
+    each tap's input searched in the sorted input keys (the row at the
+    search position kept where it finds nothing).  The same search as
+    :func:`build_strided_layout_merge`."""
+    return build_strided_layout_merge(coords, valid, grid_dhw, kernel_size,
+                                      stride, padding, max_out)
+
+
+def build_strided_layout_lut(coords: torch.Tensor, valid: torch.Tensor,
+                             grid_dhw: Tuple[int, int, int],
+                             kernel_size: Tuple[int, int, int],
+                             stride: Tuple[int, int, int],
+                             padding: Tuple[int, int, int],
+                             max_out: int) -> StridedSparseLayout:
+    """The dense lookup-table builder, no sort: the candidate output cells
+    marked on the output grid, the p-th output the first cell where the
+    marks' cumsum reaches p + 1 (ascending, truncated at ``max_out``),
+    and each tap's input looked up in a table of the input grid.  The
+    same layout as :func:`build_strided_layout` where a tap finds its
+    input; ``gather_idx`` 0 elsewhere."""
+    cand, out_grid = _candidates(coords, valid, grid_dhw, kernel_size,
+                                 stride, padding)
+    out_cells = int(np.prod(out_grid))
+    lead = cand.shape[:-2]
+    mark = torch.zeros(lead + (out_cells + 1,), dtype=torch.int32,
+                       device=coords.device)
+    mark.scatter_(-1, cand.flatten(-2).clamp(max=out_cells).long(), 1)
+    mark[..., out_cells] = 0
+    csum = torch.cumsum(mark, dim=-1, dtype=torch.int32)
+    num_out = csum[..., -1].clamp(max=max_out)
+    want = torch.arange(1, max_out + 1, dtype=torch.int32,
+                        device=coords.device).expand(lead + (max_out,))
+    out_keys = torch.searchsorted(csum.contiguous(),
+                                  want.contiguous()).to(torch.int32)
+    sites = _sites_from_keys(out_keys, num_out.to(torch.int32), out_grid)
+    q = strided_tap_keys(sites, grid_dhw, kernel_size, stride, padding)
+    T = q.shape[-2]
+    in_keys = torch.where(valid, linearize(coords, grid_dhw), INT32_MAX)
+    idx, hit = _lut_lookup(in_keys, q.flatten(-2),
+                           int(np.prod(grid_dhw)))
     return StridedSparseLayout(sites.out_coords, sites.out_valid,
                                idx.unflatten(-1, (T, max_out)),
                                hit.unflatten(-1, (T, max_out)),
@@ -466,6 +592,60 @@ def strided_sparse_conv(features: torch.Tensor, layout: StridedSparseLayout,
     if bias is not None:
         out = out + bias
     out = torch.where(layout.out_valid[..., None], out, 0.0)
+    return out.to(features.dtype)
+
+
+def _tap_rows(features: torch.Tensor, gather_idx: torch.Tensor
+              ) -> torch.Tensor:
+    """features [..., N, C] at gather_idx [..., T, M] -> [..., T, M, C]."""
+    lead = features.shape[:-2]
+    T, M = gather_idx.shape[-2:]
+    idx = gather_idx.long().flatten(-2)
+    g = torch.gather(features, -2,
+                     idx[..., None].expand(*lead, T * M, features.shape[-1]))
+    return g.unflatten(-2, (T, M))
+
+
+def sparse_max_pool(features: torch.Tensor,
+                    layout: StridedSparseLayout) -> torch.Tensor:
+    """Sparse max-pool over a strided window layout: [..., N, C] ->
+    [..., M, C].  Each output site takes the max over its ACTIVE inputs
+    only (empty cells contribute nothing, not zero); a site with none, or
+    outside ``out_valid``, is 0."""
+    g = torch.where(layout.found[..., None], _tap_rows(features,
+                                                       layout.gather_idx),
+                    -torch.inf)
+    out = torch.amax(g, dim=-3)
+    any_found = layout.found.any(dim=-2) & layout.out_valid
+    return torch.where(any_found[..., None], out, 0.0).to(features.dtype)
+
+
+def inverse_sparse_conv(features: torch.Tensor, layout: StridedSparseLayout,
+                        weights: torch.Tensor, num_in: int,
+                        bias: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Inverse (transposed) sparse conv through a saved strided layout:
+    [..., M, Cd] at the downsampled sites -> [..., num_in, Cu] at the
+    original active sites.  Site i receives the sum over (tap t, site m)
+    with ``gather_idx[t, m] == i`` (found, m valid) of ``features[m] @
+    weights[t]``: the transpose of :func:`strided_sparse_conv`'s linear
+    map, per-tap products then one scatter-add (float32, float64 for
+    float64 features).  weights [T, Cd, Cu] in the layout's tap order."""
+    T, Cd, Cu = weights.shape
+    ct = torch.promote_types(features.dtype, torch.float32)
+    prod = torch.einsum("...mc,tcu->...tmu", features.to(ct),
+                        weights.to(ct))                       # [..,T,M,Cu]
+    mask = layout.found & layout.out_valid[..., None, :]
+    idx = torch.where(mask, layout.gather_idx.long(), num_in)
+    lead = features.shape[:-2]
+    out = torch.zeros(lead + (num_in + 1, Cu), dtype=ct,
+                      device=features.device)
+    out.scatter_add_(-2, idx.flatten(-2)[..., None].expand(
+        *lead, idx.shape[-2] * idx.shape[-1], Cu),
+        torch.where(mask[..., None], prod, 0.0).flatten(-3, -2))
+    out = out[..., :num_in, :]
+    if bias is not None:
+        out = out + bias
     return out.to(features.dtype)
 
 

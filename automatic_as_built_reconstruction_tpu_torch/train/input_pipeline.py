@@ -80,10 +80,6 @@ class BatchLoader:
                  prefetch: int = 4, drop_last: bool = True,
                  repeat: bool = True, buckets=None, bucket_plans=None,
                  process_workers: bool = False):
-        if bucket_plans:
-            raise NotImplementedError(
-                "bucket_plans (host rulebooks padded to a bucket's plan) "
-                "are not ported")
         self._ds = prep_dataset
         self._batch_size = batch_size
         self._shuffle = shuffle
@@ -96,14 +92,26 @@ class BatchLoader:
         # sorted voxel-capacity buckets, or None: full capacity
         self._buckets = (tuple(sorted(int(b) for b in buckets))
                          if buckets else None)
+        # {bucket: block plan} of examples whose host rulebooks were built
+        # at their own bucket (preprocess): _merge pads them to the batch
+        # bucket's plan
+        self._bucket_plans = bucket_plans
 
     def _merge(self, batch: list) -> dict:
         """Merge one batch, shrunk to the smallest bucket that holds its
-        densest member when buckets are set."""
-        if self._buckets:
+        densest member when buckets are set; host rulebooks (``rb*``) are
+        padded from their example's bucket up to the batch bucket's plan
+        (``pad_rulebooks_to_plan``) with ``bucket_plans``, and without
+        them the batch keeps its full capacity."""
+        has_rb = "rb0_subm_idx" in batch[0]
+        if self._buckets and (not has_rb or self._bucket_plans):
             bucket = batching.pick_bucket(
                 max(int(e["num_voxels"]) for e in batch), self._buckets)
             batch = [batching.shrink_to_bucket(e, bucket) for e in batch]
+            if has_rb:
+                plan = self._bucket_plans[bucket]
+                batch = [batching.pad_rulebooks_to_plan(e, plan)
+                         for e in batch]
         return batching.merge_batch(batch)
 
     def _index_stream(self) -> Iterator[tuple]:

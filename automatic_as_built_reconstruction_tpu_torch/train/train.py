@@ -109,13 +109,21 @@ class Bundle:
     def input_reader(self, training: bool, seed: int = 0):
         """-> (PrepDataset, BatchLoader) of the training or eval reader,
         with the host-built rulebooks of :meth:`middle_plan` in every
-        example where it gives a plan."""
+        example where it gives a plan (with ``static_shape_buckets``, each
+        bucket's plan from the model's capacity policy: its
+        ``sparse_capacity_shrink`` and the ``sparse_out_caps`` of the
+        plan's blocks)."""
+        plan = self.middle_plan(training)
+        out_caps = self.model_cfg.sparse_out_caps
+        if plan is not None and out_caps is not None:
+            out_caps = out_caps[:len(plan)] or None
         return input_reader_builder.build(
             self.config["train_input_reader" if training
                         else "eval_input_reader"], training,
             self.voxel_generator, self.target_assigner,
-            self.feature_map_size, seed=seed,
-            middle_plan=self.middle_plan(training))
+            self.feature_map_size, seed=seed, middle_plan=plan,
+            capacity_shrink=self.model_cfg.sparse_capacity_shrink,
+            out_caps=out_caps)
 
 
 @dataclasses.dataclass

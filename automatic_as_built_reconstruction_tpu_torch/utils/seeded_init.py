@@ -13,13 +13,13 @@ their anchors.  The same seed gives the same state on any device.
 
 The trainer starts where the JAX package's ``model.init`` starts, in
 distribution (not in values: the draws come from a ``torch.Generator``):
-lecun-normal kernels (a normal truncated at two standard deviations,
-scaled to variance 1 / fan_in), zero biases except the class head's
-focal prior, BatchNorm scale 1, bias 0, running mean 0, variance 1, and
-the sparse middle's kernels as ``models/middle.py::_sparse_kernel_init``
-draws them: a unit normal truncated at two standard deviations times
-sqrt(2 / (taps * Cin)).  The truncated normal is drawn by its inverse
-CDF, one uniform draw an element (``models/middle.py::trunc_normal``).
+lecun-normal kernels (a normal truncated at two standard deviations, scaled to
+variance 1 / fan_in), zero biases except the class head's focal prior and the
+yaw-quality head's 2.0, BatchNorm scale 1, bias 0, running mean 0, variance 1,
+and the sparse middle's kernels as ``models/middle.py::_sparse_kernel_init``
+draws them: a unit normal truncated at two standard deviations times sqrt(2 /
+(taps * Cin)). The truncated normal is drawn by its inverse CDF, one uniform
+draw an element (``models/middle.py::trunc_normal``).
 """
 from __future__ import annotations
 
@@ -39,6 +39,10 @@ CLS_LOGIT_BIAS = -2.0
 # the JAX package's RPN class-head bias init: -log((1 - pi) / pi) at
 # pi = 0.01, so a fresh head scores every anchor about 0.01
 FOCAL_PRIOR_BIAS = -4.59511985013459
+# the heads' bias inits: the class head's focal prior, and the yaw-quality
+# head's 2.0 (sigmoid ~0.88: a fresh head leaves the scores nearly as
+# they are)
+INIT_BIAS = {"conv_cls": FOCAL_PRIOR_BIAS, "conv_quality": 2.0}
 # flax's truncated_normal lecun init divides by the standard deviation of
 # a unit normal truncated to [-2, 2]
 TRUNC_NORMAL_STD = .87962566103423978
@@ -68,7 +72,8 @@ def seeded_state_dict(model: nn.Module, seed: int) -> Dict[str, torch.Tensor]:
             shape = tuple(mod.weight.shape)
             fan_in = SPARSE_TAP_DENSITY * np.prod(shape[:4])
             put(f"{base}weight", rng.normal(0, (2.0 / fan_in) ** 0.5, shape))
-        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                              nn.Linear)):
             shape = tuple(mod.weight.shape)
             if isinstance(mod, nn.ConvTranspose2d):
                 # kernel == stride: one tap per output pixel
@@ -116,7 +121,8 @@ def flax_init_state_dict(model: nn.Module,
             out[f"{base}running_var"] = torch.ones_like(mod.running_var)
             out[f"{base}num_batches_tracked"] = torch.zeros(
                 (), dtype=torch.long)
-        elif isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
+        elif isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                              nn.Linear)):
             shape = tuple(mod.weight.shape)
             # flax counts fan_in as the kernel's input channels times its
             # taps: torch's dim 1 for a Conv2d / Linear, dim 0 for a
@@ -128,8 +134,7 @@ def flax_init_state_dict(model: nn.Module,
             if mod.bias is not None:
                 head = mod_name.rsplit(".", 1)[-1]
                 out[f"{base}bias"] = torch.full(
-                    mod.bias.shape,
-                    FOCAL_PRIOR_BIAS if head == "conv_cls" else 0.0)
+                    mod.bias.shape, INIT_BIAS.get(head, 0.0))
     return out
 
 

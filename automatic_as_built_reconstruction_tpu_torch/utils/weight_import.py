@@ -6,8 +6,12 @@ nested dicts of arrays, as ``model.init`` returns them and as the repo's
 checkpoint pickles hold them) map to the lineage-named torch tensors the
 port's modules carry — the port's own copy of the mapping in the JAX
 package's ``utils/weight_import.py::to_torch_state_dict`` (:276), for the
-pillar VFE, the sparse middle and the RPN (``SimpleVoxel`` has no
-variables):
+pillar VFE, the VoxelNet VFEs (``vfe{i}`` from 1 and the trailing
+``linear`` / ``norm``), the sparse middle and the RPN (a fractional
+upsample's plain conv included; ``SimpleVoxel`` has no variables).  That
+mapping has no slot for ``DenseMiddle`` or the yaw-quality head's
+``conv_quality``, and neither has the port's; :func:`load_variables`
+carries them into the port's own names besides (:func:`port_only_state`):
 
 ==============================  =======================================
 flax                            torch
@@ -15,6 +19,8 @@ flax                            torch
 Conv ``(kh, kw, I, O)``         Conv2d ``(O, I, kh, kw)`` — transpose(3,2,0,1)
 ConvTranspose ``(kh, kw, I, O)``  ConvTranspose2d ``(I, O, kh, kw)`` —
                                 flip((0, 1)) then transpose(2,3,0,1)
+Conv ``(kd, kh, kw, I, O)``     Conv3d ``(O, I, kd, kh, kw)`` —
+                                transpose(4,3,0,1,2) (port-only)
 Dense ``(I, O)``                Linear ``(O, I)`` — ``.T``
 BatchNorm scale/bias + mean/var weight/bias + running_mean/running_var
 sparse conv ``(K, I, O)``       spconv 1.x ``(kz, ky, kx, I, O)`` — reshape
@@ -38,6 +44,8 @@ from typing import Any, Dict, List, Sequence
 import numpy as np
 import torch
 from torch import nn
+
+from ..models.middle import DenseMiddle
 
 
 # tap count -> (kz, ky, kx): every kernel the lineage middles use
@@ -72,20 +80,32 @@ def to_torch_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
         if with_bias:
             out[f"{base}.bias"] = np.asarray(p["bias"])
 
-    unknown = [k for k in params if not re.fullmatch(
-        r"(PillarFeatureNet|RPN|PointPillarsScatter|SparseMiddle)_\d+", k)]
+    unknown = [k for k in params if not re.fullmatch(_SCOPES, k)]
     if unknown:
-        raise NotImplementedError(
-            f"variables hold {unknown}: only the pillar VFE, the sparse "
-            f"middle and the RPN are ported")
+        raise ValueError(f"variables hold {unknown}: not a VoxelNet's")
+
+    def linear(base: str, p: Dict[str, Any]) -> None:
+        out[f"{base}.weight"] = np.asarray(p["kernel"]).T
+
     for scope in _children(params, r"PillarFeatureNet_\d+"):
         for i, layer in enumerate(_children(params[scope], r"PFNLayer_\d+")):
             base = f"voxel_feature_extractor.pfn_layers.{i}"
             p = params[scope][layer]
-            out[f"{base}.linear.weight"] = np.asarray(
-                p["Dense_0"]["kernel"]).T
+            linear(f"{base}.linear", p["Dense_0"])
             bn(f"{base}.norm", p["BatchNorm_0"],
                stats[scope][layer]["BatchNorm_0"])
+    for scope in _children(params, r"VoxelFeatureExtractor(V2)?_\d+"):
+        vp, vs = params[scope], stats[scope]
+        for i, layer in enumerate(_children(vp, r"VFELayer_\d+")):
+            base = f"voxel_feature_extractor.vfe{i + 1}"
+            linear(f"{base}.linear", vp[layer]["Dense_0"])
+            bn(f"{base}.norm", vp[layer]["BatchNorm_0"],
+               vs[layer]["BatchNorm_0"])
+        if "Dense_0" in vp:               # the trailing Linear + BN
+            linear("voxel_feature_extractor.linear", vp["Dense_0"])
+        if "BatchNorm_0" in vp:
+            bn("voxel_feature_extractor.norm", vp["BatchNorm_0"],
+               vs["BatchNorm_0"])
     for scope in _children(params, r"SparseMiddle_\d+"):
         # lineage Sequential, block by block, submanifold convs before the
         # strided one: conv n at index 3n, its BN at 3n + 1
@@ -112,25 +132,63 @@ def to_torch_state_dict(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
                 bn(f"rpn.blocks.{i}.{j + 1}", rp[blk][f"BatchNorm_{n}"],
                    rs[blk][f"BatchNorm_{n}"])
         for i, up in enumerate(_children(rp, r"Upsample_\d+")):
-            w = np.asarray(rp[up]["ConvTranspose_0"]["kernel"])
-            out[f"rpn.deblocks.{i}.0.weight"] = np.flip(
-                w, (0, 1)).transpose(2, 3, 0, 1)
+            if "ConvTranspose_0" in rp[up]:
+                w = np.asarray(rp[up]["ConvTranspose_0"]["kernel"])
+                out[f"rpn.deblocks.{i}.0.weight"] = np.flip(
+                    w, (0, 1)).transpose(2, 3, 0, 1)
+            else:                         # fractional stride: a plain conv
+                conv(f"rpn.deblocks.{i}.0", rp[up]["Conv_0"])
             bn(f"rpn.deblocks.{i}.1", rp[up]["BatchNorm_0"],
                rs[up]["BatchNorm_0"])
         for head in ("conv_cls", "conv_box", "conv_dir_cls"):
-            conv(f"rpn.{head}", rp[head], with_bias=True)
-        if "conv_quality" in rp:
-            raise NotImplementedError("the yaw-quality head is not ported")
+            if head in rp:
+                conv(f"rpn.{head}", rp[head], with_bias=True)
+    return out
+
+
+_SCOPES = (r"(PillarFeatureNet|VoxelFeatureExtractor|VoxelFeatureExtractorV2"
+           r"|SimpleVoxel|SimpleVoxelRadius|RPN|PointPillarsScatter"
+           r"|SparseMiddle|DenseMiddle)_\d+")
+
+
+def port_only_state(variables: Dict[str, Any]) -> Dict[str, np.ndarray]:
+    """The variables the lineage mapping has no slot for, under the port's
+    own names: ``DenseMiddle``'s convolutions (flax ``Conv_i``
+    ``(kd, kh, kw, I, O)`` -> ``middle_feature_extractor.middle_conv.{3i}``
+    ``(O, I, kd, kh, kw)``) and BatchNorms (``BatchNorm_i`` ->
+    ``middle_conv.{3i + 1}``), and the RPN's ``conv_quality``."""
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    out: Dict[str, np.ndarray] = {}
+    for scope in _children(params, r"DenseMiddle_\d+"):
+        base = "middle_feature_extractor.middle_conv"
+        for i, c in enumerate(_children(params[scope], r"Conv_\d+")):
+            out[f"{base}.{3 * i}.weight"] = np.asarray(
+                params[scope][c]["kernel"]).transpose(4, 3, 0, 1, 2)
+            p = params[scope][f"BatchNorm_{i}"]
+            st = stats[scope][f"BatchNorm_{i}"]
+            out[f"{base}.{3 * i + 1}.weight"] = np.asarray(p["scale"])
+            out[f"{base}.{3 * i + 1}.bias"] = np.asarray(p["bias"])
+            out[f"{base}.{3 * i + 1}.running_mean"] = np.asarray(st["mean"])
+            out[f"{base}.{3 * i + 1}.running_var"] = np.asarray(st["var"])
+    for scope in _children(params, r"RPN_\d+"):
+        if "conv_quality" in params[scope]:
+            p = params[scope]["conv_quality"]
+            out["rpn.conv_quality.weight"] = np.asarray(
+                p["kernel"]).transpose(3, 2, 0, 1)
+            out["rpn.conv_quality.bias"] = np.asarray(p["bias"])
     return out
 
 
 def load_variables(model: nn.Module, variables: Dict[str, Any]) -> None:
-    """Load JAX-package variables into ``model`` with ``strict=True``.
+    """Load JAX-package variables into ``model`` with ``strict=True``: the
+    lineage mapping and :func:`port_only_state`.
 
     BatchNorm's ``num_batches_tracked`` counters (torch-only, unused in
     eval) are set to 0."""
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-          for k, v in to_torch_state_dict(variables).items()}
+          for k, v in {**to_torch_state_dict(variables),
+                       **port_only_state(variables)}.items()}
     for name, mod in model.named_modules():
         if isinstance(mod, nn.modules.batchnorm._BatchNorm):
             sd[f"{name}.num_batches_tracked"] = torch.zeros(
@@ -180,17 +238,22 @@ def from_torch_state_dict(state_dict: Dict[str, Any], model: nn.Module,
     the head biases), as the JAX package's ``_build_spec`` (:102) fixes
     them; BatchNorm's ``num_batches_tracked`` counters keep the model's
     values, and extra keys (lineage-only counters, keys of no slot) are
-    ignored.  Each converted shape is checked against the module's
-    tensor (``ValueError`` naming the key).  ``strict``: raise
-    ``KeyError`` on missing keys, naming the first four and the first four
-    unmatched torch keys; ``strict=False`` keeps the model's values for
-    them.
+    ignored.  The tensors the JAX mapping has no slot for (a
+    ``DenseMiddle``'s, ``conv_quality``'s) keep the model's values, as
+    the JAX import keeps the variables' there.  Each converted shape is
+    checked against the module's tensor (``ValueError`` naming the key).
+    ``strict``: raise ``KeyError`` on missing keys, naming the first four
+    and the first four unmatched torch keys; ``strict=False`` keeps the
+    model's values for them.
     """
     sd = {k: _to_np(v) for k, v in state_dict.items()}
     new = model.state_dict()
+    no_slot = tuple(f"{name}." for name, mod in model.named_modules()
+                    if isinstance(mod, DenseMiddle)
+                    or name.endswith("rpn.conv_quality"))
     used, missing = set(), []
     for key, cur in new.items():
-        if key.endswith(".num_batches_tracked"):
+        if key.endswith(".num_batches_tracked") or key.startswith(no_slot):
             continue
         if key not in sd:
             missing.append(key)

@@ -164,15 +164,26 @@
    recorded) and evaluates, and car.fhd.serving.config with the flag
    serves four B = 2 requests, heads held against the plain joins with
    the taps-reversed control;
+6e'. voxelnet, on the car clone: car.voxelnet.config (the VoxelNet
+   paper's VFE and the dense middle on K1's D x H x W canvas, its
+   gradient K1's gather) trains VOXELNET_STEPS steps at B = 2 through
+   ``train()`` (counters set to 0 just before and read just after: K1
+   and its gather once a step; the loss falls), its device step timed
+   with cuDNN's deterministic algorithms and without, in turns, with the
+   peak memory; serves four B = 2 validation requests (K1 and K2 each;
+   the first request's heads and detections held to the port's CPU run)
+   and one request of VOXELNET_VARIANT (nearest NMS, the yaw-quality
+   head, softmax scores: K1 only), held the same way;
 6f. multi_device: data parallelism over two ranks that share the card
    (``devices=["cuda:0", "cuda:0"]``, gloo; the ranks are child
    processes, and a rank's exception or a collective's timeout fails the
    phase): one spawn of ranks (``parallel/launch.py``) for (b) one
-   car.fhd step at B = 6 (three scans a rank) against the one-process
-   step (the loss, the middle's running statistics, the gradients within
-   CONTROL_MARGIN x the distance of the same step on the batch's rows
-   reordered; the one-process step's gradients the same bits when
-   computed again), (c) ``evaluate(num_devices=2)`` over the 32 val scenes
+   car.fhd step at B = 6 (three scans a rank; the first batch of the sequential
+   loader, seed 0, so that it is the same batch every run) against the
+   one-process step (the loss, the middle's running statistics, the gradients
+   within CONTROL_MARGIN x the distance of the same step on the batch's rows
+   reordered; the one-process step's gradients the same bits when computed
+   again), (c) ``evaluate(num_devices=2)`` over the 32 val scenes
    (detections equal one device's as sets, each AP within DP_AP_ATOL),
    (d) sharded serving of the pillar and car.fhd.serving requests (equal
    to the unsharded pods), (e) ``make_sharded_mean_canvas`` of a 2 M-point
@@ -235,8 +246,10 @@
    ``pillar_scatter@kitti``, at the KITTI request's shape with the KITTI
    paths' launches, and ``pillar_scatter@bf16`` on bfloat16 rows with
    the bf16 pillar paths' launches and its KITTI-shape numbers under
-   ``kitti``; the sparse GEMMs' entries carry those of the joins' shared
-   backward; ``gather_gemm_bf16`` and ``keymatch_gemm_bf16`` are the two
+   ``kitti``, and ``pillar_scatter@voxelnet`` at the dense VoxelNet
+   canvas's shape (the rows route) with its gather and the voxelnet
+   paths' launches; the sparse GEMMs' entries carry those of the joins'
+   shared backward; ``gather_gemm_bf16`` and ``keymatch_gemm_bf16`` are the two
    joins' bfloat16 forms), the card's name and power limit as
    ``nvidia-smi`` reports them, and last ``{"ok": true, "device": ...}``.
 
@@ -301,7 +314,7 @@ from automatic_as_built_reconstruction_tpu_torch.train import (
     checkpoint as ckpt_mod, train as train_mod)
 from automatic_as_built_reconstruction_tpu_torch.train.train import evaluate
 from automatic_as_built_reconstruction_tpu_torch.utils.seeded_init import (
-    load_flax_init)
+    load_flax_init, load_seeded)
 
 ROOT = Path(__file__).resolve().parent
 CONFIG = (ROOT / "automatic_as_built_reconstruction_tpu_torch" / "configs"
@@ -510,6 +523,23 @@ HOST_RB_STEPS, HOST_RB_DISPLAY = 20, 5
 MIXED_PILLAR_STEPS = 30
 BF16_GEMM_RTOL = 1e-4
 CONTROL_MARGIN = 1.5
+# the VoxelNet family (car.voxelnet.config at full width: 352 x 400 x 10
+# voxels of 35 points, the paper's VFE, DenseMiddle on K1's dense canvas,
+# 70 400 anchors) on the car clone of the KITTI phases: VOXELNET_STEPS
+# steps of train() at B = VOXELNET_B in VOXELNET_DISPLAY-step windows, its
+# device step with cuDNN's deterministic algorithms and without, in
+# turns; VOXELNET_REQUESTS requests of B = VOXELNET_B validation frames
+# served from weights drawn from VOXELNET_SEED, the first held to the
+# port's CPU run; one request of VOXELNET_VARIANT (nearest NMS, the
+# yaw-quality head, softmax scores), held the same way
+VOXELNET_CONFIG = (ROOT / "automatic_as_built_reconstruction_tpu_torch"
+                   / "configs" / "second" / "car" / "car.voxelnet.config")
+VOXELNET_B, VOXELNET_STEPS, VOXELNET_DISPLAY = 2, 12, 4
+VOXELNET_REQUESTS, VOXELNET_SEED = 4, 0
+VOXELNET_MAX_VOXELS, VOXELNET_MAX_POINTS = 20000, 35
+VOXELNET_VARIANT = dict(use_rotate_nms=False, use_yaw_quality_head=True,
+                        encode_background_as_zeros=False)
+VOXELNET_STEP_TURNS = 3
 # data parallelism (the multi_device phase): DP_RANKS ranks time-share the
 # one card over gloo (NCCL refuses two ranks on one device).  Pillar
 # training: one step of train(num_devices=2) against train(), parameters
@@ -3764,6 +3794,19 @@ def capacity_histogram(model_dir: Path) -> dict:
             if k not in ("step", "prefix")}
 
 
+def sequential_batches(config: Path, n: int, seed: int = 0) -> list:
+    """The first ``n`` batches of ``config``'s training reader as its
+    sequential loader draws them (one thread, stream order, a fresh
+    reader of ``seed``): the same batches, the gt-database sampler's
+    draws included, on every run."""
+    prep_ds, loader = train_mod.Bundle(config).input_reader(training=True,
+                                                            seed=seed)
+    B = loader._batch_size
+    stream = loader._index_stream()
+    return [batching.merge_batch([prep_ds.example(*next(stream))
+                                  for _ in range(B)]) for _ in range(n)]
+
+
 def kitti_requests(root: Path, n_requests: int, B: int) -> list:
     """``n_requests`` requests of B validation frames of the clone (the
     r-th from frame r on, cyclically), each frame padded to the largest
@@ -4943,13 +4986,15 @@ def kitti_phases(card: str, fp32_pod) -> dict:
     train; then the host-rulebook and bfloat16 SECOND configs
     (:func:`host_rulebook_phases`; ``fp32_pod``: car.fhd's float32
     serving pod, for the RPN's share beside bfloat16's) and bfloat16
-    key-match SECOND on the car clone (:func:`mixed_keymatch`).  ->
-    {"serve", "pp", "pp_all", "all_fhd", "host", "mixed_km"}."""
+    key-match SECOND on the car clone (:func:`mixed_keymatch`); the
+    VoxelNet family on the car clone (:func:`voxelnet`).  ->
+    {"serve", "pp", "pp_all", "all_fhd", "host", "mixed_km", "voxelnet"}."""
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         car, mc = tmp / "kitti", tmp / "kitti_mc"
         pp = train_pp_kitti(card, tmp, car)
         serve = serve_pp_kitti(card, car)
+        vx = voxelnet(card, tmp, car)
         write_clone(mc, True, "multi-class KITTI", card)
         (tmp / "all").mkdir()
         pp_all = train_pp_all(card, tmp / "all", mc)
@@ -4958,7 +5003,7 @@ def kitti_phases(card: str, fp32_pod) -> dict:
         (tmp / "keymatch_bf16").mkdir()
         mixed_km = mixed_keymatch(card, tmp / "keymatch_bf16", car)
     return {"serve": serve, "pp": pp, "pp_all": pp_all, "all_fhd": all_fhd,
-            "host": host, "mixed_km": mixed_km}
+            "host": host, "mixed_km": mixed_km, "voxelnet": vx}
 
 
 def time_entries(phases, per_path, card: str) -> list:
@@ -5003,7 +5048,7 @@ def kitti_launches(kitti: dict) -> dict:
             **kitti["all_fhd"]["launches"],
             **{path: n for phase in kitti["host"].values()
                for path, n in phase["launches"].items()},
-            **kitti["mixed_km"]["launches"]}
+            **kitti["mixed_km"]["launches"], **kitti["voxelnet"]["launches"]}
 
 
 def profile_kitti(kitti: dict, card: str) -> None:
@@ -5031,6 +5076,214 @@ def profile_kitti(kitti: dict, card: str) -> None:
     profile_call("bf16 key-match serving (car.fhd.serving)",
                  functools.partial(km["pod"], *km["requests"][2]), card,
                  km["report"]["latency_ms"])
+    vx = kitti["voxelnet"]
+    profile_call("voxelnet serving (car.voxelnet, B=2)",
+                 functools.partial(vx["pod"], *vx["requests"][2]), card,
+                 float(np.median(vx["latency_ms"])))
+
+
+# --------------------------------------------------------------------------
+# the VoxelNet family: the paper's VFE and the dense middle on K1
+# --------------------------------------------------------------------------
+
+def voxelnet_config(tmp: Path, root: Path) -> Path:
+    """car.voxelnet.config on the clone at ``root``, both readers at B =
+    VOXELNET_B; nothing else changes."""
+    path = kitti_config(VOXELNET_CONFIG, tmp, root)
+    text = path.read_text()
+    if text.count("batch_size: 6") != 2:
+        raise AssertionError("car.voxelnet.config: want two readers at B = 6")
+    path.write_text(text.replace("batch_size: 6",
+                                 f"batch_size: {VOXELNET_B}"))
+    return path
+
+
+def voxelnet_pod(config: Path, device: str, **variant) -> PodInference:
+    """car.voxelnet.config (with ``variant``'s fields) at full width for
+    serving, hard voxelization, weights drawn from VOXELNET_SEED."""
+    model, cfg, anchors = build_from_config(config)
+    if variant:
+        cfg = dataclasses.replace(cfg, **variant)
+        model = VoxelNet(cfg)
+    load_seeded(model, VOXELNET_SEED)
+    return PodInference(model, cfg, anchors, device=device,
+                        max_voxels=VOXELNET_MAX_VOXELS,
+                        max_points_per_voxel=VOXELNET_MAX_POINTS)
+
+
+def hold_to_cpu(what: str, pod, request, out: dict, card: str) -> dict:
+    """The card's heads and detections of ``request`` against the port's
+    CPU run of the same weights (the plain versions, oneDNN): heads within
+    HEAD_TOL, detections equal as sets.  -> the heads' max abs diff."""
+    t0 = time.perf_counter()
+    cpu_model = VoxelNet(pod.cfg)
+    cpu_model.load_state_dict(pod.model.state_dict(), strict=True)
+    cpu = PodInference(cpu_model, pod.cfg, pod.anchors.cpu().numpy(),
+                       device="cpu", max_voxels=pod.max_voxels,
+                       max_points_per_voxel=pod.max_points_per_voxel)
+    heads_cpu = head_outputs(cpu, request)
+    err, bad = heads_mismatch(head_outputs(pod, request), heads_cpu)
+    if bad is not None:
+        raise AssertionError(f"{what}: GPU vs CPU head {bad} differs: {err}")
+    diff = detections_mismatch(out, cpu(*request), pod.cfg.num_class,
+                               BOX_ATOL, SCORE_ATOL)
+    if diff is not None:
+        raise AssertionError(f"{what}, GPU vs CPU: {diff}")
+    scores = {k: [round(float(q), 4) for q in torch.quantile(
+        torch.sigmoid(v.flatten()[:1 << 20]), torch.tensor([0.5, 0.99, 1.0]))]
+        for k, v in heads_cpu.items() if k == "cls_preds"}
+    log(f"{what} [{card}]: heads within {HEAD_TOL} of the port's CPU run "
+        f"(max abs diff {err}), {int(out['valid'].sum())} detections equal "
+        f"as sets (boxes atol {BOX_ATOL}, scores atol {SCORE_ATOL}); class "
+        f"logits' sigmoid at the 50/99/100th percentile {scores}; CPU run "
+        f"{time.perf_counter() - t0:.1f} s")
+    return err
+
+
+def voxelnet(card: str, tmp: Path, root: Path) -> dict:
+    """The voxelnet phase on the car clone at ``root``: train() of
+    car.voxelnet.config (every counter set to 0 just before and read just
+    after: K1 and its gather once a step), the loss falls; its device step
+    with and without cuDNN's deterministic algorithms, in turns, and its
+    peak memory; four B = 2 requests served (K1 and K2 each), the first
+    held to the CPU run; one request of VOXELNET_VARIANT (K1 only: nearest
+    NMS) held the same way; the dense K1's kernels-line entry.  ->
+    {"launches", "report", "entry": (entry, fns, ev), "step"}."""
+    what = "voxelnet"
+    t_phase = time.perf_counter()
+    config = voxelnet_config(tmp, root)
+    model_dir = tmp / "voxelnet"
+    report = {}
+    with torch.enable_grad():
+        zero_counts()
+        t0 = time.perf_counter()
+        with flags_in_modules() as seen:
+            state = train_mod.train(config, model_dir,
+                                    max_steps=VOXELNET_STEPS,
+                                    display_step=VOXELNET_DISPLAY,
+                                    device="cuda")
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train_launches = launch_counts()
+        expect_launches(f"{what} training", train_launches,
+                        {"pillar_scatter": VOXELNET_STEPS,
+                         "pillar_gather": VOXELNET_STEPS})
+        if seen != {(False, False)} or state.step != VOXELNET_STEPS:
+            raise AssertionError(f"{what} training: {state.step} steps, TF32 "
+                                 f"flags {sorted(seen)}")
+        log(f"{what} training [{card}]: {VOXELNET_STEPS} steps of train() "
+            f"(B = {VOXELNET_B}, SGD with momentum, the sampler) in "
+            f"{wall:.2f} s wall; launches {train_launches}")
+        windows = training_windows(model_dir, f"{what} training", card)
+
+        # the device step, deterministic (the trainer's) and cuDNN's
+        # default algorithms, in turns; peak memory of the first
+        bundle = train_mod.Bundle(config)
+        prep_ds, loader = bundle.input_reader(training=True, seed=1)
+        stream = loader._index_stream()
+        batch = batching.merge_batch([prep_ds.example(*next(stream))
+                                      for _ in range(VOXELNET_B)])
+        example = train_mod.to_device(batch, "cuda")
+        step_fn = train_mod.make_train_step(bundle)
+        st = train_mod.init_state(bundle, rng_seed=0,
+                                  total_steps=VOXELNET_STEPS, device="cuda")
+        gather_calls = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        with recording(pillar_scatter, "pillar_gather", gather_calls):
+            step_fn(st, example)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+
+        def default_algorithms():
+            with substituted(train_mod, "fp32_math",
+                             lambda deterministic=False: fp32_math()):
+                step_fn(st, example)
+
+        turns = take_turns({"deterministic": lambda: step_fn(st, example),
+                            "default": default_algorithms},
+                           turns=VOXELNET_STEP_TURNS)
+        report.update(steps=VOXELNET_STEPS, wall_s=wall,
+                      loss_windows=[w["loss"] for w in windows],
+                      voxels=int(batch["voxels"].shape[1]),
+                      device_step_ms=turns["deterministic"],
+                      device_step_default_ms=turns["default"],
+                      peak_bytes=peak, step_peak_bytes=peak - held)
+        log(f"{what} training [{card}]: device step (B = {VOXELNET_B}, "
+            f"V = {batch['voxels'].shape[1]}, {int(batch['num_voxels'].sum())}"
+            f" voxels; in turns, {VOXELNET_STEP_TURNS} of each, ms "
+            f"median/min/max) with cuDNN's deterministic algorithms "
+            f"{fmt_range(turns['deterministic'])}, with its default ones "
+            f"{fmt_range(turns['default'])}; peak memory during a step "
+            f"{peak / 2 ** 30:.2f} GiB, of which the step's own (above the "
+            f"{held / 2 ** 30:.2f} GiB the process held before it) "
+            f"{(peak - held) / 2 ** 30:.2f} GiB")
+        step = functools.partial(step_fn, st, example)
+
+    # serving: four B = 2 requests, K1 and K2 each
+    pod = voxelnet_pod(config, "cuda")
+    requests = kitti_requests(root, VOXELNET_REQUESTS, VOXELNET_B)
+    k1_calls = []
+    with recording(middle, "scatter_sorted_to_canvas", k1_calls):
+        pod(*requests[0])
+    torch.cuda.synchronize()
+    outs, lat, serve_launches, _ = drive(
+        f"{what} serving", card, pod, requests, 1,
+        {"pillar_scatter": VOXELNET_REQUESTS, "rotated_iou": None})
+    check_outputs(f"{what} serving", outs, pod)
+    report.update(latency_ms=lat,
+                  detections=[o["valid"].sum(-1).tolist() for o in outs])
+    report["head_err"] = hold_to_cpu(f"{what} serving, request 0", pod,
+                                     requests[0], outs[0], card)
+    check_network_flags(f"{what} serving", pod, requests[0])
+
+    # the variant: nearest NMS, the yaw-quality head, softmax scores
+    vpod = voxelnet_pod(config, "cuda", **VOXELNET_VARIANT)
+    vpod(*requests[1])
+    torch.cuda.synchronize()
+    zero_counts()
+    vout = vpod(*requests[1])
+    variant_launches = launch_counts()
+    expect_launches(f"{what} variant", variant_launches,
+                    {"pillar_scatter": 1})
+    check_outputs(f"{what} variant", [vout], vpod)
+    heads = head_outputs(vpod, requests[1])
+    if set(heads) != {"box_preds", "cls_preds", "dir_cls_preds",
+                      "quality_preds"}:
+        raise AssertionError(f"{what} variant: heads {sorted(heads)}")
+    report["variant_head_err"] = hold_to_cpu(
+        f"{what} variant {VOXELNET_VARIANT}", vpod, requests[1], vout, card)
+    del vpod
+
+    (feats, lin, hw), _ = k1_calls[0]
+    B, V, C = feats.shape
+    D, H, W = pod.model.middle_feature_extractor.grid_dhw
+    if hw != D * H * W or pillar_scatter.scatter_plan(
+            B, V, hw, C * 4 // 16, pillar_scatter.sm_count(
+                feats.device)).route != "rows":
+        raise AssertionError(f"{what}: K1 at hw = {hw}, not the rows route "
+                             f"of the {D} x {H} x {W} canvas")
+    launches = {"voxelnet training": train_launches,
+                "voxelnet serving": serve_launches,
+                "voxelnet variant": variant_launches}
+    entry, fns, ev = k1_forward(k1_calls[0], card, "dense VoxelNet canvas")
+    fields, bfns, bev = k1_backward(gather_calls[0], card,
+                                    "dense VoxelNet training")
+    fns.update(bfns)
+    ev.update(bev)
+    entry.update(fields, name="pillar_scatter@voxelnet",
+                 counter="pillar_scatter", paths=list(launches),
+                 launches=sum(n["pillar_scatter"] for n in launches.values()),
+                 backward_launches=sum(n["pillar_gather"]
+                                       for n in launches.values()))
+    report["phase_s"] = time.perf_counter() - t_phase
+    log(f"{what} [{card}]: phase in {report['phase_s']:.1f} s; " +
+        json.dumps({k: v for k, v in report.items()
+                    if k not in ("loss_windows",)}))
+    return {"launches": launches, "report": report,
+            "entry": (entry, fns, ev), "step": step,
+            "pod": pod, "requests": requests, "latency_ms": lat}
 
 
 # --------------------------------------------------------------------------
@@ -5543,9 +5796,11 @@ def multi_device(card: str, pod, requests, second: dict, ev_ref: dict,
         root = tmp / "kitti"
         write_clone(root, False, "multi_device", card)
         config = kitti_config(SECOND_TRAIN_CONFIG, tmp, root)
-        bundle = train_mod.Bundle(config)
-        _, loader = bundle.input_reader(training=True, seed=0)
-        second_batch = batching.device_example(next(iter(loader)))
+        # the first batch of the sequential loader (seed 0): the same
+        # batch, sampler draws included, run after run (the threaded
+        # loader's sampler draws in thread-timing order)
+        second_batch = batching.device_example(
+            sequential_batches(config, 1)[0])
         # the first batch of train() (seed 0)
         pbundle = train_mod.Bundle(CONFIG)
         _, ploader = pbundle.input_reader(training=True, seed=0)
@@ -5670,6 +5925,10 @@ def main() -> int:
                  for name in KERNELS}
         log(f"launches by path: {json.dumps(per_path)}; summed {total}")
         check_flat_pfn(pod, requests[0], card)
+        # K1 at the KITTI pillar shape: the KITTI paths but VoxelNet's,
+        # whose K1 runs at the dense canvas's shape (its own entry)
+        pillar_kitti = {p: n for p, n in kitti_launches(kitti).items()
+                        if p not in kitti["voxelnet"]["launches"]}
         k5 = phase_k5(second["fm_calls"]["voxel_mean"][0],
                       second["requests"], requests[0], pod.cfg,
                       second["pod"].cfg, total, card)
@@ -5677,7 +5936,7 @@ def main() -> int:
                            total["pillar_scatter"], total["pillar_gather"],
                            card),
                   phase_k1_kitti(kitti["serve"]["calls"]["pillar_scatter"][0],
-                                 kitti_launches(kitti), card),
+                                 pillar_kitti, card),
                   phase_k2(k2_call, second["km_calls"]["rotated_iou"][0],
                            total["rotated_iou"], card),
                   phase_sparse_gemm("keymatch_gemm",
@@ -5697,7 +5956,8 @@ def main() -> int:
                   phase_sparse_gemm("keymatch_gemm_bf16",
                                     kitti["mixed_km"]["calls"],
                                     total["keymatch_gemm_bf16"], card,
-                                    kitti["mixed_km"]["step_calls"])]
+                                    kitti["mixed_km"]["step_calls"]),
+                  kitti["voxelnet"]["entry"]]
         # the joins' backward, shared by the two families: its numbers go
         # into both entries
         bw_fields, bw_fns, bw_ev = phase_join_backward(
@@ -5723,6 +5983,7 @@ def main() -> int:
                         if e["name"] in ("pillar_scatter",
                                          "pillar_scatter@kitti",
                                          "pillar_scatter@bf16",
+                                         "pillar_scatter@voxelnet",
                                          "voxel_mean")]
         floors = launch_floor(empty_kernel, card, {
             e["name"]: e["grid"] for e in launch_bound})

@@ -342,11 +342,26 @@ def test_prep_pointcloud_inference_branch_equals_reference(variant):
     for k in rb:
         assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape
         np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
-    with pytest.raises(NotImplementedError):    # rulebooks at a bucket's plan
-        preprocess.prep_pointcloud(sensor, bundle.voxel_generator,
-                                   bundle.target_assigner,
-                                   preprocess.PrepConfig(**kw), training=True,
-                                   middle_plan_buckets={6000: plans[1]})
+    # with static_shape_buckets: the rulebooks of the example's own
+    # bucket's plan, the reference's bit for bit
+    bplans = [{b: m.make_plan((gz, gy, gx), b, (8, 16), (1, 1), (2, 2),
+                              (1, 2)) for b in (1500, 6000)}
+              for m in (jax_sparse_conv, sparse_conv)]
+    ref = jax_preprocess.prep_pointcloud(
+        sensor, jvg, jta, jax_preprocess.PrepConfig(**kw), training=False,
+        rng=np.random.default_rng(5), feature_map_size=fmap,
+        middle_plan_buckets=bplans[0])
+    got = preprocess.prep_pointcloud(
+        sensor, bundle.voxel_generator, bundle.target_assigner,
+        preprocess.PrepConfig(**kw), training=False,
+        rng=np.random.default_rng(5),
+        feature_map_size=bundle.feature_map_size,
+        middle_plan_buckets=bplans[1])
+    for k in rb:
+        assert got[k].dtype == ref[k].dtype and got[k].shape == ref[k].shape
+        np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+    bucket = 1500 if int(got["num_voxels"]) <= 1500 else 6000
+    assert got["rb0_subm_idx"].shape[-1] == bplans[1][bucket][0].in_cap
 
 
 def test_input_reader_matches_reference_batches():
@@ -392,12 +407,19 @@ def test_input_reader_matches_reference_batches():
     for k in rb:
         assert tb[k].dtype == jb[k].dtype
         np.testing.assert_array_equal(tb[k], jb[k], err_msg=k)
-    with pytest.raises(NotImplementedError):    # rulebooks with buckets
-        input_reader_builder.build(
-            {"dataset": {"dataset_class_name": "BuildingDataset"},
-             "preprocess": {"static_shape_buckets": [100]}}, True,
-            tbundle.voxel_generator, tbundle.target_assigner,
-            tbundle.feature_map_size, middle_plan=plans[1])
+    # rulebooks with buckets: a plan for each bucket (the full capacity
+    # added), the block plans of the reference's builder
+    _, loader = input_reader_builder.build(
+        {"dataset": {"dataset_class_name": "BuildingDataset"},
+         "preprocess": {"static_shape_buckets": [100]}}, True,
+        tbundle.voxel_generator, tbundle.target_assigner,
+        tbundle.feature_map_size, middle_plan=plans[1])
+    assert sorted(loader._bucket_plans) == list(loader._buckets)
+    assert loader._buckets == (100, 12000)
+    grid, specs = jax_sparse_conv.respec(plans[0])
+    for b, plan in loader._bucket_plans.items():
+        assert plan == tuple(sparse_conv.BlockPlan(*blk) for blk in
+                             jax_sparse_conv.plan_from_specs(grid, b, specs))
 
 
 @pytest.mark.parametrize("pool", [dict(num_workers=3),

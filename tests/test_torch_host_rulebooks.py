@@ -46,8 +46,6 @@ from automatic_as_built_reconstruction_tpu.train import train as jax_train
 from automatic_as_built_reconstruction_tpu.utils import (
     weight_import as jax_weight_import)
 from automatic_as_built_reconstruction_tpu_torch import cli
-from automatic_as_built_reconstruction_tpu_torch.builder import (
-    input_reader_builder)
 from automatic_as_built_reconstruction_tpu_torch.data import (
     batching, synth_kitti)
 from automatic_as_built_reconstruction_tpu_torch.models import (
@@ -307,17 +305,52 @@ def test_pools_carry_rulebooks_unchanged(pool, lite_cfg):
     assert "rb3_down_found" in dev and "metadata" not in dev
 
 
-def test_buckets_with_host_rulebooks_are_refused(lite_cfg):
-    """Host rulebooks at each bucket's plan are not ported."""
-    bundle = train.Bundle(lite_cfg)
-    plan = bundle.middle_plan(True)
-    cfg = dict(bundle.config["train_input_reader"])
-    cfg["preprocess"] = {**cfg["preprocess"],
-                         "static_shape_buckets": [1000, 2000]}
-    with pytest.raises(NotImplementedError, match="static_shape_buckets"):
-        input_reader_builder.build(cfg, True, bundle.voxel_generator,
-                                   bundle.target_assigner,
-                                   bundle.feature_map_size, middle_plan=plan)
+def test_buckets_with_host_rulebooks_are_refused(lite_cfg, tmp_path):
+    """Host rulebooks with ``static_shape_buckets`` were refused until the
+    port had them: now the training reader of car.lite's micro twin with
+    buckets builds each example's rulebooks at its own bucket's plan and
+    pads them to its batch's bucket, and its first two batches (the
+    sequential loader, stream order) equal the JAX package's, ``rb*``
+    included, key for key."""
+    text = lite_cfg.read_text()
+    old = "anchor_area_threshold: -1.0"
+    assert old in text
+    path = tmp_path / "lite.buckets.config"
+    text = text.replace(old, old + "\n    static_shape_buckets: [4000, 8000]",
+                        1)
+    # room above the scans' voxel counts (3000 saturates every one)
+    path.write_text(text.replace("max_number_of_voxels: 3000",
+                                 "max_number_of_voxels: 12000"))
+    bundle, jbundle = train.Bundle(path), jax_train.Bundle(path)
+    tds, tloader = bundle.input_reader(training=True)
+    jds, jloader = jbundle.input_reader(training=True)
+    assert tloader._buckets == jloader._buckets == (4000, 8000, 12000)
+    stream, jstream = tloader._index_stream(), jloader._index_stream()
+
+    class Queue(list):
+        put = list.append
+
+    caps = []
+    for _ in range(2):
+        keys = [next(stream) for _ in range(2)]
+        assert [next(jstream) for _ in range(2)] == keys
+        got = tloader._merge([tds.example(*k) for k in keys])
+        q = Queue()
+        jloader._emit(q, [jds.example(*k) for k in keys])
+        want = q[0]
+        assert sorted(got) == sorted(want)
+        for k in want:
+            if isinstance(want[k], list):
+                assert len(got[k]) == len(want[k]), k
+                for g, w in zip(got[k], want[k]):
+                    assert_same_tree(g, w)
+            else:
+                assert_same(got[k], want[k], k)
+        V = got["voxels"].shape[1]
+        caps.append(V)
+        plan = tloader._bucket_plans[V]
+        assert got["rb0_subm_idx"].shape[-1] == plan[0].in_cap
+    assert min(caps) < 12000, caps
 
 
 # --------------------------------------------------------------------------

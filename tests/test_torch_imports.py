@@ -73,6 +73,10 @@ import automatic_as_built_reconstruction_tpu_torch.utils.config_tool
 import automatic_as_built_reconstruction_tpu_torch.data.scan_io
 import automatic_as_built_reconstruction_tpu_torch.core.nms
 import automatic_as_built_reconstruction_tpu_torch.core.bev_ops
+import automatic_as_built_reconstruction_tpu_torch.models.voxel_encoder
+import automatic_as_built_reconstruction_tpu_torch.models.pointpillars
+import automatic_as_built_reconstruction_tpu_torch.models.rpn
+import automatic_as_built_reconstruction_tpu_torch.ops.nms
 import chip_smoke
 import head_drift
 import join_grad_ablation

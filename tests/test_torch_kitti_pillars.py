@@ -213,9 +213,19 @@ def test_pools_bucket_as_the_sequential_loader(clone, tmp_path):
 
 
 def test_loader_refuses_bucket_plans():
-    with pytest.raises(NotImplementedError, match="bucket_plans"):
-        input_pipeline.BatchLoader(None, 2, False, buckets=(4, 8),
-                                   bucket_plans={4: [], 8: []})
+    """``bucket_plans`` were refused until the port had them (host
+    rulebooks padded to a bucket's plan, ``tests/test_torch_sparse_
+    builders.py``); a batch without host rulebooks is shrunk to its
+    bucket as without them."""
+    loader = input_pipeline.BatchLoader(None, 2, False, buckets=(4, 8),
+                                        bucket_plans={4: [], 8: []})
+    ex = {"voxels": np.zeros((8, 3, 4), np.float32),
+          "num_points": np.zeros((8,), np.int32),
+          "coordinates": np.full((8, 3), -1, np.int32),
+          "num_voxels": np.asarray(3, np.int32)}
+    batch = loader._merge([ex, dict(ex)])
+    assert batch["voxels"].shape == (2, 4, 3, 4)
+    assert batch["coordinates"].shape == (2, 4, 3)
 
 
 def test_full_width_training_examples_equal_reference(clone, tmp_path):

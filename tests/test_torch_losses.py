@@ -232,6 +232,15 @@ def test_adamw_steps_match_optax():
 ], ids=["constant_lr", "adam_add_decayed_weights", "adam", "momentum",
         "rmsprop"])
 def test_unported_optimizer_branches_raise(optimizer, match):
-    with pytest.raises(NotImplementedError, match=match):
-        optimizer_builder.build(optimizer, 100,
-                                [torch.nn.Parameter(torch.zeros(3))])
+    """These branches were refused until the port had them; each now
+    builds the optimizer the JAX package's builder names (``match``), and
+    ``tests/test_torch_optimizers.py`` holds its updates to optax."""
+    opt, schedule = optimizer_builder.build(
+        optimizer, 100, [torch.nn.Parameter(torch.zeros(3))])
+    kinds = {"constant_learning_rate": torch.optim.AdamW,
+             "adamw": optimizer_builder.Adam,
+             "momentum_optimizer": optimizer_builder.MomentumSGD,
+             "rms_prop_optimizer": optimizer_builder.RMSprop}
+    assert type(opt) is kinds[match]
+    assert len(opt.param_groups) == 1
+    assert schedule(0) > 0 and opt.param_groups[0]["lr"] == schedule(0)

@@ -28,6 +28,8 @@ from automatic_as_built_reconstruction_tpu_torch.data.building import (
 from automatic_as_built_reconstruction_tpu_torch.parallel.inference import (
     build_from_config, load_checkpoint_variables)
 from automatic_as_built_reconstruction_tpu_torch.utils import weight_import
+from automatic_as_built_reconstruction_tpu_torch.utils.seeded_init import (
+    load_seeded)
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_CFG = REPO / "automatic_as_built_reconstruction_tpu" / "configs" / "building"
@@ -217,9 +219,33 @@ def test_flat_pfn_matches_jax_segment_ops_and_the_padded_path(
         "softmax_scores", "no_direction_head", "dense_middle",
         "simple_voxel_radius"])
 def test_unported_options_raise(variant):
-    """Options that are not ported are refused, not served; float16
-    among them.  bfloat16 is ported for both families
-    (``tests/test_torch_mixed*.py``)."""
+    """float16 is not ported and is refused, not served (bfloat16 is
+    ported for both families, ``tests/test_torch_mixed*.py``).  The other
+    options were refused until the port had them; each now builds and its
+    forward gives finite heads of its shape (their parity with the JAX
+    package: ``tests/test_torch_heads.py``,
+    ``tests/test_torch_voxelnet_dense.py``)."""
     _, tcfg, _ = build_from_config(PORT_CFG / "asbuilt_pillars_tiny.config")
-    with pytest.raises(NotImplementedError):
-        tvn.VoxelNet(dataclasses.replace(tcfg, **variant))
+    cfg = dataclasses.replace(tcfg, **variant)
+    if cfg.compute_dtype == "float16":
+        with pytest.raises(NotImplementedError):
+            tvn.VoxelNet(cfg)
+        return
+    model = tvn.VoxelNet(cfg).eval()
+    load_seeded(model, 0)
+    V, T = 16, 4
+    rng = np.random.default_rng(0)
+    voxels = torch.from_numpy(rng.uniform(0, 1, (1, V, T, 4)).astype(
+        np.float32))
+    coords = torch.from_numpy(np.stack(
+        [np.zeros(V), rng.permutation(16)[:V], np.arange(V)], -1)[None]
+        .astype(np.int32))
+    with torch.no_grad():
+        preds = model(voxels, torch.full((1, V), T, dtype=torch.int32),
+                      coords)
+    ncls = cfg.num_class + (not cfg.encode_background_as_zeros)
+    A = cfg.num_anchor_per_loc
+    assert preds["cls_preds"].shape[1] == A * ncls
+    assert ("dir_cls_preds" in preds) == cfg.use_direction_classifier
+    assert ("quality_preds" in preds) == cfg.use_yaw_quality_head
+    assert all(bool(torch.isfinite(v).all()) for v in preds.values())

@@ -286,3 +286,80 @@ def test_cli_import_then_evaluate_matches_jax(tmp_path, capsys):
                              device="cpu")
     assert ckpt_mod.CheckpointManager(port_dir).restore(state) is state
     assert state.step == 0 and not state.optimizer.state
+
+
+# the VoxelNet family: the paper's VFE (or its V2), the dense middle, a
+# fractional upsample stride and the yaw-quality head
+VOXELNET_MICRO = dict(
+    num_input_features=4, vfe_name="VoxelFeatureExtractor",
+    vfe_num_filters=(8, 16), middle_name="DenseMiddle",
+    grid_size=(16, 16, 8), voxel_size=(0.5, 0.5, 0.5),
+    pc_range=(0.0, -4.0, -3.0, 8.0, 4.0, 1.0),
+    middle_num_filters=(8, 8), middle_layers_per_block=(1, 1),
+    middle_z_strides=(2, 2), middle_xy_strides=(1, 2),
+    rpn_layer_nums=(1, 1), rpn_layer_strides=(1, 2),
+    rpn_num_filters=(8, 8), rpn_upsample_strides=(0.5, 1),
+    rpn_num_upsample_filters=(8, 8), use_yaw_quality_head=True,
+    num_class=1, num_anchor_per_loc=2)
+
+
+@pytest.mark.parametrize("vfe", ["VoxelFeatureExtractor",
+                                 "VoxelFeatureExtractorV2"])
+def test_voxelnet_lineage_keys_match_jax(vfe):
+    """The VoxelNet VFEs' lineage keys (``vfe{i}.linear`` / ``.norm`` from
+    1, the trailing ``linear`` / ``norm``) and a fractional upsample's
+    conv, key for key and value for value as the JAX package's mapping
+    gives them.  The JAX mapping has no slot for ``DenseMiddle`` or
+    ``conv_quality``, and neither has the port's lineage mapping or
+    import: importing a lineage state_dict keeps the model's own values
+    there, as the JAX import keeps the variables' own; the port's
+    ``load_variables`` carries them under the port's names besides."""
+    jcfg = jvn.VoxelNetConfig(**dict(VOXELNET_MICRO, vfe_name=vfe))
+    variables = random_variables(jcfg, seed=4)
+    ref = jax_weight_import.to_torch_state_dict(variables)
+    got = weight_import.to_torch_state_dict(variables)
+    assert sorted(got) == sorted(ref)
+    for k, v in ref.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+    vfe_keys = sorted(k for k in got
+                      if k.startswith("voxel_feature_extractor."))
+    n_vfe = 2 if vfe == "VoxelFeatureExtractor" else 1
+    assert [k for k in vfe_keys if ".vfe" in k] == sorted(
+        f"voxel_feature_extractor.vfe{i + 1}.{m}"
+        for i in range(n_vfe) for m in (
+            "linear.weight", "norm.bias", "norm.running_mean",
+            "norm.running_var", "norm.weight"))
+    assert "voxel_feature_extractor.linear.weight" in got
+    assert "voxel_feature_extractor.norm.running_var" in got
+    assert got["rpn.deblocks.0.0.weight"].shape == (8, 8, 2, 2)
+    assert not any(k.startswith("middle_feature_extractor") or
+                   "conv_quality" in k for k in got)
+
+    # load_variables: the whole tree, the port-only part included
+    model = port_model(jcfg)
+    weight_import.load_variables(model, variables)
+    port_only = weight_import.port_only_state(variables)
+    assert sorted(port_only) == sorted(
+        k for k in model.state_dict() if (k.startswith(
+            "middle_feature_extractor") or "conv_quality" in k)
+        and not k.endswith("num_batches_tracked"))
+    w = np.asarray(variables["params"]["DenseMiddle_0"]["Conv_1"]["kernel"])
+    np.testing.assert_array_equal(
+        model.state_dict()["middle_feature_extractor.middle_conv.3.weight"]
+        .numpy(), w.transpose(4, 3, 0, 1, 2))
+
+    # a lineage import: the JAX package's import of the same state_dict
+    sd = lineage_state_dict(variables)
+    other = jax.tree_util.tree_map(lambda x: np.asarray(x) + 1, variables)
+    imported = jax_weight_import.from_torch_state_dict(sd, other)
+    fresh = port_model(jcfg)
+    kept = {k: v.clone() for k, v in fresh.state_dict().items()}
+    model = weight_import.from_torch_state_dict(sd, fresh)
+    for k, v in weight_import.to_torch_state_dict(imported).items():
+        np.testing.assert_array_equal(model.state_dict()[k].numpy(), v,
+                                      err_msg=k)
+    np.testing.assert_array_equal(
+        np.asarray(imported["params"]["DenseMiddle_0"]["Conv_0"]["kernel"]),
+        np.asarray(other["params"]["DenseMiddle_0"]["Conv_0"]["kernel"]))
+    for k in port_only:
+        assert torch.equal(model.state_dict()[k], kept[k]), k
